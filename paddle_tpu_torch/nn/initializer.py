@@ -1,0 +1,67 @@
+"""Weight initializers (counterpart: ``paddle_tpu/nn/initializer``).
+
+Each initializer draws on the target device from the package's seeded
+generator (``core.random.default_generator``), so a full-width model is
+initialized on the card without a host round trip.
+"""
+import math
+
+import torch
+
+from ..core.device import resolve_device
+from ..core.dtype import convert_dtype
+from ..core.random import default_generator
+
+
+class Initializer:
+    def __call__(self, shape, dtype="float32", device=None):
+        raise NotImplementedError
+
+
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def __call__(self, shape, dtype="float32", device=None):
+        return torch.full(tuple(shape), self.value,
+                          dtype=convert_dtype(dtype),
+                          device=resolve_device(device))
+
+
+def _normal(shape, dtype, device, mean, std):
+    dev = resolve_device(device)
+    x = torch.randn(tuple(shape), generator=default_generator(dev),
+                    device=dev, dtype=torch.float32)
+    return (x * std + mean).to(convert_dtype(dtype))
+
+
+class Normal(Initializer):
+    def __init__(self, mean=0.0, std=1.0):
+        self.mean, self.std = mean, std
+
+    def __call__(self, shape, dtype="float32", device=None):
+        return _normal(shape, dtype, device, self.mean, self.std)
+
+
+def _fans(shape):
+    shape = tuple(shape)
+    if len(shape) == 0:
+        return 1, 1
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[2:])
+    return shape[1] * receptive, shape[0] * receptive
+
+
+class XavierNormal(Initializer):
+    def __init__(self, fan_in=None, fan_out=None, gain=1.0):
+        self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
+
+    def __call__(self, shape, dtype="float32", device=None):
+        fi, fo = _fans(shape)
+        fi = self.fan_in or fi
+        fo = self.fan_out or fo
+        std = self.gain * math.sqrt(2.0 / (fi + fo))
+        return _normal(shape, dtype, device, 0.0, std)

@@ -1,0 +1,101 @@
+"""The port's flash-attention forward (``paddle_tpu_torch.kernels.
+flash_attention``) against the reference Pallas kernel run in interpret
+mode, on the cases of ``tests/test_kernels.py``.
+
+On the CPU the port's wrapper takes its plain PyTorch version (the CUDA
+kernel itself is checked against that version on the card by
+``chip_smoke.py``). Inputs are made with numpy from a seed and fed to
+both packages.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.kernels.flash_attention import \
+    flash_attention_bshd as ref_flash
+from paddle_tpu_torch.kernels import flash_attention as fa
+
+F32_TOL = 1e-5   # as tests/test_kernels.py: same f32 algorithm, other order
+BF16_TOL = 1e-2  # one bf16 rounding step of O (2^-8 relative) and then some
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+def _qkv(seed, b, s_q, h, d, s_k=None):
+    rng = np.random.RandomState(seed)
+    s_k = s_k or s_q
+    return (rng.randn(b, s_q, h, d).astype("float32"),
+            rng.randn(b, s_k, h, d).astype("float32"),
+            rng.randn(b, s_k, h, d).astype("float32"))
+
+
+def _both(q, k, v, causal, dtype=None):
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    if dtype == "bfloat16":
+        jq, jk, jv = (x.astype(jnp.bfloat16) for x in (jq, jk, jv))
+        tq, tk, tv = (x.to(torch.bfloat16) for x in (tq, tk, tv))
+    want = ref_flash(jq, jk, jv, causal=causal, interpret=True)
+    got = fa.flash_attention_bshd(tq, tk, tv, causal=causal)
+    return np.asarray(want.astype(jnp.float32)), got.float().numpy(), got
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [128, 384, 200])
+def test_forward_matches_pallas_interpret(s, causal):
+    want, got, _ = _both(*_qkv(s, 2, s, 2, 64), causal)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_bf16_input_matches_pallas_interpret():
+    want, got, raw = _both(*_qkv(7, 1, 256, 2, 64), True, dtype="bfloat16")
+    assert raw.dtype == torch.bfloat16
+    np.testing.assert_allclose(got, want, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_cross_attention_lengths():
+    want, got, _ = _both(*_qkv(9, 1, 128, 2, 32, s_k=320), False)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_lse_is_the_row_logsumexp(causal):
+    q, k, v = _qkv(11, 1, 200, 2, 32)
+    _, lse = fa.flash_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)),
+                                    causal=causal)
+    logits = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                       k.astype(np.float64)) / np.sqrt(32)
+    if causal:
+        logits = np.where(np.tril(np.ones((200, 200), bool)), logits, -np.inf)
+    mx = logits.max(-1, keepdims=True)
+    want = (mx + np.log(np.exp(logits - mx).sum(-1, keepdims=True)))[..., 0]
+    assert lse.shape == (1, 2, 200) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_causal_needs_equal_lengths():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 1, 128, 2, 32, s_k=256))
+    with pytest.raises(NotImplementedError, match="s_q == s_k"):
+        fa.flash_attention_bshd(q, k, v, causal=True)
+
+
+def test_no_silent_cpu_run():
+    """Without CUDA, entry points whose device is left unset raise; the
+    wrapper takes its plain version only for CPU tensors."""
+    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is legal")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForCausalLM(GPTConfig(vocab_size=16, hidden_size=8, num_layers=1,
+                                 num_heads=2, max_seq_len=8))
+    meta = torch.empty(1, 8, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_fwd(meta, meta, meta)

@@ -1,0 +1,134 @@
+"""The served slice on the CPU: a tiny GPT (vocab 256, hidden 64, 2
+layers, 4 heads, max_seq_len 1024, so attention takes the flash branch in
+the port) with the reference's weights moved over by the bridge.
+
+- port eager forward vs ``paddle_tpu`` eager forward (float32);
+- port ``Engine.from_layer`` at buckets (1, 4) vs the reference eager
+  forward, with a request that pads and one that chunks;
+- port engine vs the reference engine at ``bucket_ladder=(1,)`` (the
+  reference engine cannot serve GPT at a bucket > 1: ``static.data``
+  records the batch as 1 and ``GPTBlock`` bakes it into its reshapes),
+  with and without the ``bf16`` pass;
+- bridge mismatches raise.
+
+Tolerances: float32 1e-4 (the same math in another order; logits are
+O(10)); bf16 engines: relative L2 error <= 5e-2 against the float32
+reference (bf16 keeps ~3 significant digits through 2 layers).
+"""
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu import serving as ref_serving
+from paddle_tpu.models.gpt import GPTConfig as RefConfig
+from paddle_tpu.models.gpt import GPTForCausalLM as RefGPT
+from paddle_tpu_torch import serving
+from paddle_tpu_torch.bridge import load_reference_state
+from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
+                                         synthetic_lm_batch)
+
+SEQ = 1024
+F32_TOL = 1e-4
+BF16_REL_L2 = 5e-2
+TINY = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+            max_seq_len=SEQ, hidden_dropout=0.0, attention_dropout=0.0)
+SPEC = [([None, SEQ], "int32")]
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def models():
+    """(reference model, its numpy state, port model, ids, reference
+    eager logits for ids)."""
+    paddle.seed(5)
+    ref = RefGPT(RefConfig(**TINY))
+    ref.eval()
+    state = {n: np.asarray(t.numpy()) for n, t in ref.state_dict().items()}
+    port = load_reference_state(GPTForCausalLM(GPTConfig(**TINY),
+                                               device="cpu"), state).eval()
+    ids = synthetic_lm_batch(6, SEQ, TINY["vocab_size"], seed=3)
+    want = ref(paddle.to_tensor(ids)).numpy()
+    return ref, state, port, ids, want
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def test_eager_forward_matches_reference(models):
+    _ref, _state, port, ids, want = models
+    with torch.no_grad():
+        got = port(torch.from_numpy(ids)).numpy()
+    assert got.shape == (6, SEQ, TINY["vocab_size"])
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_engine_buckets_match_reference_eager(models):
+    _ref, _state, port, ids, want = models
+    with serving.Engine.from_layer(port, SPEC, bucket_ladder=(1, 4),
+                                   device="cpu") as eng:
+        (padded,) = eng.predict(ids[:3])   # 3 rows -> bucket 4
+        (chunked,) = eng.predict(ids)      # 6 rows -> chunks of 4 and 2
+        (single,) = eng.predict(ids[5:6])  # bucket 1
+        stats = eng.stats()
+    np.testing.assert_allclose(padded, want[:3], rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(chunked, want, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(single, want[5:6], rtol=F32_TOL, atol=F32_TOL)
+    assert stats["chunked_requests"] == 1
+    assert stats["padded_rows"] == 1 + 2
+    assert stats["batches_by_bucket"] == {1: 1, 4: 3}
+    assert stats["warmup_runs"] == 2
+
+
+@pytest.mark.parametrize("passes", [(), ("bf16",)], ids=["fp32", "bf16"])
+def test_engine_matches_reference_engine(models, passes):
+    ref, _state, port, ids, want = models
+    req = ids[:2]  # chunked into two 1-row batches at bucket_ladder=(1,)
+    with ref_serving.Engine.from_layer(ref, SPEC, bucket_ladder=(1,),
+                                       passes=passes) as eng:
+        (ref_out,) = eng.predict(req)
+    with serving.Engine.from_layer(port, SPEC, bucket_ladder=(1,),
+                                   passes=passes, device="cpu") as eng:
+        (got,) = eng.predict(req)
+    assert got.dtype == np.float32 and got.shape == ref_out.shape
+    if not passes:
+        np.testing.assert_allclose(got, ref_out, rtol=F32_TOL, atol=F32_TOL)
+        return
+    assert not np.array_equal(got, want[:2])  # really computed in bf16
+    assert _rel_l2(got, want[:2]) <= BF16_REL_L2
+    assert _rel_l2(ref_out, want[:2]) <= BF16_REL_L2
+    # the live model is left in float32
+    assert all(p.dtype == torch.float32 for p in port.parameters())
+
+
+def test_bridge_mismatch_raises(models):
+    _ref, state, _port, _ids, _want = models
+    fresh = GPTForCausalLM(GPTConfig(**TINY), device="cpu")
+    missing = dict(state)
+    missing.pop("gpt.blocks.1.fc2.bias")
+    with pytest.raises(ValueError, match="missing.*gpt.blocks.1.fc2.bias"):
+        load_reference_state(fresh, missing)
+    extra = dict(state, **{"gpt.head.weight": np.zeros((2, 2), "float32")})
+    with pytest.raises(ValueError, match="unexpected.*gpt.head.weight"):
+        load_reference_state(fresh, extra)
+    wrong = dict(state)
+    wrong["gpt.blocks.0.qkv.weight"] = wrong["gpt.blocks.0.qkv.weight"].T
+    with pytest.raises(ValueError, match="shape mismatch.*qkv.weight"):
+        load_reference_state(fresh, wrong)
+    # the Layer's own lenient loader reports (missing, unexpected) instead
+    assert fresh.set_state_dict(missing) == (["gpt.blocks.1.fc2.bias"], [])
+    np.testing.assert_array_equal(
+        fresh.gpt.wte.weight.detach().numpy(), state["gpt.wte.weight"])
+
+
+def test_engine_device_rule(models):
+    _ref, _state, port, _ids, _want = models
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is legal")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.Engine.from_layer(port, SPEC, bucket_ladder=(1,))
