@@ -1,13 +1,14 @@
 """GPT-style decoder (counterpart: ``paddle_tpu/models/gpt.py``).
 
 ``GPTConfig``, ``gpt_small``, ``GPTBlock``, ``GPTModel`` and
-``GPTForCausalLM`` with the reference's parameter names and layouts, so a
-reference ``state_dict`` loads by plain copy (``bridge``). The LM head is
-tied to ``wte``. Attention runs through
-``F.scaled_dot_product_attention(is_causal=True)``, which takes the
-flash-attention kernel at ``seq_len >= 1024``.
+``GPTForCausalLM`` (with ``loss`` and ``flops_per_token``) with the
+reference's parameter names and layouts, so a reference ``state_dict``
+loads by plain copy (``bridge``). The LM head is tied to ``wte``.
+Attention runs through ``F.scaled_dot_product_attention(is_causal=True)``,
+which takes the flash-attention kernels at ``seq_len >= 1024``.
 """
 import numpy as np
+import torch
 
 from .. import nn, ops
 from ..core.device import resolve_device
@@ -96,6 +97,25 @@ class GPTForCausalLM(nn.Layer):
         hidden = self.gpt(input_ids)
         # weight-tied LM head
         return ops.matmul(hidden, self.gpt.wte.weight, transpose_y=True)
+
+    def loss(self, logits, labels):
+        """Next-token cross entropy, mean over positions 0..S-2 (the
+        reference's ``logits[:, :-1]`` against ``labels[:, 1:]``). The last
+        position's label is set to ``ignore_index`` instead of slicing the
+        logits, which would copy ``[B, S-1, vocab]``; the mean is the
+        same."""
+        v = logits.shape[-1]
+        labels = torch.as_tensor(labels, device=logits.device).long()
+        shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
+                                                            -100)], dim=1)
+        return F.cross_entropy(ops.reshape(logits, [-1, v]),
+                               ops.reshape(shifted, [-1]), ignore_index=-100)
+
+    def flops_per_token(self, seq_len=None):
+        cfg = self.config
+        n = sum(p.numel() for p in self.parameters())
+        s = seq_len or cfg.max_seq_len
+        return 6 * n + 12 * cfg.num_layers * cfg.hidden_size * s
 
 
 def synthetic_lm_batch(batch_size, seq_len, vocab_size=50304, seed=0):

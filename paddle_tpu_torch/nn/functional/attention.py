@@ -3,13 +3,14 @@
 
 Same gate and branch conditions as the reference: with no mask, dropout
 inactive and ``seq_len >= _FLASH_MIN_SEQ`` the call goes to the
-flash-attention kernel (``kernels.flash_attention``: the CUDA kernel on
-the card, its plain version on the CPU); otherwise the attention is
+flash-attention kernels (``kernels.flash_attention``: the CUDA kernels on
+the card, their plain versions on the CPU); otherwise the attention is
 written out in torch ops, with the reference's ``-1e9`` masking and
 max-subtracted softmax.
 """
 import torch
 
+from ...amp.auto_cast import cast_inputs
 from ...core.random import default_generator
 from ...kernels import flash_attention as _fa
 
@@ -21,7 +22,10 @@ _FLASH_MIN_SEQ = 1024
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False, training=True,
                                  scale=None):
-    """q/k/v: [batch, seq, heads, head_dim] (paddle layout)."""
+    """q/k/v: [batch, seq, heads, head_dim] (paddle layout). The flash
+    branch is differentiable through the kernels' autograd Function."""
+    query, key, value, attn_mask = cast_inputs(
+        "scaled_dot_product_attention", query, key, value, attn_mask)
     seq_len = query.shape[1]
     dropout_inactive = dropout_p == 0.0 or not training
     if dropout_inactive and attn_mask is None and seq_len >= _FLASH_MIN_SEQ:

@@ -1,19 +1,22 @@
 """linear, embedding, dropout (counterpart:
 ``paddle_tpu/nn/functional/common.py``). Plain torch ops: the JAX package
-left these to XLA."""
+left these to XLA. ``linear`` and ``embedding`` consult ``amp.auto_cast``."""
 import torch
 
+from ...amp.auto_cast import cast_inputs
 from ...core.random import default_generator
 
 
 def linear(x, weight, bias=None):
     """y = x @ W + b with the reference's weight layout W: [in, out]."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
     y = torch.matmul(x, weight)
     return y if bias is None else y + bias
 
 
 def embedding(x, weight, padding_idx=None):
     """Row lookup; rows whose id is ``padding_idx`` come out as zeros."""
+    (weight,) = cast_inputs("embedding", weight)
     out = torch.nn.functional.embedding(x, weight)
     if padding_idx is not None:
         out = out.masked_fill((x == padding_idx).unsqueeze(-1), 0.0)

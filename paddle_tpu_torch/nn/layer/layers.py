@@ -3,10 +3,12 @@
 
 A ``torch.nn.Module`` that keeps the reference's surface where the port
 needs it: ``create_parameter`` through the package's initializers on an
-explicit device, ``set_state_dict`` returning (missing, unexpected), and
-``to(dtype)`` taking paddle dtype names. Structured ``state_dict`` names
-are ``torch.nn.Module``'s own and match the reference's
-(``gpt.blocks.0.qkv.weight``, ...).
+explicit device, ``set_state_dict`` returning (missing, unexpected),
+``to(dtype)`` taking paddle dtype names, and ``parameters()`` naming
+each parameter by its structured name as ``p.param_name`` (what the
+optimizers key their state by; torch reserves ``Tensor.name``).
+Structured ``state_dict`` names are ``torch.nn.Module``'s own and match
+the reference's (``gpt.blocks.0.qkv.weight``, ...).
 """
 import numpy as np
 import torch
@@ -26,6 +28,14 @@ class Layer(torch.nn.Module):
                                        else I.XavierNormal())
         value = init(shape, dtype or self._dtype, device=device)
         return torch.nn.Parameter(value)
+
+    def parameters(self, recurse=True):
+        """``torch.nn.Module.parameters``, and each parameter gets
+        ``p.param_name``, its structured name under this layer (the
+        reference names parameters too)."""
+        for name, p in self.named_parameters(recurse=recurse):
+            p.param_name = name
+            yield p
 
     def set_state_dict(self, state_dict):
         """Copy matching entries in place (cast to each parameter's dtype

@@ -1,8 +1,10 @@
 """Tensor ops on the served path (counterparts: ``paddle_tpu/ops/
 manipulation.py`` reshape/unstack, ``paddle_tpu/ops/math.py``
-arange/matmul/cast). Plain functions on tensors."""
+arange/matmul/cast). Plain functions on tensors; ``matmul`` consults
+``amp.auto_cast``."""
 import torch
 
+from .amp.auto_cast import cast_inputs
 from .core.device import resolve_device
 from .core.dtype import convert_dtype
 
@@ -26,6 +28,7 @@ def arange(start=0, end=None, step=1, dtype=None, device=None):
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False):
+    x, y = cast_inputs("matmul", x, y)
     if transpose_x and x.dim() > 1:
         x = x.transpose(-1, -2)
     if transpose_y and y.dim() > 1:

@@ -17,8 +17,12 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print(len([n for n in sys.modules if n.startswith("paddle_tpu_torch")]))
 print(bad)
+print(sorted(n for n in sys.modules if n.count(".") == 1
+             and n.startswith("paddle_tpu_torch.")))
 sys.exit(1 if bad else 0)
 """
+# the training slice's modules, besides the served slice's
+_TRAINING = ("amp", "optimizer", "observability", "regularizer")
 
 
 def _forbidden(name):
@@ -31,8 +35,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    n_modules, bad = res.stdout.split("\n")[:2]
+    n_modules, bad, top = res.stdout.split("\n")[:3]
     assert int(n_modules) >= 20 and bad == "[]"
+    for name in _TRAINING:
+        assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
 
 
 def test_no_file_imports_jax_or_reference():
