@@ -10,29 +10,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``nvcc`` per source, all started together), with ptxas's register and
    spill lines.
 2. Kernels against their plain PyTorch versions on the card, on the
-   served and trained shapes and the reference kernel tests' cases, each
-   within a stated tolerance, and the autograd Function's gradients
-   against autograd of the written-out attention; each kernel, its plain
-   version and one PyTorch library call (a yardstick only) timed with CUDA
-   events at the main paths' shapes, beside the roofline bound.
+   served and trained shapes and the reference kernel tests' cases, in
+   bf16 (the forward and dQ on the tensor-core kernels) and float32 (the
+   CUDA-core kernels), each within a stated tolerance, the Delta that dQ
+   returns against ``rowsum(O * dO)``, and the autograd Function's
+   gradients against autograd of the written-out attention; each kernel
+   (CUDA events and profiled device time), its plain version and one
+   PyTorch library call (a yardstick only) timed at the main paths'
+   shapes, beside the roofline bound.
 3. The served path: GPT-small (vocab 50304, hidden 768, 12 layers, 12
    heads, seq 1024) with seeded random weights behind
    ``serving.Engine.from_layer(..., bucket_ladder=(1, 4), passes=("bf16",))``,
    fed concurrent requests. Launch counts are zeroed just before and read
-   just after; outputs are checked for shape and finiteness, a float32
-   engine is held against the same model run on the CPU, and the bf16
-   logits against the float32 ones.
+   just after, and every launch must be on the bf16 variant; outputs are
+   checked for shape and finiteness, a float32 engine is held against the
+   same model run on the CPU, and the bf16 logits against the float32
+   ones.
 4. The trained path: the same GPT-small trained eagerly for 12 steps (2
    warm-up, 10 timed) on one seeded batch of 8 x 1024 tokens with the
    recipe of the JAX package's ``bench.py``: bf16 parameters,
    ``auto_cast(dtype="bfloat16")``, ``AdamW(multi_precision=True)``,
    ``ClipGradByGlobalNorm(1.0)`` and a ``LinearWarmup`` rate. Launch
    counts are zeroed just before and read just after: each kernel must
-   launch 12 times a step. Losses must be finite and fall; a float32 step
-   on the card (kernels) is held against the same step on the CPU (plain
-   versions); the bf16 loss of step 1 against the float32 loss. Step
-   time, tokens/s and MFU (the port's ``StepTimer``) and peak memory are
-   printed.
+   launch 12 times a step, all on the bf16 variant. Losses must be finite
+   and fall; a float32 step on the card (kernels) is held against the same
+   step on the CPU (plain versions); the bf16 loss of step 1 against the
+   float32 loss. Step
+   time, tokens/s and MFU (the port's ``StepTimer``), peak memory and one
+   profiled step (device busy time, idle share, each kernel's device time
+   per launch) are printed.
 5. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -96,20 +102,31 @@ TRAIN_BATCH = 8     # 8 x 1024 tokens a step
 TRAIN_STEPS, WARMUP_STEPS = 12, 2
 # GPT-3 Small's (125M) published peak rate, Brown et al. 2020, table 2.1
 PEAK_LR, START_LR = 6e-4, 6e-5
-SOURCES = {"flash_attention_fwd": "paddle_tpu_torch/kernels/csrc/"
-                                  "flash_attention_fwd.cu",
-           "flash_attention_bwd": "paddle_tpu_torch/kernels/csrc/"
-                                  "flash_attention_bwd.cu"}
+SOURCES = {name: f"paddle_tpu_torch/kernels/csrc/{name}.cu" for name in (
+    "flash_attention_fwd", "flash_attention_bwd",   # float32: CUDA cores
+    "flash_attention_fwd_sm90",                     # bf16: tensor cores
+    "flash_attention_bwd_dq_sm90")}
+# Each kernel's source per dtype variant; the main paths run bf16. "kernel"
+# is the CUDA function's name as the profiler reports it.
 KERNELS = [
     {"name": "flash_attention_fwd", "route": "cuda",
-     "source": SOURCES["flash_attention_fwd"],
-     "replaces": "paddle_tpu/kernels/flash_attention.py:35"},
+     "source": SOURCES["flash_attention_fwd_sm90"],
+     "replaces": "paddle_tpu/kernels/flash_attention.py:35",
+     "variants": {"bf16": SOURCES["flash_attention_fwd_sm90"],
+                  "float32": SOURCES["flash_attention_fwd"]},
+     "kernel": "flash_fwd_sm90_kernel"},
     {"name": "flash_attention_bwd_dq", "route": "cuda",
-     "source": SOURCES["flash_attention_bwd"],
-     "replaces": "paddle_tpu/kernels/flash_attention.py:111"},
+     "source": SOURCES["flash_attention_bwd_dq_sm90"],
+     "replaces": "paddle_tpu/kernels/flash_attention.py:111",
+     "variants": {"bf16": SOURCES["flash_attention_bwd_dq_sm90"],
+                  "float32": SOURCES["flash_attention_bwd"]},
+     "kernel": "flash_bwd_dq_sm90_kernel"},
     {"name": "flash_attention_bwd_dkv", "route": "cuda",
      "source": SOURCES["flash_attention_bwd"],
-     "replaces": "paddle_tpu/kernels/flash_attention.py:146"},
+     "replaces": "paddle_tpu/kernels/flash_attention.py:146",
+     "variants": {"bf16": SOURCES["flash_attention_bwd"],
+                  "float32": SOURCES["flash_attention_bwd"]},
+     "kernel": "flash_bwd_dkv_kernel"},
 ]
 
 
@@ -126,15 +143,21 @@ def card_line():
 
 
 def ptxas_report(build_log):
-    """One line per compiled kernel from ``nvcc -Xptxas=-v``: its name,
-    element type and head dim, registers and spills."""
+    """One line per compiled kernel from ``nvcc -Xptxas=-v``: its name and
+    template arguments (element type, head dim, warpgroups), registers and
+    spills."""
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
-        m = re.search(r"(?<=\d)([a-z_]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
-                      line)
+        m = re.search(r"_kernelI((?:13__nv_bfloat16|f|Li\d+E)+)E", line)
         if "Compiling entry" in line and m:
-            dtype = "f32" if m[2] == "f" else "bf16"
-            name = f"{m[1]}<{dtype}, D={m[3]}>"
+            head = line[:m.start() + len("_kernel")]
+            # the mangled name is preceded by its length
+            n = next(n for n in range(7, len(head))
+                     if head[:-n].endswith(str(n)))
+            args = ["bf16" if a == "13__nv_bfloat16" else "f32" if a == "f"
+                    else a[2:-1] for a in
+                    re.findall(r"13__nv_bfloat16|f|Li\d+E", m[1])]
+            name = f"{head[-n:]}<{', '.join(args)}>"
         elif "spill" in line:
             spill = line.split(":")[-1].strip()
         elif "registers" in line and name:
@@ -155,6 +178,31 @@ def cuda_time_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel, iters=20, attempts=3):
+    """Device time per launch of the CUDA function named ``kernel``, from
+    ``torch.profiler`` over ``iters`` calls of ``fn``. A profiler run on
+    the card now and then records no device activity; it is tried again up
+    to ``attempts`` times (None if none saw a launch)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if times:
+            return sum(times) / len(times) / 1e3
+    return None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def flash_bound(b, s_q, s_k, h, d, dtype, causal):
@@ -195,8 +243,9 @@ def rand(gen, b, s, h, d, dtype):
 
 
 def flash_cases(gen):
-    """(label, dtype, causal, (q, k, v)): the main paths' shapes and the
-    reference kernel tests' cases."""
+    """(label, dtype, causal, (q, k, v)): the main paths' shapes, the
+    reference kernel tests' cases and the ragged length at the other head
+    dims."""
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for b in (TRAIN_BATCH, 4, 1):  # trained, and the served buckets
@@ -208,6 +257,11 @@ def flash_cases(gen):
                 cases.append((f"s={s}", dtype, causal,
                               [rand(gen, 2, s, 2, 64, dtype)
                                for _ in range(3)]))
+        for d in (32, 128):
+            for causal in (False, True):
+                cases.append((f"s=200 d={d}", dtype, causal,
+                              [rand(gen, 2, 200, 2, d, dtype)
+                               for _ in range(3)]))
         cases.append(("cross 128x320", dtype, False,
                       [rand(gen, 1, 128, 2, 32, dtype)]
                       + [rand(gen, 1, 320, 2, 32, dtype) for _ in range(2)]))
@@ -215,10 +269,12 @@ def flash_cases(gen):
 
 
 def time_flash_fwd(fa, gen, b):
-    """The forward kernel, its plain version and the library call at
-    [b, 1024, 12, 64] bf16 causal."""
+    """The forward kernel (event and profiled device time), its plain
+    version and the library call at [b, 1024, 12, 64] bf16 causal."""
     q, k, v = qkv_views(gen, b, 12, 64, torch.bfloat16)
     ms = cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True), 50)
+    dev_ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+                       KERNELS[0]["kernel"])
     plain_ms = cuda_time_ms(
         lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True), 5, 1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -228,11 +284,13 @@ def time_flash_fwd(fa, gen, b):
     bound_ms, bound_by = flash_bound(b, SEQ, SEQ, 12, 64, torch.bfloat16,
                                      True)
     log(f"  flash fwd [{b}, {SEQ}, 12, 64] bf16 causal: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{ms:.4f} ms (events), {fmt_ms(dev_ms)} (profiled device time), "
+        f"plain {plain_ms:.4f} ms, "
         f"library (F.scaled_dot_product_attention) {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def check_flash(fa, failures, gen):
@@ -242,6 +300,7 @@ def check_flash(fa, failures, gen):
     for label, dtype, causal, (q, k, v) in flash_cases(gen):
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        variant = fa._variant(dtype, q.shape[-1])
         ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
         tol = TOL[dtype]
         o_err = (o.float() - ro.float()).abs()
@@ -250,8 +309,8 @@ def check_flash(fa, failures, gen):
         lse_err = (lse - rlse).abs().max().item()
         ok = (o_ok and lse_err <= tol["lse_atol"]
               and bool(torch.isfinite(o.float()).all()))
-        log(f"  flash fwd {label:<14} {str(dtype):<14} causal={causal!s:<5} "
-            f"O max_abs_err={o_err.max().item():.3e} "
+        log(f"  flash fwd {label:<14} {str(dtype):<14} {variant:<11} "
+            f"causal={causal!s:<5} O max_abs_err={o_err.max().item():.3e} "
             f"(tol {tol['o_atol']:g} + {tol['o_rtol']:g}*|ref|)  "
             f"lse max_abs_err={lse_err:.3e} (tol {tol['lse_atol']:g})  "
             f"{'ok' if ok else 'FAIL'}")
@@ -284,17 +343,22 @@ def check_flash_bwd(fa, failures, gen):
             continue  # serving runs no backward
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         do = rand(gen, *q.shape, dtype)
-        delta = fa.attention_delta(o, do)
-        got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
-               *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
+        got = (dq, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               causal))
         torch.cuda.synchronize()
         scale = q.shape[-1] ** -0.5
-        want = (fa.flash_attention_bwd_dq_reference(
-                    q, k, v, do, lse, delta, causal, scale),
-                *fa.flash_attention_bwd_dkv_reference(
-                    q, k, v, do, lse, delta, causal, scale))
+        want_dq, want_delta = fa.flash_attention_bwd_dq_reference(
+            q, k, v, o, do, lse, causal, scale)
+        want = (want_dq, *fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, do, lse, want_delta, causal, scale))
         tol = BWD_TOL[dtype]
-        parts, ok = [], True
+        # delta is float32 whatever the input: float32's bound
+        d_tol = BWD_TOL[torch.float32]
+        d_err = (delta - want_delta).abs()
+        ok = bool((d_err <= d_tol["atol"] + d_tol["rtol"] * want_delta.abs())
+                  .all())
+        parts = [f"delta {d_err.max().item():.3e}"]
         for name, g, w in zip(("dQ", "dK", "dV"), got, want):
             err = (g.float() - w.float()).abs()
             ok &= bool((err <= tol["atol"] + tol["rtol"] * w.float().abs())
@@ -302,9 +366,11 @@ def check_flash_bwd(fa, failures, gen):
             parts.append(f"{name} {err.max().item():.3e}")
             if label == "train" and dtype == torch.bfloat16:
                 errs[name] = err.max().item()
-        log(f"  flash bwd {label:<14} {str(dtype):<14} causal={causal!s:<5} "
+        log(f"  flash bwd {label:<14} {str(dtype):<14} "
+            f"{fa._variant(dtype, q.shape[-1]):<11} causal={causal!s:<5} "
             f"max_abs_err {', '.join(parts)} (tol {tol['atol']:g} + "
-            f"{tol['rtol']:g}*|ref|)  {'ok' if ok else 'FAIL'}")
+            f"{tol['rtol']:g}*|ref|; delta {d_tol['atol']:g} + "
+            f"{d_tol['rtol']:g}*|ref|)  {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"flash bwd {label} {dtype} causal={causal}")
 
@@ -334,21 +400,23 @@ def check_flash_bwd(fa, failures, gen):
     q, k, v = x.unbind(2)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     do = rand(gen, b, SEQ, h, d, dt)
-    delta = fa.attention_delta(o, do)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
     scale = d ** -0.5
+    dq_args = (q, k, v, o, do, lse, True)
     args = (q, k, v, do, lse, delta, True)
-    out = {
-        "dq": {"ms": cuda_time_ms(lambda: fa.flash_attention_bwd_dq(*args),
-                                  20),
-               "plain_ms": cuda_time_ms(
-                   lambda: fa.flash_attention_bwd_dq_reference(
-                       *args, scale), 3, 1)},
-        "dkv": {"ms": cuda_time_ms(
-                    lambda: fa.flash_attention_bwd_dkv(*args), 20),
-                "plain_ms": cuda_time_ms(
-                    lambda: fa.flash_attention_bwd_dkv_reference(
-                        *args, scale), 3, 1)},
-    }
+    calls = {"dq": (lambda: fa.flash_attention_bwd_dq(*dq_args),
+                    lambda: fa.flash_attention_bwd_dq_reference(*dq_args,
+                                                                scale)),
+             "dkv": (lambda: fa.flash_attention_bwd_dkv(*args),
+                     lambda: fa.flash_attention_bwd_dkv_reference(*args,
+                                                                  scale))}
+    out = {}
+    for key, meta in (("dq", KERNELS[1]), ("dkv", KERNELS[2])):
+        kernel, plain = calls[key]
+        out[key] = {"ms": cuda_time_ms(kernel, 20),
+                    "device_ms": device_ms(kernel, meta["kernel"]),
+                    "plain_ms": cuda_time_ms(plain, 3, 1)}
+    # the torch Delta that the float32 route still runs before its dQ
     delta_ms = cuda_time_ms(lambda: fa.attention_delta(o, do), 20)
     # yardstick: F.scaled_dot_product_attention's backward (dQ, dK and dV
     # together), replayed on one retained graph so that only the backward
@@ -359,7 +427,9 @@ def check_flash_bwd(fa, failures, gen):
         qt, kt, vt, is_causal=True)
     library_ms = cuda_time_ms(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 20)
-    bounds = {"dq": bwd_bound(b, SEQ, h, d, dt, 4, 1, 3),
+    # dQ reads q, k, v, O, dO and lse and writes dQ and Delta; dK/dV reads
+    # q, k, v, dO, lse and Delta and writes dK and dV
+    bounds = {"dq": bwd_bound(b, SEQ, h, d, dt, 5, 1, 3),
               "dkv": bwd_bound(b, SEQ, h, d, dt, 4, 2, 4)}
     whole_ms, whole_by = bwd_bound(b, SEQ, h, d, dt, 5, 3, 5)
     for key, label in (("dq", "dQ"), ("dkv", "dK/dV")):
@@ -367,13 +437,16 @@ def check_flash_bwd(fa, failures, gen):
         out[key].update(bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=library_ms)
         log(f"  flash bwd {label} [{b}, {SEQ}, {h}, {d}] bf16 causal: kernel "
-            f"{out[key]['ms']:.4f} ms, plain {out[key]['plain_ms']:.4f} ms, "
+            f"{out[key]['ms']:.4f} ms (events), "
+            f"{fmt_ms(out[key]['device_ms'])} (profiled device time), "
+            f"plain {out[key]['plain_ms']:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
     out["dq"]["max_abs_err"] = errs["dQ"]
     out["dkv"]["max_abs_err"] = max(errs["dK"], errs["dV"])
     log(f"  flash bwd whole [{b}, {SEQ}, {h}, {d}] bf16 causal: kernels "
-        f"{out['dq']['ms'] + out['dkv']['ms']:.4f} ms + delta "
-        f"{delta_ms:.4f} ms; library (F.scaled_dot_product_attention "
+        f"{out['dq']['ms'] + out['dkv']['ms']:.4f} ms (Delta inside dQ; "
+        f"the float32 route's torch Delta would add {delta_ms:.4f} ms); "
+        f"library (F.scaled_dot_product_attention "
         f"backward) {library_ms:.4f} ms; bound {whole_ms:.4f} ms "
         f"({whole_by})")
     return out
@@ -503,9 +576,9 @@ def check_f32_step(model, ids, failures):
 
 
 def profile_step(step_fn):
-    """One step under torch.profiler: device busy time by kernel and the
-    device's idle share of the step's wall time (None if the profiler saw
-    no device activity)."""
+    """One step under torch.profiler: device busy time and launches by
+    kernel and the device's idle share of the step's wall time (None if the
+    profiler saw no device activity)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -513,15 +586,17 @@ def profile_step(step_fn):
         step_fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
+    by_name, counts = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us())
+            counts[e.name] = counts.get(e.name, 0) + 1
     busy_us = sum(by_name.values())
     if not busy_us:
         return None
-    return wall_us, busy_us, sorted(by_name.items(), key=lambda kv: -kv[1])
+    return (wall_us, busy_us, sorted(by_name.items(), key=lambda kv: -kv[1]),
+            counts)
 
 
 def train(model, ids, fa, failures):
@@ -558,8 +633,7 @@ def train(model, ids, fa, failures):
     torch.cuda.reset_peak_memory_stats()
     counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv)
-    for c in counters:
-        c.launches = 0
+    fa.reset_launch_counts()
     losses, tel = [], None
     for step in range(TRAIN_STEPS):
         if step == WARMUP_STEPS:
@@ -568,15 +642,20 @@ def train(model, ids, fa, failures):
         if step >= WARMUP_STEPS:
             tel = timer.step()
     launches = {c.__name__: c.launches for c in counters}
+    bf16_launches = {c.__name__: c.variant_launches["bf16"] for c in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     log(f"  losses: {[round(x, 4) for x in losses]}")
     want = cfg.num_layers * TRAIN_STEPS
     for name, n in launches.items():
         log(f"  {name} launches: {n} over {TRAIN_STEPS} steps "
-            f"({n / TRAIN_STEPS:g} a step; want {cfg.num_layers})")
+            f"({n / TRAIN_STEPS:g} a step; want {cfg.num_layers}), "
+            f"{bf16_launches[name]} of them on the bf16 variant")
         if n != want:
             failures.append(f"{name} launched {n} times, not {want}")
+        if bf16_launches[name] != n:
+            failures.append(f"{name}: {n - bf16_launches[name]} training "
+                            f"launches off the bf16 variant")
     if not all(np.isfinite(losses)):
         failures.append("a training loss is not finite")
     if not losses[-1] < losses[0]:
@@ -600,17 +679,26 @@ def train(model, ids, fa, failures):
     except Exception as e:  # a measurement, not a check of the path
         log(f"  profiler: not measured ({type(e).__name__}: {e})")
         prof = None
+    step_ms = {}  # device ms per launch of each kernel in the profiled step
     if prof is None:
         log("  profiler: no device activity recorded; idle share not "
             "measured")
     else:
-        wall_us, busy_us, top = prof
+        wall_us, busy_us, top, counts = prof
         log(f"  profiled step: wall {wall_us / 1e3:.3f} ms, device busy "
             f"{busy_us / 1e3:.3f} ms, idle share "
             f"{1 - busy_us / wall_us:.4f}")
         for name, us in top[:12]:
             log(f"    {us / 1e3:9.3f} ms {us / busy_us:7.2%}  {name[:110]}")
-    return launches
+        for meta in KERNELS:
+            hits = [(us, counts[n]) for n, us in top if meta["kernel"] in n]
+            if hits:
+                us = sum(u for u, _ in hits)
+                n = sum(c for _, c in hits)
+                step_ms[meta["name"]] = us / n / 1e3
+                log(f"  profiled step: {meta['name']} {n} launches, "
+                    f"{us / n / 1e3:.4f} ms device time per launch")
+    return launches, bf16_launches, step_ms
 
 
 def main():
@@ -670,10 +758,11 @@ def main():
     offs = np.cumsum([0] + rows)
     ids_by_req = [ids_all[a:b] for a, b in zip(offs[:-1], offs[1:])]
 
-    fa.flash_attention_fwd.launches = 0
+    fa.reset_launch_counts()
     burst, stats, latency, results = serve(model, serving, ids_by_req,
                                            failures)
     launches = served_launches = fa.flash_attention_fwd.launches
+    served_bf16 = fa.flash_attention_fwd.variant_launches["bf16"]
     forwards = stats["warmup_runs"] + stats["batches"]
     log(f"  engine stats after the burst: {burst}")
     log(f"  engine stats at the end: {stats}")
@@ -682,9 +771,13 @@ def main():
     if launches != cfg.num_layers * forwards or launches == 0:
         failures.append(f"flash launches {launches} != {cfg.num_layers} x "
                         f"{forwards} forwards")
+    if served_bf16 != launches:
+        failures.append(f"{launches - served_bf16} served flash launches "
+                        f"off the bf16 variant")
     log(f"  flash launches: {launches} over {forwards} forwards "
         f"({stats['warmup_runs']} warm-up + {stats['batches']} served "
-        f"batches) = {launches / max(forwards, 1):g} per forward")
+        f"batches) = {launches / max(forwards, 1):g} per forward, "
+        f"{served_bf16} on the bf16 variant")
     for bucket, times in latency.items():
         best = min(times)
         log(f"  bucket {bucket}: request latency ms {[round(t, 3) for t in times]}"
@@ -728,17 +821,25 @@ def main():
         f"float32 masters")
     train_ids = synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size,
                                    seed=args.seed + 1)
-    trained = train(model, train_ids, fa, failures)
+    trained, trained_bf16, step_ms = train(model, train_ids, fa, failures)
 
     # ---- 5. kernels line and result
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
     kernels = []
     for meta, timing, paths in zip(KERNELS, timings, by_path):
-        n = trained[meta["name"]]
-        kernels.append(dict(meta, launches=n, **timing,
-                            launches_by_path=dict(paths, training=n),
-                            shape=[TRAIN_BATCH, SEQ, 12, 64]))
+        name = meta["name"]
+        n = trained[name]
+        kernels.append(dict(
+            {k: v for k, v in meta.items() if k != "variants"},
+            launches=n, **timing, step_device_ms=step_ms.get(name),
+            launches_by_path=dict(paths, training=n),
+            variants={dt: {"source": src,
+                           "training_launches": (trained_bf16[name]
+                                                 if dt == "bf16" else
+                                                 n - trained_bf16[name])}
+                      for dt, src in meta["variants"].items()},
+            shape=[TRAIN_BATCH, SEQ, 12, 64], dtype="bf16"))
     log(json.dumps({"kernels": kernels}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -1,8 +1,9 @@
 """Build CUDA sources into shared libraries with a plain C interface.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-``build/lib<name>-<hash>.so`` (the hash covers the source and the flags, so
-an edited source rebuilds) and loaded with ``ctypes``. Several sources
+``build/lib<name>-<hash>.so`` (the hash covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header
+rebuilds) and loaded with ``ctypes``. Several sources
 build in parallel, one ``nvcc`` each. ``ptxas``'s register and
 shared-memory report for each build is kept beside the library
 (``.log``). Building happens on first use, never at import.
@@ -36,9 +37,11 @@ def nvcc():
 
 
 def library_path(name):
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,15 +1,24 @@
 """Flash attention (counterpart: ``paddle_tpu/kernels/flash_attention.py``).
 
-The three TPU kernels become CUDA kernels:
+The three TPU kernels become CUDA kernels, chosen by the input dtype
+(:func:`_variant`):
 
-- ``_fwd_kernel`` -> ``csrc/flash_attention_fwd.cu``
-  (:func:`flash_attention_fwd`): online-softmax attention over streamed
-  64-key tiles, f32 accumulation, O in the input dtype and the per-row
+- ``_fwd_kernel`` -> :func:`flash_attention_fwd`: for bfloat16,
+  ``csrc/flash_attention_fwd_sm90.cu`` (``wgmma`` tensor cores, TMA-staged
+  K/V); for float32, ``csrc/flash_attention_fwd.cu`` (f32 on the CUDA
+  cores). Online-softmax attention, O in the input dtype and the per-row
   logsumexp in f32;
-- ``_bwd_dq_kernel`` -> ``csrc/flash_attention_bwd.cu``
-  (:func:`flash_attention_bwd_dq`): dQ per 64-row query tile;
-- ``_bwd_dkv_kernel`` -> the same source (:func:`flash_attention_bwd_dkv`):
-  dK and dV per 64-row key tile.
+- ``_bwd_dq_kernel`` and the Delta before it -> :func:`flash_attention_bwd_dq`:
+  for bfloat16, ``csrc/flash_attention_bwd_dq_sm90.cu`` (tensor cores, Delta
+  computed in the kernel and written out); for float32, the dQ kernel of
+  ``csrc/flash_attention_bwd.cu`` with Delta from :func:`attention_delta`.
+  Both return ``(dq, delta)``;
+- ``_bwd_dkv_kernel`` -> the dK/dV kernel of ``csrc/flash_attention_bwd.cu``
+  (:func:`flash_attention_bwd_dkv`, f32 on the CUDA cores for both dtypes),
+  which takes the Delta that dQ returned.
+
+float32 stays off the tensor cores because they would run it as TF32
+(about three decimal digits).
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` around them (the
 reference's ``custom_vjp``): it saves (q, k, v, O, lse) and its backward runs
@@ -21,7 +30,8 @@ Dispatch: CPU tensors take the plain PyTorch versions
 (:func:`flash_attention_fwd_reference`, :func:`flash_attention_bwd_reference`)
 with the same 64 x 64 tiles and masks. CUDA tensors launch the kernels or
 raise; there is no other path. Each kernel wrapper counts its launches in
-its ``launches`` attribute.
+its ``launches`` attribute and, by dtype variant (``"bf16"``,
+``"float32"``), in ``variant_launches``.
 """
 import ctypes
 import functools
@@ -35,6 +45,7 @@ BLOCK_KV = 64
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {torch.bfloat16: "bf16", torch.float32: "float32"}
 _MAX_GRID_Y = 65535
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -58,6 +69,20 @@ def _error_string(lib):
 def _fwd_kernel():
     lib = _build.load("flash_attention_fwd")
     return (_bind(lib, "paddle_flash_attention_fwd", 5, 9),
+            _error_string(lib))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_sm90_kernel():
+    lib = _build.load("flash_attention_fwd_sm90")
+    return (_bind(lib, "paddle_flash_attention_fwd_sm90", 5, 9),
+            _error_string(lib))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_dq_sm90_kernel():
+    lib = _build.load("flash_attention_bwd_dq_sm90")
+    return (_bind(lib, "paddle_flash_attention_bwd_dq_sm90", 8, 15),
             _error_string(lib))
 
 
@@ -97,6 +122,8 @@ def _check_bwd(q, k, v, do, lse, delta, causal):
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must have q's "
                          f"shape {tuple(q.shape)}, dtype and device")
     for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
         if (t.shape != (b, h, s_q) or t.dtype != torch.float32
                 or t.device != q.device):
             raise ValueError(f"{name} must be float32 [B, H, S_q] = "
@@ -108,14 +135,25 @@ def _scale(scale, d):
     return float(scale) if scale is not None else 1.0 / (d ** 0.5)
 
 
+def _variant(dtype, head_dim):
+    """Which CUDA kernels take inputs of ``dtype``: ``"tensor_core"``
+    (bfloat16: the sm90 ``wgmma`` forward and dQ) or ``"cuda_core"``
+    (float32: f32 on the CUDA cores, which the tensor cores would round to
+    TF32). Raises on anything neither takes."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not supported; the kernels "
+                         f"are built for {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise TypeError(f"flash attention takes float32 or bfloat16, got {dtype}")
+
+
 def _check_cuda(tensors, b, h, d, dtype):
-    """What the CUDA kernels take; raises on anything else."""
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash attention takes float32 or bfloat16, got "
-                        f"{dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported; the kernels are "
-                         f"built for {HEAD_DIMS}")
+    """What the CUDA kernels take; raises on anything else. Returns the
+    variant (:func:`_variant`)."""
+    variant = _variant(dtype, d)
     for name, t in tensors.items():
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous "
@@ -123,6 +161,21 @@ def _check_cuda(tensors, b, h, d, dtype):
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"B*H = {b * h} exceeds the grid limit "
                          f"{_MAX_GRID_Y}")
+    if variant == "tensor_core":
+        _check_tma(tensors)
+    return variant
+
+
+def _check_tma(tensors):
+    """The tensor-core kernels load through TMA: every base address and
+    every batch, seq and head stride must be a multiple of 16 bytes."""
+    for name, t in tensors.items():
+        esize = t.element_size()
+        if t.data_ptr() % 16 or any(s * esize % 16 for s in t.stride()[:3]):
+            raise ValueError(
+                f"{name} needs a 16-byte aligned base and batch/seq/head "
+                f"strides that are multiples of 16 bytes for the TMA loads "
+                f"(address {t.data_ptr():#x}, strides {t.stride()})")
 
 
 def _device_of(t):
@@ -132,16 +185,31 @@ def _device_of(t):
 
 
 def _launch(name, fn, err_str, device, args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {err_str(err).decode()} "
-                           f"(cudaError {err})")
+                           f"(error {err})")
 
 
 def _strides(*tensors):
     return [s for t in tensors for s in t.stride()[:3]]
+
+
+def _count(wrapper, dtype):
+    wrapper.launches += 1
+    wrapper.variant_launches[VARIANTS[dtype]] += 1
+
+
+def reset_launch_counts():
+    """Zero every kernel wrapper's ``launches`` and ``variant_launches``."""
+    for wrapper in (flash_attention_fwd, flash_attention_bwd_dq,
+                    flash_attention_bwd_dkv):
+        wrapper.launches = 0  # kernel launches since the last reset
+        wrapper.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
@@ -161,54 +229,68 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
             "flash_attention_fwd launches the kernel outside autograd; "
             "call flash_attention_bshd (the FlashAttention Function) for "
             "a differentiable result")
-    _check_cuda({"q": q, "k": k, "v": v}, b, h, d, q.dtype)
-    fn, err_str = _fwd_kernel()
+    variant = _check_cuda({"q": q, "k": k, "v": v}, b, h, d, q.dtype)
+    fn, err_str = (_fwd_sm90_kernel() if variant == "tensor_core"
+                   else _fwd_kernel())
     o = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", fn, err_str, q.device,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), _DTYPE_CODES[q.dtype], b, h, s_q, s_k, d,
              *_strides(q, k, v), scale, int(bool(causal))])
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q.dtype)
     return o, lse
 
 
-def _bwd_args(q, k, v, do, lse, delta, causal, scale):
-    b, s_q, h, d = q.shape
-    return [lse.data_ptr(), delta.data_ptr()], [
-        _DTYPE_CODES[q.dtype], b, h, s_q, k.shape[1], d,
-        *_strides(q, k, v, do), scale, int(bool(causal))]
+def _check_o(o, q):
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
+        raise ValueError(f"O {tuple(o.shape)} {o.dtype} must have q's "
+                         f"shape {tuple(q.shape)}, dtype and device")
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
-                           scale=None):
-    """dQ ``[B, S_q, H, D]`` in q's dtype from q/k/v/dO ``[B, S, H, D]``,
-    the forward's lse and ``delta = rowsum(O * dO)`` (both float32
-    ``[B, H, S_q]``)."""
-    _check_bwd(q, k, v, do, lse, delta, causal)
+def flash_attention_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None):
+    """(dQ ``[B, S_q, H, D]`` in q's dtype, delta ``= rowsum(O * dO)``
+    float32 ``[B, H, S_q]``) from q/k/v/O/dO ``[B, S, H, D]`` and the
+    forward's lse (float32 ``[B, H, S_q]``). The delta is what
+    :func:`flash_attention_bwd_dkv` takes."""
+    _check_bwd(q, k, v, do, lse, None, causal)
+    _check_o(o, q)
     b, s_q, h, d = q.shape
     scale = _scale(scale, d)
     if _device_of(q) == "cpu":
-        return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
-                                                causal, scale)
-    _check_cuda({"q": q, "k": k, "v": v, "dO": do}, b, h, d, q.dtype)
-    lse, delta = lse.contiguous(), delta.contiguous()
-    fn, _, err_str = _bwd_kernels()
+        return flash_attention_bwd_dq_reference(q, k, v, o, do, lse, causal,
+                                                scale)
+    tensors = {"q": q, "k": k, "v": v, "O": o, "dO": do}
+    variant = _check_cuda(tensors, b, h, d, q.dtype)
+    lse = lse.contiguous()
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
-    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    rest = [_DTYPE_CODES[q.dtype], b, h, s_q, k.shape[1], d]
+    if variant == "tensor_core":
+        fn, err_str = _bwd_dq_sm90_kernel()
+        delta = torch.empty((b, h, s_q), dtype=torch.float32,
+                            device=q.device)
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                delta.data_ptr(), *rest, *_strides(q, k, v, o, do)]
+    else:
+        fn, _, err_str = _bwd_kernels()
+        delta = attention_delta(o, do)
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *rest,
+                *_strides(q, k, v, do)]
     _launch("flash_attention_bwd_dq", fn, err_str, q.device,
-            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *ptrs,
-             dq.data_ptr(), *rest])
-    flash_attention_bwd_dq.launches += 1
-    return dq
+            [*args, scale, int(bool(causal))])
+    _count(flash_attention_bwd_dq, q.dtype)
+    return dq, delta
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
                             scale=None):
-    """(dK, dV), each ``[B, S_k, H, D]`` in the input dtype, from the same
-    inputs as :func:`flash_attention_bwd_dq`."""
+    """(dK, dV), each ``[B, S_k, H, D]`` in the input dtype, from q/k/v/dO,
+    the forward's lse and the ``delta`` that :func:`flash_attention_bwd_dq`
+    returned (both float32 ``[B, H, S_q]``)."""
     _check_bwd(q, k, v, do, lse, delta, causal)
-    b, _, h, d = q.shape
+    b, s_q, h, d = q.shape
     s_k = k.shape[1]
     scale = _scale(scale, d)
     if _device_of(q) == "cpu":
@@ -219,30 +301,30 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     _, fn, err_str = _bwd_kernels()
     dk = torch.empty((b, s_k, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, s_k, h, d), dtype=v.dtype, device=v.device)
-    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, causal, scale)
     _launch("flash_attention_bwd_dkv", fn, err_str, q.device,
-            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *ptrs,
-             dk.data_ptr(), dv.data_ptr(), *rest])
-    flash_attention_bwd_dkv.launches += 1
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             _DTYPE_CODES[q.dtype], b, h, s_q, s_k, d,
+             *_strides(q, k, v, do), scale, int(bool(causal))])
+    _count(flash_attention_bwd_dkv, q.dtype)
     return dk, dv
 
 
-flash_attention_fwd.launches = 0  # kernel launches since the last reset
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+reset_launch_counts()
 
 
 def attention_delta(o, do):
     """``rowsum(O * dO)`` in float32, ``[B, H, S_q]`` (the reference's
-    ``delta``, computed outside its kernels as here)."""
+    ``delta``, computed outside its kernels; the bf16 dQ kernel computes
+    it itself)."""
     return (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
     """(dQ, dK, dV) of the attention that gave (O, lse), for the output
-    gradient ``do``: the reference's ``_flash_bwd``."""
-    delta = attention_delta(o, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    gradient ``do``: the reference's ``_flash_bwd``. The dQ kernel returns
+    the delta that the dK/dV kernel takes."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv
 
@@ -333,11 +415,13 @@ def flash_attention_fwd_reference(q, k, v, causal=False, scale=None):
     return o.permute(0, 2, 1, 3).to(q.dtype).contiguous(), lse
 
 
-def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal,
-                                     scale):
-    """Plain version of the dQ kernel: per 64-row query tile, recompute
+def flash_attention_bwd_dq_reference(q, k, v, o, do, lse, causal, scale):
+    """Plain version of the dQ kernel: delta = rowsum(O * dO)
+    (:func:`attention_delta`); per 64-row query tile, recompute
     P = exp(S - lse) over the key tiles up to the diagonal and accumulate
-    dS.K, dS = P * (dO.V^T - delta); dQ = scale * sum."""
+    dS.K, dS = P * (dO.V^T - delta); dQ = scale * sum. Returns
+    (dQ in q's dtype, delta float32 ``[B, H, S_q]``)."""
+    delta = attention_delta(o, do)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     qf, kf, vf, dof = _heads_first(q, k, v, do)
@@ -360,7 +444,7 @@ def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal,
             dp = torch.matmul(dob, vb.transpose(-1, -2))
             acc = acc + torch.matmul(p * (dp - db), kb)
         dq[:, :, q0:q0 + BLOCK_Q] = acc * scale
-    return dq.permute(0, 2, 1, 3).to(q.dtype).contiguous()
+    return dq.permute(0, 2, 1, 3).to(q.dtype).contiguous(), delta
 
 
 def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
@@ -403,9 +487,10 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=False,
                                   scale=None):
     """Plain PyTorch version of the backward (both kernels), blockwise with
     the same 64 x 64 tiles and masks, float32 math, on any device."""
-    delta = attention_delta(o, do)
-    _check_bwd(q, k, v, do, lse, delta, causal)
+    _check_bwd(q, k, v, do, lse, None, causal)
+    _check_o(o, q)
     scale = _scale(scale, q.shape[3])
-    args = (q, k, v, do, lse, delta, causal, scale)
-    return (flash_attention_bwd_dq_reference(*args),
-            *flash_attention_bwd_dkv_reference(*args))
+    dq, delta = flash_attention_bwd_dq_reference(q, k, v, o, do, lse, causal,
+                                                 scale)
+    return (dq, *flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   causal, scale))

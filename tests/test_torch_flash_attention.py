@@ -99,3 +99,48 @@ def test_no_silent_cpu_run():
     meta = torch.empty(1, 8, 2, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_fwd(meta, meta, meta)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_variant_follows_the_dtype(d):
+    """bf16 takes the tensor-core kernels; float32 the CUDA-core ones,
+    which keep f32 products (the tensor cores would round them to TF32)."""
+    assert fa._variant(torch.bfloat16, d) == "tensor_core"
+    assert fa._variant(torch.float32, d) == "cuda_core"
+
+
+@pytest.mark.parametrize("dtype, d, error", [
+    (torch.float16, 64, TypeError), (torch.float64, 64, TypeError),
+    (torch.bfloat16, 96, ValueError), (torch.float32, 96, ValueError)])
+def test_variant_raises_on_what_no_kernel_takes(dtype, d, error):
+    with pytest.raises(error):
+        fa._variant(dtype, d)
+
+
+def test_tensor_core_inputs_need_tma_alignment():
+    """The bf16 kernels load through TMA: a base address or a batch, seq or
+    head stride off 16 bytes raises; the float32 kernels take them."""
+    flat = torch.zeros(1 * 8 * 2 * 64 + 8, dtype=torch.bfloat16)
+    ok = flat[:1024].view(1, 8, 2, 64)
+    assert fa._check_cuda({"q": ok}, 1, 2, 64, torch.bfloat16) == \
+        "tensor_core"
+    shifted = flat[1:1025].view(1, 8, 2, 64)  # base 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        fa._check_cuda({"q": shifted}, 1, 2, 64, torch.bfloat16)
+    wide = torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa._check_cuda({"k": wide}, 1, 2, 64, torch.bfloat16)
+    assert fa._check_cuda({"k": wide.float()[..., :64]}, 1, 2, 64,
+                          torch.float32) == "cuda_core"
+    fused = torch.zeros(2, 16, 3, 2, 64, dtype=torch.bfloat16)
+    q, k, v = fused.unbind(2)  # the model's layout passes
+    assert fa._check_cuda({"q": q, "k": k, "v": v}, 2, 2, 64,
+                          torch.bfloat16) == "tensor_core"
+
+
+def test_launch_counts_reset_per_variant():
+    fa.reset_launch_counts()
+    for wrapper in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                    fa.flash_attention_bwd_dkv):
+        assert wrapper.launches == 0
+        assert wrapper.variant_launches == {"bf16": 0, "float32": 0}

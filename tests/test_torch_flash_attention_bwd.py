@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu.kernels import flash_attention as ref_fa
 from paddle_tpu.kernels.flash_attention import \
     flash_attention_bshd as ref_flash
 from paddle_tpu_torch.kernels import flash_attention as fa
@@ -112,22 +113,90 @@ def test_fused_qkv_strided_layout():
 
 def test_function_backward_runs_the_plain_kernels(monkeypatch):
     """On the CPU the Function's backward takes the plain dQ and dK/dV
-    versions, once each, with delta = rowsum(O * dO)."""
+    versions, once each; the dK/dV version gets delta = rowsum(O * dO)."""
     calls = []
     names = ("flash_attention_bwd_dq_reference",
              "flash_attention_bwd_dkv_reference")
     for name in names:
         real = getattr(fa, name)
         monkeypatch.setattr(fa, name, lambda *a, _r=real, _n=name:
-                            calls.append((_n, a[5])) or _r(*a))
+                            calls.append((_n, a)) or _r(*a))
     q, k, v, do = (torch.from_numpy(x) for x in _arrays(3, 1, 128, 2, 32))
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     out = fa.flash_attention_bshd(q, k, v, causal=True)
     out.backward(do)
     assert [n for n, _ in calls] == list(names)
     want_delta = (out.detach() * do).sum(-1).permute(0, 2, 1)
-    for _, delta in calls:
-        torch.testing.assert_close(delta, want_delta, rtol=1e-6, atol=1e-6)
+    (_, dq_args), (_, dkv_args) = calls
+    torch.testing.assert_close(dq_args[3], out.detach(), rtol=0, atol=0)
+    torch.testing.assert_close(dkv_args[5], want_delta, rtol=1e-6, atol=1e-6)
+
+
+def _ref_dq_and_delta(q, k, v, do, causal):
+    """dQ from the reference's ``_flash_bwd`` (interpret mode) and delta
+    as ``jnp.sum(out * do, -1)`` of its own forward; also that forward's
+    (out, lse) in the port's layouts."""
+    b, s, h, d = q.shape
+    scale = 1.0 / d ** 0.5
+
+    def bhsd(x):
+        x = jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(b * h, s, d)
+        return ref_fa._pad_seq(x, ref_fa.BLOCK_Q)[0]
+
+    jq, jk, jv, jdo = (bhsd(x) for x in (q, k, v, do))
+    out, lse = ref_fa._flash_fwd(jq, jk, jv, causal, scale, s, True)
+    dq, _, _ = ref_fa._flash_bwd(jq, jk, jv, out, lse, jdo, causal, scale,
+                                 s, s, True)
+    delta = jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32), -1)
+
+    def bshd(x):
+        return np.asarray(x[:, :s]).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+
+    return (bshd(dq), np.asarray(delta[:, :s]).reshape(b, h, s),
+            bshd(out), np.asarray(lse[:, :s, 0]).reshape(b, h, s))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [128, 384, 200])
+def test_dq_and_delta_match_pallas_interpret(s, causal):
+    """The dQ contract: (dq, delta) from the reference forward's O and lse,
+    against the reference's dQ kernel and its delta."""
+    q, k, v, do = _arrays(s + 2 * causal, 2, s, 2, 64)
+    want_dq, want_delta, out, lse = _ref_dq_and_delta(q, k, v, do, causal)
+    t = [torch.from_numpy(np.array(x))
+         for x in (q, k, v, out, do, lse)]
+    dq, delta = fa.flash_attention_bwd_dq(*t, causal=causal)
+    assert dq.shape == (2, s, 2, 64) and dq.dtype == torch.float32
+    assert delta.shape == (2, 2, s) and delta.dtype == torch.float32
+    np.testing.assert_allclose(dq.numpy(), want_dq, rtol=F32_TOL,
+                               atol=F32_TOL)
+    np.testing.assert_allclose(delta.numpy(), want_delta, rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+def test_backward_hands_the_dq_delta_to_dkv(monkeypatch):
+    """``flash_attention_bwd`` passes the delta the dQ wrapper returned,
+    the same tensor, to the dK/dV wrapper."""
+    seen = {}
+    real_dq, real_dkv = fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv
+
+    def dq(*a):
+        out = real_dq(*a)
+        seen["dq"] = out[1]
+        return out
+
+    def dkv(*a):
+        seen["dkv"] = a[5]
+        return real_dkv(*a)
+
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq", dq)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dkv", dkv)
+    q, k, v, do = (torch.from_numpy(x) for x in _arrays(4, 1, 128, 2, 32))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert seen["dkv"] is seen["dq"]
+    torch.testing.assert_close(seen["dq"], fa.attention_delta(o, do),
+                               rtol=0, atol=0)
 
 
 def test_no_grad_and_inference_mode_take_the_forward_only():
@@ -144,8 +213,12 @@ def test_bwd_wrappers_check_their_inputs():
     q, k, v, do = (torch.from_numpy(x) for x in _arrays(2, 1, 64, 2, 32))
     lse = torch.zeros(1, 2, 64)
     with pytest.raises(ValueError, match="dO"):
-        fa.flash_attention_bwd_dq(q, k, v, do[:, :32], lse, lse)
+        fa.flash_attention_bwd_dq(q, k, v, q, do[:, :32], lse)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_bwd_dkv(q, k, v, do, lse[:, :1], lse)
     with pytest.raises(ValueError, match="delta"):
-        fa.flash_attention_bwd_dq(q, k, v, do, lse, lse.double())
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, lse.double())
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_dq(q, k, v, q, do, lse.double())
+    with pytest.raises(ValueError, match="O "):
+        fa.flash_attention_bwd_dq(q, k, v, q[:, :32], do, lse)
