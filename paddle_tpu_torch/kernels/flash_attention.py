@@ -13,12 +13,15 @@ The three TPU kernels become CUDA kernels, chosen by the input dtype
   computed in the kernel and written out); for float32, the dQ kernel of
   ``csrc/flash_attention_bwd.cu`` with Delta from :func:`attention_delta`.
   Both return ``(dq, delta)``;
-- ``_bwd_dkv_kernel`` -> the dK/dV kernel of ``csrc/flash_attention_bwd.cu``
-  (:func:`flash_attention_bwd_dkv`, f32 on the CUDA cores for both dtypes),
-  which takes the Delta that dQ returned.
+- ``_bwd_dkv_kernel`` -> :func:`flash_attention_bwd_dkv`, which takes the
+  Delta that dQ returned: for bfloat16,
+  ``csrc/flash_attention_bwd_dkv_sm90.cu`` (tensor cores, the score tiles
+  computed transposed); for float32, the dK/dV kernel of
+  ``csrc/flash_attention_bwd.cu``.
 
 float32 stays off the tensor cores because they would run it as TF32
-(about three decimal digits).
+(about three decimal digits). :data:`KERNELS` is the one table of which
+library and entry point each wrapper launches for each variant.
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` around them (the
 reference's ``custom_vjp``): it saves (q, k, v, O, lse) and its backward runs
@@ -65,33 +68,33 @@ def _error_string(lib):
     return lib.paddle_cuda_error_string
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_kernel():
-    lib = _build.load("flash_attention_fwd")
-    return (_bind(lib, "paddle_flash_attention_fwd", 5, 9),
-            _error_string(lib))
+# (library ``csrc/<name>.cu``, C entry point, pointer and stride argument
+# counts) that each kernel wrapper launches, by variant (:func:`_variant`).
+KERNELS = {
+    ("flash_attention_fwd", "tensor_core"):
+        ("flash_attention_fwd_sm90", "paddle_flash_attention_fwd_sm90", 5, 9),
+    ("flash_attention_fwd", "cuda_core"):
+        ("flash_attention_fwd", "paddle_flash_attention_fwd", 5, 9),
+    ("flash_attention_bwd_dq", "tensor_core"):
+        ("flash_attention_bwd_dq_sm90", "paddle_flash_attention_bwd_dq_sm90",
+         8, 15),
+    ("flash_attention_bwd_dq", "cuda_core"):
+        ("flash_attention_bwd", "paddle_flash_attention_bwd_dq", 7, 12),
+    ("flash_attention_bwd_dkv", "tensor_core"):
+        ("flash_attention_bwd_dkv_sm90",
+         "paddle_flash_attention_bwd_dkv_sm90", 8, 12),
+    ("flash_attention_bwd_dkv", "cuda_core"):
+        ("flash_attention_bwd", "paddle_flash_attention_bwd_dkv", 8, 12),
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_sm90_kernel():
-    lib = _build.load("flash_attention_fwd_sm90")
-    return (_bind(lib, "paddle_flash_attention_fwd_sm90", 5, 9),
-            _error_string(lib))
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_dq_sm90_kernel():
-    lib = _build.load("flash_attention_bwd_dq_sm90")
-    return (_bind(lib, "paddle_flash_attention_bwd_dq_sm90", 8, 15),
-            _error_string(lib))
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_kernels():
-    lib = _build.load("flash_attention_bwd")
-    return (_bind(lib, "paddle_flash_attention_bwd_dq", 7, 12),
-            _bind(lib, "paddle_flash_attention_bwd_dkv", 8, 12),
-            _error_string(lib))
+def _kernel(wrapper, variant):
+    """(the bound C entry point, the library's error-string function) of
+    ``KERNELS[wrapper, variant]``, built at first use."""
+    library, entry, n_ptr, n_strides = KERNELS[wrapper, variant]
+    lib = _build.load(library)
+    return _bind(lib, entry, n_ptr, n_strides), _error_string(lib)
 
 
 def _check(q, k, v, causal):
@@ -137,9 +140,10 @@ def _scale(scale, d):
 
 def _variant(dtype, head_dim):
     """Which CUDA kernels take inputs of ``dtype``: ``"tensor_core"``
-    (bfloat16: the sm90 ``wgmma`` forward and dQ) or ``"cuda_core"``
-    (float32: f32 on the CUDA cores, which the tensor cores would round to
-    TF32). Raises on anything neither takes."""
+    (bfloat16: the sm90 ``wgmma`` forward, dQ and dK/dV kernels) or
+    ``"cuda_core"`` (float32: f32 on the CUDA cores, which the tensor cores
+    would round to TF32); :data:`KERNELS` maps each to its library. Raises
+    on anything neither takes."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head dim {head_dim} not supported; the kernels "
                          f"are built for {HEAD_DIMS}")
@@ -230,8 +234,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
             "call flash_attention_bshd (the FlashAttention Function) for "
             "a differentiable result")
     variant = _check_cuda({"q": q, "k": k, "v": v}, b, h, d, q.dtype)
-    fn, err_str = (_fwd_sm90_kernel() if variant == "tensor_core"
-                   else _fwd_kernel())
+    fn, err_str = _kernel("flash_attention_fwd", variant)
     o = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", fn, err_str, q.device,
@@ -265,15 +268,14 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None):
     lse = lse.contiguous()
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     rest = [_DTYPE_CODES[q.dtype], b, h, s_q, k.shape[1], d]
+    fn, err_str = _kernel("flash_attention_bwd_dq", variant)
     if variant == "tensor_core":
-        fn, err_str = _bwd_dq_sm90_kernel()
         delta = torch.empty((b, h, s_q), dtype=torch.float32,
                             device=q.device)
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
                 delta.data_ptr(), *rest, *_strides(q, k, v, o, do)]
     else:
-        fn, _, err_str = _bwd_kernels()
         delta = attention_delta(o, do)
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *rest,
@@ -296,9 +298,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     if _device_of(q) == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  causal, scale)
-    _check_cuda({"q": q, "k": k, "v": v, "dO": do}, b, h, d, q.dtype)
+    variant = _check_cuda({"q": q, "k": k, "v": v, "dO": do}, b, h, d,
+                          q.dtype)
     lse, delta = lse.contiguous(), delta.contiguous()
-    _, fn, err_str = _bwd_kernels()
+    fn, err_str = _kernel("flash_attention_bwd_dkv", variant)
     dk = torch.empty((b, s_k, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, s_k, h, d), dtype=v.dtype, device=v.device)
     _launch("flash_attention_bwd_dkv", fn, err_str, q.device,

@@ -109,6 +109,34 @@ def test_variant_follows_the_dtype(d):
     assert fa._variant(torch.float32, d) == "cuda_core"
 
 
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_library_follows_the_variant(d):
+    """Each wrapper's library by dtype: bf16 the sm90 tensor-core sources,
+    float32 the CUDA-core ones."""
+    want = {"flash_attention_fwd": ("flash_attention_fwd_sm90",
+                                    "flash_attention_fwd"),
+            "flash_attention_bwd_dq": ("flash_attention_bwd_dq_sm90",
+                                       "flash_attention_bwd"),
+            "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv_sm90",
+                                        "flash_attention_bwd")}
+    for wrapper, (bf16, f32) in want.items():
+        for dtype, library in ((torch.bfloat16, bf16), (torch.float32, f32)):
+            assert fa.KERNELS[wrapper, fa._variant(dtype, d)][0] == library
+
+
+def test_every_kernel_entry_is_in_its_source():
+    """Each (library, entry point) of the table names a source under csrc
+    that defines that entry point with as many pointers and strides as
+    the wrapper passes."""
+    from paddle_tpu_torch.kernels import _build
+    for library, entry, n_ptr, n_strides in fa.KERNELS.values():
+        src = (_build.CSRC / f"{library}.cu").read_text()
+        head = src[src.index(f"int {entry}("):]
+        params = head[:head.index(")")]
+        assert params.count("void*") == n_ptr + 1  # + the stream
+        assert params.count("long long") == n_strides
+
+
 @pytest.mark.parametrize("dtype, d, error", [
     (torch.float16, 64, TypeError), (torch.float64, 64, TypeError),
     (torch.bfloat16, 96, ValueError), (torch.float32, 96, ValueError)])
@@ -136,6 +164,12 @@ def test_tensor_core_inputs_need_tma_alignment():
     q, k, v = fused.unbind(2)  # the model's layout passes
     assert fa._check_cuda({"q": q, "k": k, "v": v}, 2, 2, 64,
                           torch.bfloat16) == "tensor_core"
+    # the dK/dV kernel also loads dO through TMA
+    flat_do = torch.zeros(2 * 16 * 2 * 64 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dO needs a 16-byte aligned"):
+        fa._check_cuda({"q": q, "k": k, "v": v,
+                        "dO": flat_do[4:4100].view(2, 16, 2, 64)},
+                       2, 2, 64, torch.bfloat16)
 
 
 def test_launch_counts_reset_per_variant():

@@ -132,28 +132,34 @@ def test_function_backward_runs_the_plain_kernels(monkeypatch):
     torch.testing.assert_close(dkv_args[5], want_delta, rtol=1e-6, atol=1e-6)
 
 
-def _ref_dq_and_delta(q, k, v, do, causal):
-    """dQ from the reference's ``_flash_bwd`` (interpret mode) and delta
-    as ``jnp.sum(out * do, -1)`` of its own forward; also that forward's
-    (out, lse) in the port's layouts."""
-    b, s, h, d = q.shape
+def _ref_bwd(q, k, v, do, causal):
+    """The reference's ``_flash_bwd`` in interpret mode, fed its own
+    forward's (out, lse): dq, dk, dv, and delta as ``jnp.sum(out * do,
+    -1)``; also that (out, lse). All in the port's layouts."""
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
     scale = 1.0 / d ** 0.5
 
-    def bhsd(x):
-        x = jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(b * h, s, d)
-        return ref_fa._pad_seq(x, ref_fa.BLOCK_Q)[0]
+    def bhsd(x, block):
+        x = jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(b * h, x.shape[1], d)
+        return ref_fa._pad_seq(x, block)[0]
 
-    jq, jk, jv, jdo = (bhsd(x) for x in (q, k, v, do))
-    out, lse = ref_fa._flash_fwd(jq, jk, jv, causal, scale, s, True)
-    dq, _, _ = ref_fa._flash_bwd(jq, jk, jv, out, lse, jdo, causal, scale,
-                                 s, s, True)
+    jq, jdo = (bhsd(x, ref_fa.BLOCK_Q) for x in (q, do))
+    jk, jv = (bhsd(x, ref_fa.BLOCK_KV) for x in (k, v))
+    out, lse = ref_fa._flash_fwd(jq, jk, jv, causal, scale, s_k, True)
+    dq, dk, dv = ref_fa._flash_bwd(jq, jk, jv, out, lse, jdo, causal, scale,
+                                   s_k, s_q, True)
     delta = jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32), -1)
 
-    def bshd(x):
+    def bshd(x, s):
         return np.asarray(x[:, :s]).reshape(b, h, s, d).transpose(0, 2, 1, 3)
 
-    return (bshd(dq), np.asarray(delta[:, :s]).reshape(b, h, s),
-            bshd(out), np.asarray(lse[:, :s, 0]).reshape(b, h, s))
+    def bhs(x):
+        return np.asarray(x[:, :s_q]).reshape(b, h, s_q)
+
+    return {"dq": bshd(dq, s_q), "dk": bshd(dk, s_k), "dv": bshd(dv, s_k),
+            "delta": bhs(delta), "out": bshd(out, s_q),
+            "lse": bhs(lse[..., 0])}
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -162,16 +168,33 @@ def test_dq_and_delta_match_pallas_interpret(s, causal):
     """The dQ contract: (dq, delta) from the reference forward's O and lse,
     against the reference's dQ kernel and its delta."""
     q, k, v, do = _arrays(s + 2 * causal, 2, s, 2, 64)
-    want_dq, want_delta, out, lse = _ref_dq_and_delta(q, k, v, do, causal)
+    ref = _ref_bwd(q, k, v, do, causal)
     t = [torch.from_numpy(np.array(x))
-         for x in (q, k, v, out, do, lse)]
+         for x in (q, k, v, ref["out"], do, ref["lse"])]
     dq, delta = fa.flash_attention_bwd_dq(*t, causal=causal)
     assert dq.shape == (2, s, 2, 64) and dq.dtype == torch.float32
     assert delta.shape == (2, 2, s) and delta.dtype == torch.float32
-    np.testing.assert_allclose(dq.numpy(), want_dq, rtol=F32_TOL,
+    np.testing.assert_allclose(dq.numpy(), ref["dq"], rtol=F32_TOL,
                                atol=F32_TOL)
-    np.testing.assert_allclose(delta.numpy(), want_delta, rtol=F32_TOL,
+    np.testing.assert_allclose(delta.numpy(), ref["delta"], rtol=F32_TOL,
                                atol=F32_TOL)
+
+
+@pytest.mark.parametrize("s_q, s_k, d, causal", [
+    *((s, s, 64, causal) for s in (128, 384, 200) for causal in (False, True)),
+    (128, 320, 32, False)])
+def test_dkv_matches_pallas_interpret(s_q, s_k, d, causal):
+    """The dK/dV contract: (dk, dv) from the reference forward's lse and
+    its delta, against the reference's dK/dV kernel."""
+    q, k, v, do = _arrays(s_q + s_k + causal, 2, s_q, 2, d, s_k=s_k)
+    ref = _ref_bwd(q, k, v, do, causal)
+    t = [torch.from_numpy(np.array(x))
+         for x in (q, k, v, do, ref["lse"], ref["delta"])]
+    dk, dv = fa.flash_attention_bwd_dkv(*t, causal=causal)
+    for got, name in ((dk, "dk"), (dv, "dv")):
+        assert got.shape == (2, s_k, 2, d) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), ref[name], rtol=F32_TOL,
+                                   atol=F32_TOL)
 
 
 def test_backward_hands_the_dq_delta_to_dkv(monkeypatch):
