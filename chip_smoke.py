@@ -41,7 +41,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    peak memory and one profiled step (device busy time, idle share, each
    kernel's device time per launch) are printed; the profiled step must
    show each kernel's CUDA function 12 times.
-5. One JSON line with every kernel of the paths, then the result line.
+5. BERT-base (``bert_base``, vocab 30720 as in ``bench.py``): a float32
+   step on the card (no hand-written kernel: BERT's seq 512 stays below
+   the flash gate) held against the same step on the CPU at 2 x 128, the
+   loss, every gradient and every AdamW update.
+6. BERT-base with ``bench.py``'s accelerator recipe (batch 16, seq 512,
+   dropout 0, bf16 parameters, ``AdamW(lr=1e-4, multi_precision=True)``,
+   ``auto_cast`` in bf16): (a) eagerly, 2 warm-up and 10 timed steps; (b) as
+   the k-step program ``jit.to_static(one_step, scan_steps=20)`` replayed
+   from a CUDA graph, one warm-up call and timed calls; (c) the k-step
+   program's 20 losses and final parameters against 20 eager steps from
+   the same weights; (d) ``bench.py``'s default structure,
+   ``jit.to_static(k_steps)``, whose one graph holds all 20 steps. Step
+   time, tokens/s, MFU, peak memory, device time by kernel kind and the
+   idle share of one profiled eager step and one profiled call of each
+   program; the bf16 loss of step 1 against the float32 loss; losses finite
+   and falling; a dropout draw under capture advances per inner step (or
+   raises, where this torch cannot register the package's generator with a
+   graph).
+7. GPT-small trained through the k-step program with phase 4's recipe
+   (the scheduler stepped between calls): its losses and parameters
+   against the same eager steps, and one replayed call profiled, which
+   must run each kernel's CUDA function (bf16 variant) layers x k times.
+8. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -94,6 +116,11 @@ ZERO_GRAD_UPDATE_MAX = 2.2  # x the learning rate
 # bf16 AMP loss of the first step vs the float32 loss on the same batch
 # and weights: logits of size ~30 rounded to bf16 (2^-8) through 12 layers.
 AMP_LOSS_REL_TOL = 1e-2
+# The k-step program (CUDA-graph replays) vs the same steps run eagerly
+# from the same weights: the same kernels in the same order on the same
+# inputs, so the losses and the parameters are expected to be bitwise
+# equal; the tolerance is 0.
+KSTEP_MAX_ABS_TOL = 0.0
 
 # Published H100 SXM peaks (dense), for the roofline bound.
 PEAK_BYTES_PER_S = 3.35e12
@@ -104,31 +131,40 @@ TRAIN_BATCH = 8     # 8 x 1024 tokens a step
 TRAIN_STEPS, WARMUP_STEPS = 12, 2
 # GPT-3 Small's (125M) published peak rate, Brown et al. 2020, table 2.1
 PEAK_LR, START_LR = 6e-4, 6e-5
+# BERT-base with bench.py's accelerator recipe (bench.py:107-109,138-161)
+BERT_VOCAB, BERT_BATCH, BERT_SEQ, BERT_LR = 30720, 16, 512, 1e-4
+BERT_F32_BATCH, BERT_F32_SEQ = 2, 128  # the float32 card-vs-CPU step
+KSTEP = 20                    # bench.py's k on an accelerator
+KSTEP_TIMED_CALLS = 3
+GPT_KSTEP = 10                # phase 7: 10 steps a call, full depth
 SOURCES = {name: f"paddle_tpu_torch/kernels/csrc/{name}.cu" for name in (
     "flash_attention_fwd", "flash_attention_bwd",   # float32: CUDA cores
     "flash_attention_fwd_sm90",                     # bf16: tensor cores
     "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dkv_sm90")}
 # Each kernel's source per dtype variant; the main paths run bf16. "kernel"
-# is the CUDA function's name as the profiler reports it.
+# is the bf16 variant's CUDA function name as the profiler reports it,
+# "cuda_core" the CUDA-core kernel's (float32, and bf16 off the main path).
 KERNELS = [
     {"name": "flash_attention_fwd", "route": "cuda",
      "source": SOURCES["flash_attention_fwd_sm90"],
      "replaces": "paddle_tpu/kernels/flash_attention.py:35",
      "variants": {"bf16": SOURCES["flash_attention_fwd_sm90"],
                   "float32": SOURCES["flash_attention_fwd"]},
-     "kernel": "flash_fwd_sm90_kernel"},
+     "kernel": "flash_fwd_sm90_kernel", "cuda_core": "flash_fwd_kernel"},
     {"name": "flash_attention_bwd_dq", "route": "cuda",
      "source": SOURCES["flash_attention_bwd_dq_sm90"],
      "replaces": "paddle_tpu/kernels/flash_attention.py:111",
      "variants": {"bf16": SOURCES["flash_attention_bwd_dq_sm90"],
                   "float32": SOURCES["flash_attention_bwd"]},
-     "kernel": "flash_bwd_dq_sm90_kernel"},
+     "kernel": "flash_bwd_dq_sm90_kernel",
+     "cuda_core": "flash_bwd_dq_kernel"},
     {"name": "flash_attention_bwd_dkv", "route": "cuda",
      "source": SOURCES["flash_attention_bwd_dkv_sm90"],
      "replaces": "paddle_tpu/kernels/flash_attention.py:146",
      "variants": {"bf16": SOURCES["flash_attention_bwd_dkv_sm90"],
                   "float32": SOURCES["flash_attention_bwd"]},
-     "kernel": "flash_bwd_dkv_sm90_kernel"},
+     "kernel": "flash_bwd_dkv_sm90_kernel",
+     "cuda_core": "flash_bwd_dkv_kernel"},
 ]
 
 
@@ -328,6 +364,36 @@ def check_flash(fa, failures, gen):
             train_err = o_err.max().item()
     time_flash_fwd(fa, gen, 4)  # the served bucket-4 shape, as before
     return dict(time_flash_fwd(fa, gen, TRAIN_BATCH), max_abs_err=train_err)
+
+
+def time_f32_variants(fa, gen):
+    """The float32 (CUDA-core) variant of each kernel at the training shape
+    [8, 1024, 12, 64] causal, by CUDA events, beside its bound at the dense
+    float32 peak of the CUDA cores. The float32 dQ route also runs the
+    torch Delta before its kernel, timed with it."""
+    b, h, d, dt = TRAIN_BATCH, 12, 64, torch.float32
+    q, k, v = qkv_views(gen, b, h, d, dt)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    do = rand(gen, b, SEQ, h, d, dt)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    calls = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+            flash_bound(b, SEQ, SEQ, h, d, dt, True)),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True),
+            bwd_bound(b, SEQ, h, d, dt, 5, 1, 3)),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True),
+            bwd_bound(b, SEQ, h, d, dt, 4, 2, 4))}
+    out = {}
+    for name, (fn, (bound_ms, bound_by)) in calls.items():
+        ms = cuda_time_ms(fn, 10)
+        out[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"  {name} float32 [{b}, {SEQ}, {h}, {d}] causal: kernel "
+            f"{ms:.4f} ms (events), bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{PEAK_FLOPS[dt]:g} FLOP/s)")
+    return out
 
 
 def written_out_attention(q, k, v, causal):
@@ -533,14 +599,14 @@ def key_bias_split(name, x, hidden):
     return x, None
 
 
-def f32_step(model, ids):
+def f32_step(model, make_opt, run_loss):
     """One float32 training step of ``model`` on its device: (loss, grads,
-    updates p_new - p_old), all on the CPU."""
+    updates p_new - p_old), all on the CPU. ``run_loss(model, device)``
+    gives the loss, ``make_opt(model)`` the optimizer."""
     model.train()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    opt, _ = make_optimizer(model)
-    ids_t = torch.from_numpy(ids).to(before["gpt.wte.weight"].device)
-    loss = model.loss(model(ids_t), ids_t)
+    opt = make_opt(model)
+    loss = run_loss(model, next(model.parameters()).device)
     loss.backward()
     grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
     opt.step()
@@ -549,14 +615,14 @@ def f32_step(model, ids):
     return loss.item(), grads, updates
 
 
-def check_f32_step(model, ids, failures):
-    """A float32 step on the card (kernels) vs the same step on the CPU
-    (plain versions): the loss, every gradient and every update."""
+def check_f32_step(model, make_opt, run_loss, lr, label, failures):
+    """A float32 step on the card vs the same step on the CPU: the loss,
+    every gradient and every update (``lr`` the step's learning rate)."""
     t0 = time.perf_counter()
-    card = f32_step(copy.deepcopy(model), ids)
+    card = f32_step(copy.deepcopy(model), make_opt, run_loss)
     t1 = time.perf_counter()
-    cpu = f32_step(copy.deepcopy(model).to("cpu"), ids)
-    log(f"  float32 step, batch {ids.shape[0]}: card {t1 - t0:.2f} s, CPU "
+    cpu = f32_step(copy.deepcopy(model).to("cpu"), make_opt, run_loss)
+    log(f"  float32 step, {label}: card {t1 - t0:.2f} s, CPU "
         f"{time.perf_counter() - t1:.2f} s (set-up included)")
     hidden = model.config.hidden_size
     loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
@@ -572,7 +638,7 @@ def check_f32_step(model, ids, failures):
                                           / theirs.norm()), n))
         if zero is not None:
             worst_zero = max(worst_zero,
-                             float((zero - zero_cpu).abs().max()) / START_LR)
+                             float((zero - zero_cpu).abs().max()) / lr)
     ok &= worst_upd[0] <= STEP_UPDATE_REL_L2_TOL
     ok &= worst_zero <= ZERO_GRAD_UPDATE_MAX
     log(f"  float32 step card vs CPU: loss {card[0]:.6f} vs {cpu[0]:.6f} "
@@ -583,7 +649,8 @@ def check_f32_step(model, ids, failures):
         f"update max diff {worst_zero:.3f} x lr (tol "
         f"{ZERO_GRAD_UPDATE_MAX:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append("float32 training step: card disagrees with CPU")
+        failures.append(f"float32 training step ({label}): card disagrees "
+                        f"with CPU")
 
 
 def profile_step(step_fn):
@@ -618,7 +685,12 @@ def train(model, ids, fa, failures):
     from paddle_tpu_torch.observability import StepTimer
     cfg = model.config
 
-    check_f32_step(model, ids[:1], failures)
+    def gpt_loss(m, device):
+        ids1 = torch.from_numpy(ids[:1]).to(device)
+        return m.loss(m(ids1), ids1)
+
+    check_f32_step(model, lambda m: make_optimizer(m)[0], gpt_loss,
+                   START_LR, "GPT-small batch 1", failures)
     ids_t = torch.from_numpy(ids).to(next(model.parameters()).device)
     model.train()
     with torch.no_grad():
@@ -685,24 +757,12 @@ def train(model, ids, fa, failures):
         f"{model.flops_per_token(SEQ)}, peak {PEAK_FLOPS[torch.bfloat16]:g} "
         f"FLOP/s: H100 SXM dense bf16)")
     log(f"  peak device memory (max_memory_allocated): {peak_gb:.3f} GB")
-    prof = None
-    for _ in range(3):  # a profiler session now and then records nothing
-        prof = profile_step(one_step)
-        if prof is not None:
-            break
+    prof = report_profile("training step", profile_retry(one_step), failures)
     step_ms = {}  # device ms per launch of each kernel in the profiled step
-    if prof is None:
-        failures.append("the profiled training step recorded no device "
-                        "activity in 3 attempts")
-    else:
-        wall_us, busy_us, top, counts = prof
-        log(f"  profiled step: wall {wall_us / 1e3:.3f} ms, device busy "
-            f"{busy_us / 1e3:.3f} ms, idle share "
-            f"{1 - busy_us / wall_us:.4f}")
-        for name, us in top[:12]:
-            log(f"    {us / 1e3:9.3f} ms {us / busy_us:7.2%}  {name[:110]}")
+    if prof is not None:
         for meta in KERNELS:
-            hits = [(us, counts[n]) for n, us in top if meta["kernel"] in n]
+            hits = [(us, prof["counts"][n]) for n, us in prof["top"]
+                    if meta["kernel"] in n]
             us = sum(u for u, _ in hits)
             n = sum(c for _, c in hits)
             if n != cfg.num_layers:
@@ -713,7 +773,401 @@ def train(model, ids, fa, failures):
             log(f"  profiled step: {meta['name']} ({meta['kernel']}) {n} "
                 f"launches, {fmt_ms(us / n / 1e3 if n else None)} device "
                 f"time per launch")
-    return launches, bf16_launches, step_ms
+    return launches, bf16_launches, step_ms, tel["step_time_ms"]
+
+
+def report_profile(label, prof, failures):
+    """Print a profiled run's wall, device busy time, idle share, device
+    time by kernel kind and largest kernels; returns them (with the
+    launches and device time by kernel name) or None."""
+    if prof is None:
+        failures.append(f"the profiled {label} recorded no device activity "
+                        f"in 3 attempts")
+        return None
+    wall_us, busy_us, top, counts = prof
+    idle = 1 - busy_us / wall_us
+    log(f"  profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy_us / 1e3:.3f} ms, idle share {idle:.4f}")
+    by_kind = {}
+    for name, us in top:
+        kind = next((k for k, keys in KINDS if any(w in name for w in keys)),
+                    "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us
+    log("    device time by kind: " + ", ".join(
+        f"{k} {us / 1e3:.3f} ms ({us / busy_us:.1%})"
+        for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    for name, us in top[:12]:
+        log(f"    {us / 1e3:9.3f} ms {us / busy_us:7.2%}  {name[:110]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+            "idle": idle, "counts": counts, "top": top}
+
+
+# Kernel kinds of a profiled run, by substrings of the CUDA function name
+# (first match wins).
+KINDS = [("attention kernels (hand-written)", ("flash_",)),
+         ("GEMM", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+         ("reductions and softmax", ("reduce_kernel", "softmax")),
+         ("copies and casts", ("copy",)),
+         ("LayerNorm", ("layer_norm", "LayerNorm", "GammaBeta")),
+         ("embedding, gather, scatter, index", ("embedding", "gather",
+                                                "scatter", "index")),
+         ("elementwise", ("elementwise",))]
+
+
+def profile_retry(fn):
+    for _ in range(3):  # a profiler session now and then records nothing
+        prof = profile_step(fn)
+        if prof is not None:
+            return prof
+    return None
+
+
+def compare_runs(label, want_losses, got_losses, want_model, got_model,
+                 failures):
+    """The k-step program's losses and final parameters against the eager
+    run's, within ``KSTEP_MAX_ABS_TOL``."""
+    loss_diff = float((got_losses.float() - want_losses.float()).abs().max())
+    worst = (0.0, "")
+    for (n, p), q in zip(want_model.named_parameters(),
+                         got_model.parameters()):
+        diff = (p.detach().float() - q.detach().float()).abs().max()
+        worst = max(worst, (float(diff), n))
+    ok = loss_diff <= KSTEP_MAX_ABS_TOL and worst[0] <= KSTEP_MAX_ABS_TOL
+    ok &= bool(torch.isfinite(got_losses).all())
+    log(f"  {label}: k-step vs eager, {got_losses.numel()} losses max |diff| "
+        f"{loss_diff:.3e}, parameters max |diff| {worst[0]:.3e} ({worst[1]}) "
+        f"(tol {KSTEP_MAX_ABS_TOL:g}: bitwise) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: the k-step program disagrees with the "
+                        f"same eager steps")
+
+
+def timed_eager(one_step, steps, warmup, tokens, flops_per_token):
+    """``steps`` eager steps (each ends when the host reads its loss) with
+    a StepTimer over those after ``warmup``: (losses, telemetry, peak GB)."""
+    from paddle_tpu_torch.observability import StepTimer
+    timer = StepTimer(window=steps - warmup, tokens_per_step=tokens,
+                      flops_per_token=flops_per_token,
+                      peak_flops=PEAK_FLOPS[torch.bfloat16])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, tel = [], None
+    for step in range(steps):
+        if step == warmup:
+            timer.start()
+        losses.append(one_step().item())
+        if step >= warmup:
+            tel = timer.step()
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    log(f"  eager steps: peak memory above the {before / 1e9:.3f} GB "
+        f"allocated before them: {peak:.3f} GB")
+    return losses, tel, peak
+
+
+def first_kstep_call(label, call):
+    """The first call of a k-step program (inner step 0 eagerly, the
+    capture, k - 1 replays): its output, and its memory: the peak allocated
+    during the call above what was allocated before it (the program's
+    working set: the eager step's activations and the graph's pool)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    log(f"  {label}: first call (eager warm-up, capture, replays) "
+        f"{time.perf_counter() - t0:.3f} s; peak memory above the "
+        f"{before / 1e9:.3f} GB allocated before it: {peak:.3f} GB; "
+        f"reserved {torch.cuda.memory_reserved() / 1e9:.3f} GB")
+    return out, peak
+
+
+def timed_kstep(call, k, calls, tokens_per_step, flops_per_token):
+    """``calls`` calls of a k-step program (each ends when the host reads
+    its [k] losses) with a StepTimer marking each call as k steps:
+    (losses by call, telemetry)."""
+    from paddle_tpu_torch.observability import StepTimer
+    timer = StepTimer(window=calls, flops_per_token=flops_per_token,
+                      peak_flops=PEAK_FLOPS[torch.bfloat16])
+    torch.cuda.synchronize()
+    timer.start()
+    out, tel = [], None
+    for _ in range(calls):
+        out.append(call().cpu())  # the host reads the k losses once a call
+        tel = timer.step(tokens=k * tokens_per_step)
+    return out, tel
+
+
+def log_rate(label, tel, k, flops_per_token, peak_gb, prof):
+    step_ms = tel["step_time_ms"] / k
+    idle = "not measured" if prof is None else f"{prof['idle']:.4f}"
+    log(f"  {label}: step {step_ms:.3f} ms ({k} a mark, StepTimer over "
+        f"{tel['window_steps']} marks), {tel['tokens_per_s']:.1f} tokens/s, "
+        f"MFU {tel['mfu']:.4f} (flops_per_token {flops_per_token}, peak "
+        f"{PEAK_FLOPS[torch.bfloat16]:g} FLOP/s: H100 SXM dense bf16), peak "
+        f"memory above what was allocated before {peak_gb:.3f} GB, idle share "
+        f"{idle}")
+    return {"step_ms": step_ms, "tokens_per_s": tel["tokens_per_s"],
+            "mfu": tel["mfu"], "peak_gb_above_before": peak_gb,
+            "idle_share": None if prof is None else prof["idle"],
+            "profiled_busy_ms": None if prof is None else prof["busy_ms"],
+            "profiled_wall_ms": None if prof is None else prof["wall_ms"]}
+
+
+def bench_one_step(pt, model, opt):
+    """bench.py's one_step: forward and loss under bf16 auto_cast, backward,
+    the AdamW step and clear_grad; returns the loss tensor."""
+    def one_step(ids, tok, labels, nsp):
+        with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+            logits, nsp_logits = model(ids, tok)
+            loss = model.loss(logits, nsp_logits, labels, nsp)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return one_step
+
+
+def check_dropout_under_capture(pt, failures):
+    """A dropout draw inside the k-step program on the card: each inner
+    step and each call draws a new mask, or the capture raises."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nn import functional as F
+    pt.seed(7)
+    step = jit.to_static(lambda x: F.dropout(x, 0.5), scan_steps=4)
+    x = torch.ones(4, 8, 256, device="cuda")
+    try:
+        masks = torch.cat([step(x) != 0 for _ in range(3)])
+    except NotImplementedError as e:
+        log(f"  dropout under capture raises, as it must without a "
+            f"graph-safe generator: {e}")
+        return
+    distinct = len({tuple(m.flatten().tolist()) for m in masks.cpu()})
+    keep = float(masks.float().mean())
+    ok = distinct == masks.shape[0] and abs(keep - 0.5) < 0.05
+    log(f"  dropout under capture: {distinct} distinct masks over "
+        f"{masks.shape[0]} inner steps (3 calls x 4), keep rate {keep:.4f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("dropout masks repeat under the captured program")
+
+
+def bert(pt, fa, seed, failures):
+    """Phases 5 and 6: BERT-base, float32 card vs CPU, then bench.py's
+    recipe eagerly and through the k-step program."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.bert import (BertForPretraining, bert_base,
+                                              synthetic_mlm_batch)
+    cfg = bert_base(vocab_size=BERT_VOCAB, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    pt.seed(seed)
+    base = BertForPretraining(cfg, device="cuda")
+    fpt = base.flops_per_token(BERT_SEQ)
+    log(f"  model: vocab {cfg.vocab_size} hidden {cfg.hidden_size} layers "
+        f"{cfg.num_layers} heads {cfg.num_heads}, "
+        f"{sum(p.numel() for p in base.parameters())} parameters "
+        f"({len(list(base.parameters()))} tensors), flops_per_token"
+        f"({BERT_SEQ}) {fpt}")
+
+    small = synthetic_mlm_batch(BERT_F32_BATCH, BERT_F32_SEQ, BERT_VOCAB,
+                                seed=seed + 2)
+
+    def bert_loss(m, device):
+        t = [torch.from_numpy(a).to(device) for a in small]
+        return m.loss(*m(t[0], t[1]), t[2], t[3])
+
+    log(f"phase 5: BERT-base float32 step, card vs CPU, "
+        f"{BERT_F32_BATCH} x {BERT_F32_SEQ}")
+    check_f32_step(base, lambda m: optimizer.AdamW(
+        parameters=m.parameters(), learning_rate=BERT_LR), bert_loss,
+        BERT_LR, f"BERT-base {BERT_F32_BATCH} x {BERT_F32_SEQ}", failures)
+
+    log(f"phase 6: BERT-base, bench.py's recipe: {BERT_BATCH} x {BERT_SEQ}, "
+        f"bf16 parameters, AdamW(lr={BERT_LR:g}, multi_precision=True), "
+        f"bf16 auto_cast; eager, then to_static(one_step, "
+        f"scan_steps={KSTEP})")
+    batches = [synthetic_mlm_batch(BERT_BATCH, BERT_SEQ, BERT_VOCAB,
+                                   seed=seed + 10 + i) for i in range(KSTEP)]
+    stacked = [torch.from_numpy(np.stack(col)).cuda() for col in zip(*batches)]
+    first = [t[0] for t in stacked]
+    with torch.no_grad():
+        loss32 = base.loss(*base(first[0], first[1]), first[2],
+                           first[3]).item()
+    base.to("bfloat16")
+    twin_eager, twin_kstep = copy.deepcopy(base), copy.deepcopy(base)
+    tokens = BERT_BATCH * BERT_SEQ
+
+    def adamw(m):
+        return optimizer.AdamW(parameters=m.parameters(),
+                               learning_rate=BERT_LR, multi_precision=True)
+
+    # (a) eager: 2 warm-up and 10 timed steps on one batch
+    step_a = bench_one_step(pt, base, adamw(base))
+    fa.reset_launch_counts()
+    losses, tel, peak = timed_eager(lambda: step_a(*first), TRAIN_STEPS,
+                                    WARMUP_STEPS, tokens, fpt)
+    launches = sum(w.launches for w in (fa.flash_attention_fwd,
+                                        fa.flash_attention_bwd_dq,
+                                        fa.flash_attention_bwd_dkv))
+    log(f"  (a) eager losses: {[round(x, 4) for x in losses]}")
+    log(f"  (a) hand-written kernel launches: {launches} (BERT's seq "
+        f"{BERT_SEQ} stays below the flash gate of 1024: none expected)")
+    if launches:
+        failures.append(f"BERT launched {launches} flash kernels at seq "
+                        f"{BERT_SEQ}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"BERT eager losses not finite and falling: "
+                        f"{losses}")
+    amp_rel = abs(losses[0] - loss32) / abs(loss32)
+    ok = amp_rel <= AMP_LOSS_REL_TOL
+    log(f"  bf16 AMP loss of step 1 {losses[0]:.6f} vs float32 loss "
+        f"{loss32:.6f}: rel {amp_rel:.3e} (tol {AMP_LOSS_REL_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("BERT bf16 AMP loss disagrees with the float32 loss")
+    prof = report_profile("eager BERT step", profile_retry(
+        lambda: step_a(*first).item()), failures)
+    log(f"  {card_line()}")
+    eager = log_rate("(a) BERT-base eager", tel, 1, fpt, peak, prof)
+
+    # (c) equivalence: 20 eager steps vs one call of the k-step program,
+    # from the same weights, on 20 different microbatches
+    step_e = bench_one_step(pt, twin_eager, adamw(twin_eager))
+    want = torch.stack([step_e(*(t[i] for t in stacked))
+                        for i in range(KSTEP)]).detach()
+    program = jit.to_static(bench_one_step(pt, twin_kstep, adamw(twin_kstep)),
+                            scan_steps=KSTEP)
+    got, peak = first_kstep_call("(b) BERT-base k-step",
+                                 lambda: program(*stacked))
+    compare_runs("(c) BERT-base", want, got, twin_eager, twin_kstep,
+                 failures)
+    del twin_eager, step_e
+
+    # (b) the k-step program, timed
+    calls, tel = timed_kstep(lambda: program(*stacked), KSTEP,
+                             KSTEP_TIMED_CALLS, tokens, fpt)
+    prof = report_profile(f"k-step BERT call ({KSTEP} steps)", profile_retry(
+        lambda: program(*stacked).cpu()), failures)
+    kstep_losses = torch.cat([got.cpu()] + calls)
+    log(f"  (b) k-step losses, first and last of each call: "
+        f"{[(round(float(c[0]), 4), round(float(c[-1]), 4)) for c in [got.cpu()] + calls]}")
+    if (not bool(torch.isfinite(kstep_losses).all())
+            or not kstep_losses[-1] < kstep_losses[0]):
+        failures.append("BERT k-step losses not finite and falling")
+    kstep = log_rate(f"(b) BERT-base k-step (scan_steps={KSTEP}, CUDA graph)",
+                     tel, KSTEP, fpt, peak, prof)
+    log(f"  BERT-base step: eager {eager['step_ms']:.3f} ms, k-step "
+        f"{kstep['step_ms']:.3f} ms ({eager['step_ms'] / kstep['step_ms']:.2f}x)")
+
+    # (d) bench.py's default structure, to_static(k_steps): one program
+    # whose graph holds all k steps (on one repeated batch), against the
+    # k-step program's graph of one step replayed k times
+    del program, twin_kstep
+    unrolled_model = copy.deepcopy(base)
+    one = bench_one_step(pt, unrolled_model, adamw(unrolled_model))
+
+    def k_steps(ids, tok, labels, nsp):
+        for _ in range(KSTEP):
+            loss = one(ids, tok, labels, nsp)
+        return loss
+
+    unrolled = jit.to_static(k_steps)
+    last, upeak = first_kstep_call(f"(d) to_static(k_steps), {KSTEP} steps "
+                                   f"in one graph", lambda: unrolled(*first))
+    calls, tel = timed_kstep(lambda: unrolled(*first).reshape(1), KSTEP,
+                             KSTEP_TIMED_CALLS, tokens, fpt)
+    uprof = report_profile(f"to_static(k_steps) BERT call ({KSTEP} steps)",
+                           profile_retry(lambda: unrolled(*first).item()),
+                           failures)
+    if not all(bool(torch.isfinite(c).all()) for c in [last.cpu()] + calls):
+        failures.append("BERT to_static(k_steps) loss not finite")
+    whole = log_rate(f"(d) BERT-base to_static(k_steps) ({KSTEP} steps, one "
+                     f"graph)", tel, KSTEP, fpt, upeak, uprof)
+    check_dropout_under_capture(pt, failures)
+    return {"eager": eager, "kstep": kstep, "unrolled_graph": whole}
+
+
+def gpt_kstep(pt, fa, seed, eager_step_ms, failures):
+    """Phase 7: GPT-small through the k-step program with phase 4's recipe;
+    returns the profiled replayed call's launches by kernel and timings."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_small,
+                                             synthetic_lm_batch)
+    k = GPT_KSTEP
+    cfg = gpt_small(hidden_dropout=0.0, attention_dropout=0.0)
+    pt.seed(seed + 3)
+    model = GPTForCausalLM(cfg, device="cuda").to("bfloat16")
+    twin = copy.deepcopy(model)
+    stacked = torch.from_numpy(np.stack([
+        synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size, seed=seed + 30 + i)
+        for i in range(k)])).cuda()
+
+    def body_for(m):
+        opt, sched = make_optimizer(m)
+
+        def one_step(ids):
+            with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+                loss = m.loss(m(ids), ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return one_step, sched
+
+    eager_step, eager_sched = body_for(model)
+    body, sched = body_for(twin)
+    program = jit.to_static(body, scan_steps=k)
+    want, got = [], []
+    for call in range(2):  # the scheduler steps between calls on both sides
+        want += [eager_step(stacked[i]).detach() for i in range(k)]
+        eager_sched.step()
+        if call == 0:
+            out, peak = first_kstep_call("GPT-small k-step",
+                                         lambda: program(stacked))
+        else:
+            out = program(stacked)
+        got.append(out)
+        sched.step()
+    compare_runs(f"GPT-small, 2 calls of scan_steps={k}", torch.stack(want),
+                 torch.cat(got), model, twin, failures)
+    del model, eager_step
+
+    calls, tel = timed_kstep(lambda: program(stacked), k,
+                             KSTEP_TIMED_CALLS, stacked[0].numel(),
+                             twin.flops_per_token(SEQ))
+    losses = torch.cat([g.cpu() for g in got] + calls)
+    if not bool(torch.isfinite(losses).all()) or not losses[-1] < losses[0]:
+        failures.append("GPT k-step losses not finite and falling")
+    fa.reset_launch_counts()
+    prof = report_profile(f"k-step GPT call ({k} steps)", profile_retry(
+        lambda: program(stacked).cpu()), failures)
+    counted = sum(w.launches for w in (fa.flash_attention_fwd,
+                                       fa.flash_attention_bwd_dq,
+                                       fa.flash_attention_bwd_dkv))
+    log(f"  wrapper launch counts over the replayed calls: {counted} (a "
+        f"replay runs no Python; the profiler counts below)")
+    launches, per_launch = {}, {}
+    want_n = cfg.num_layers * k
+    for meta in KERNELS:
+        counts = {} if prof is None else prof["counts"]
+        n = sum(c for name, c in counts.items() if meta["kernel"] in name)
+        off = sum(c for name, c in counts.items()
+                  if meta["cuda_core"] + "<" in name)
+        launches[meta["name"]] = n
+        log(f"  profiled k-step call: {meta['name']} ({meta['kernel']}) {n} "
+            f"launches (want {cfg.num_layers} layers x {k} = {want_n}), "
+            f"{off} on the CUDA-core variant")
+        if n != want_n or off:
+            failures.append(f"the replayed GPT call ran {meta['kernel']} {n} "
+                            f"times ({off} off the bf16 variant), not "
+                            f"{want_n}")
+    rate = log_rate(f"GPT-small k-step (scan_steps={k}, CUDA graph)", tel, k,
+                    twin.flops_per_token(SEQ), peak, prof)
+    log(f"  GPT-small step: eager (phase 4) {eager_step_ms:.3f} ms, k-step "
+        f"{rate['step_ms']:.3f} ms ({eager_step_ms / rate['step_ms']:.2f}x)")
+    return launches, rate
 
 
 def main():
@@ -757,6 +1211,7 @@ def main():
     gen.manual_seed(args.seed)
     flash = check_flash(fa, failures, gen)
     flash_bwd = check_flash_bwd(fa, failures, gen)
+    f32_times = time_f32_variants(fa, gen)
 
     # ---- 3. the served path
     log("phase 3: GPT-small served through the engine (bf16, buckets 1, 4)")
@@ -836,25 +1291,44 @@ def main():
         f"float32 masters")
     train_ids = synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size,
                                    seed=args.seed + 1)
-    trained, trained_bf16, step_ms = train(model, train_ids, fa, failures)
+    trained, trained_bf16, step_ms, eager_ms = train(model, train_ids, fa,
+                                                     failures)
+    del model
 
-    # ---- 5. kernels line and result
+    # ---- 5 and 6. BERT-base, float32 card vs CPU, then eager and k-step
+    bert_rates = bert(pt, fa, args.seed, failures)
+
+    # ---- 7. GPT-small through the k-step program
+    log(f"phase 7: GPT-small trained through to_static(one_step, "
+        f"scan_steps={GPT_KSTEP}), {TRAIN_BATCH} x {SEQ} tokens a step, "
+        f"phase 4's recipe")
+    kstep_launches, gpt_rate = gpt_kstep(pt, fa, args.seed, eager_ms,
+                                         failures)
+
+    # ---- 8. kernels line and result
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
     kernels = []
     for meta, timing, paths in zip(KERNELS, timings, by_path):
         name = meta["name"]
         n = trained[name]
+        f32 = f32_times[name]
         kernels.append(dict(
-            {k: v for k, v in meta.items() if k != "variants"},
+            {k: v for k, v in meta.items()
+             if k not in ("variants", "cuda_core")},
             launches=n, **timing, step_device_ms=step_ms.get(name),
-            launches_by_path=dict(paths, training=n),
-            variants={dt: {"source": src,
-                           "training_launches": (trained_bf16[name]
-                                                 if dt == "bf16" else
-                                                 n - trained_bf16[name])}
+            launches_by_path=dict(paths, training=n, training_kstep_call=
+                                  kstep_launches[name]),
+            variants={dt: dict(
+                source=src,
+                training_launches=(trained_bf16[name] if dt == "bf16"
+                                   else n - trained_bf16[name]),
+                **({} if dt == "bf16" else f32))
                       for dt, src in meta["variants"].items()},
             shape=[TRAIN_BATCH, SEQ, 12, 64], dtype="bf16"))
+    log(json.dumps({"steps": {"bert_base": bert_rates,
+                              "gpt_small_kstep": gpt_rate,
+                              "gpt_small_eager_step_ms": eager_ms}}))
     log(json.dumps({"kernels": kernels}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -5,6 +5,12 @@ All randomness of the package (weight init, dropout) draws from explicit
 torch's global RNG state is never read or advanced. JAX's threefry and
 torch's Philox give different numbers from the same seed, so parity tests
 make their inputs with numpy and move weights with ``bridge``.
+
+Under CUDA-graph capture (``jit.to_static`` on the card) a draw is legal
+only from a generator registered with the graph being captured
+(:func:`register_with_graph`): torch then advances its offset on every
+replay, so each replayed step draws a new mask. A draw from an unregistered
+generator raises instead of freezing one mask into every replay.
 """
 import threading
 
@@ -13,7 +19,7 @@ import torch
 from .device import resolve_device
 
 _lock = threading.Lock()
-_state = {"seed": 0, "generators": {}}
+_state = {"seed": 0, "generators": {}, "graph_safe": []}
 
 
 def seed(s):
@@ -34,3 +40,33 @@ def default_generator(device=None):
             g.manual_seed(_state["seed"])
             _state["generators"][dev] = g
         return g
+
+
+def draw_generator(device):
+    """The generator a random draw on ``device`` takes; raises
+    ``NotImplementedError`` under graph capture unless that generator is
+    registered with the graph."""
+    g = default_generator(device)
+    if (g.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+            and not any(g is r for r in _state["graph_safe"])):
+        raise NotImplementedError(
+            "a random draw under CUDA-graph capture needs the package's "
+            "generator registered with the graph (CUDAGraph."
+            "register_generator_state); without it every replay would "
+            "repeat the mask drawn at capture")
+    return g
+
+
+def register_with_graph(graph, device):
+    """Register the package's generator for ``device`` with ``graph``
+    before its capture begins, where this torch can (``CUDAGraph.
+    register_generator_state``); returns whether it did. Unregistered, a
+    draw under the capture raises (:func:`draw_generator`)."""
+    if not hasattr(graph, "register_generator_state"):
+        return False
+    g = default_generator(device)
+    graph.register_generator_state(g)
+    with _lock:
+        if not any(g is r for r in _state["graph_safe"]):
+            _state["graph_safe"].append(g)
+    return True

@@ -204,6 +204,8 @@ def _strides(*tensors):
 
 
 def _count(wrapper, dtype):
+    if torch.cuda.is_current_stream_capturing():
+        return  # recorded into a CUDA graph, not launched
     wrapper.launches += 1
     wrapper.variant_launches[VARIANTS[dtype]] += 1
 

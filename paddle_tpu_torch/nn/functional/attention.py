@@ -11,7 +11,7 @@ max-subtracted softmax.
 import torch
 
 from ...amp.auto_cast import cast_inputs
-from ...core.random import default_generator
+from ...core.random import draw_generator
 from ...kernels import flash_attention as _fa
 
 # The reference's TPU-measured crossover, kept so both packages take the
@@ -38,7 +38,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     kt = key.transpose(1, 2)
     vt = value.transpose(1, 2)
     logits = torch.matmul(qt, kt.transpose(-1, -2)) * s
-    neg = torch.tensor(-1e9, dtype=logits.dtype, device=logits.device)
+    # a Python scalar, not a tensor made from one: that would be a
+    # blocking host copy, which CUDA-graph capture prohibits
+    neg = -1e9
     if is_causal:
         causal = torch.ones(logits.shape[-2], logits.shape[-1], dtype=torch.bool,
                             device=logits.device).tril()
@@ -51,7 +53,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     probs = probs / probs.sum(dim=-1, keepdim=True)
     if dropout_p > 0.0 and training:
-        u = torch.rand(probs.shape, generator=default_generator(probs.device),
+        u = torch.rand(probs.shape, generator=draw_generator(probs.device),
                        device=probs.device)
         probs = torch.where(u >= dropout_p, probs / (1.0 - dropout_p), 0.0)
     out = torch.matmul(probs.to(vt.dtype), vt)

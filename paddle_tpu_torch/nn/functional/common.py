@@ -4,7 +4,7 @@ left these to XLA. ``linear`` and ``embedding`` consult ``amp.auto_cast``."""
 import torch
 
 from ...amp.auto_cast import cast_inputs
-from ...core.random import default_generator
+from ...core.random import draw_generator
 
 
 def linear(x, weight, bias=None):
@@ -33,7 +33,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
     if axis is not None:
         axes = axis if isinstance(axis, (list, tuple)) else [axis]
         shape = [s if i in axes else 1 for i, s in enumerate(shape)]
-    u = torch.rand(shape, generator=default_generator(x.device),
+    u = torch.rand(shape, generator=draw_generator(x.device),
                    device=x.device)
     keep = u >= p
     zero = torch.zeros((), dtype=x.dtype, device=x.device)

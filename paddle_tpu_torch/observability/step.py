@@ -4,11 +4,14 @@
 A ``StepTimer`` marks step boundaries; over a sliding window it derives
 tokens/s (the caller gives per-step token counts) and an MFU estimate,
 ``flops_per_token * tokens / wall / peak_flops``, against the
-``peak_flops`` the caller passes for its device. The caller synchronises the device before each ``step()``
-(e.g. by reading the loss), or the window measures the enqueue. Not
-ported: examples/s, a per-step FLOP count, the compile-stall and
-data-wait fractions (the port has no compile or data-loader counters) and
-the publishing to the export board and run-log.
+``peak_flops`` the caller passes for its device. The caller synchronises
+the device before each ``step()`` (e.g. by reading the loss), or the window
+measures the enqueue. A k-step program (``jit.to_static(fn,
+scan_steps=k)``) takes one mark a call with ``tokens = k * B * S``, as the
+reference's ``bench.py`` counts a window: ``step_time_ms`` is then the time
+of a call, k steps. Not ported: examples/s, a per-step FLOP count, the
+compile-stall and data-wait fractions (the port has no compile or
+data-loader counters) and the publishing to the export board and run-log.
 """
 import collections
 import time

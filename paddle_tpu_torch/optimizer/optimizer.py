@@ -8,6 +8,13 @@ into the parameter. Moments and masters are float32 and are the only state
 kept from step to step; the update runs in place on them (the reference's
 arrays are immutable and it rebinds them instead).
 
+The step count (``@step``, int32) and the learning rate (``@lr``, float32)
+are scalar tensors on the parameters' device, as in the reference; Adam's
+bias correction and AdamW's ``lr * coeff`` are computed from them on the
+device, in float32. So a step never reads the host, and a step captured
+into a CUDA graph (``jit.to_static`` on the card) counts its steps and
+reads a rate set between replays.
+
 Parameters are named by ``p.param_name`` where set (``Layer.parameters()``
 sets the structured ``state_dict`` name), else ``param_<i>`` in order; the
 names key ``state_dict`` and are what AdamW's ``apply_decay_param_fun``
@@ -15,8 +22,6 @@ receives.
 Not ported: ZeRO sharding, sparse (row) gradients and coalesced
 accumulator stores (``fuse_accumulators``); asking for them raises.
 """
-import math
-
 import numpy as np
 import torch
 
@@ -25,21 +30,37 @@ from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
 
 
-class _LRValue:
-    """The learning rate, held as float32 as the reference's lr tensor; a
-    bound scheduler writes each new rate into it."""
+def _capturing(t):
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
-    def __init__(self, lr):
+
+def _host_scalar(v):
+    return v.item() if isinstance(v, torch.Tensor) else np.asarray(v).item()
+
+
+class _LRValue:
+    """The learning rate as a float32 scalar tensor on the parameters'
+    device (the reference's stateful lr tensor). A bound scheduler writes
+    each new rate into it in place; :meth:`value` is the host's copy."""
+
+    def __init__(self, lr, device):
         self.scheduler = lr if isinstance(lr, LRScheduler) else None
+        self.tensor = torch.zeros((), dtype=torch.float32, device=device)
         self.set(lr.get_lr() if self.scheduler is not None else lr)
         if self.scheduler is not None:
             self.scheduler._bind(self)
 
     def value(self):
-        return self._value
+        return self._host
 
     def set(self, v):
-        self._value = float(np.float32(v))
+        if _capturing(self.tensor):
+            raise RuntimeError(
+                "the learning rate was set inside a captured program, which "
+                "would replay this one rate on every call; step the "
+                "scheduler between calls of the program")
+        self._host = float(np.float32(v))
+        self.tensor.fill_(self._host)
 
 
 class Optimizer:
@@ -61,12 +82,14 @@ class Optimizer:
         if grad_clip is not None and not isinstance(grad_clip, ClipGradBase):
             raise TypeError(f"grad_clip must be a ClipGradBase, got "
                             f"{type(grad_clip).__name__}")
-        self._lr = _LRValue(learning_rate)
+        first = next(self._parameters(), None)
+        device = first.device if first is not None else torch.device("cpu")
+        self._lr = _LRValue(learning_rate, device)
         self._weight_decay = self._wd_value(weight_decay)
         self._grad_clip = grad_clip
         self._accumulators = {}  # (slot, id(param)) -> float32 tensor
         self._names = {}  # id(param) -> name
-        self._step_count = 0
+        self._step_count = torch.zeros((), dtype=torch.int32, device=device)
         for i, p in enumerate(self._parameters()):
             self._names[id(p)] = getattr(p, "param_name", None) or f"param_{i}"
             self._create_accumulators(p)
@@ -145,8 +168,8 @@ class Optimizer:
             raise NotImplementedError("sparse gradients are not ported")
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
-        self._step_count += 1
-        lr = self._lr.value()
+        self._step_count.add_(1)
+        self._prepare_step(self._lr.tensor)
         for p, g in params_grads:
             if g.dtype in (torch.bfloat16, torch.float16):
                 g = g.float()
@@ -155,13 +178,17 @@ class Optimizer:
             value = self._maybe_master(p)
             if value is None:
                 value = p if p.dtype == torch.float32 else p.float()
-            self._apply_one(p, value, g, lr)
+            self._apply_one(p, value, g)
             if value is not p:
                 p.copy_(value)
 
-    def _apply_one(self, p, value, g, lr):
+    def _prepare_step(self, lr):
+        """Per-step scalars the updates share, from the lr tensor ``lr``
+        and the step tensor (on the device)."""
+
+    def _apply_one(self, p, value, g):
         """Update ``value`` (float32: the master or the parameter) in place
-        from gradient ``g`` at rate ``lr``."""
+        from gradient ``g``, at the rates :meth:`_prepare_step` set."""
         raise NotImplementedError
 
     def state_dict(self):
@@ -169,8 +196,8 @@ class Optimizer:
         "LR_Scheduler"]}``, as the reference keys it."""
         out = {f"{self._names[pid]}.{slot}": t
                for (slot, pid), t in self._accumulators.items()}
-        out["@step"] = torch.tensor(self._step_count, dtype=torch.int32)
-        out["@lr"] = torch.tensor(self._lr.value(), dtype=torch.float32)
+        out["@step"] = self._step_count.detach().clone()
+        out["@lr"] = self._lr.tensor.detach().clone()
         if self._lr.scheduler is not None:
             out["LR_Scheduler"] = self._lr.scheduler.state_dict()
         return out
@@ -182,9 +209,9 @@ class Optimizer:
                    for (slot, pid), t in self._accumulators.items()}
         for k, v in state.items():
             if k == "@step":
-                self._step_count = int(np.asarray(v))
+                self._step_count.fill_(int(_host_scalar(v)))
             elif k == "@lr":
-                self._lr.set(np.asarray(v))
+                self._lr.set(_host_scalar(v))
             elif k == "LR_Scheduler" and self._lr.scheduler is not None:
                 self._lr.scheduler.set_state_dict(v)
             elif k in by_name:
@@ -207,10 +234,12 @@ class Adam(Optimizer):
         self._add_accumulator("moment2", param)
         self._maybe_master(param)
 
-    def _bias_corrected_lr(self, lr):
-        t = self._step_count
-        return (lr * math.sqrt(1.0 - self._beta2 ** t)
-                / (1.0 - self._beta1 ** t))
+    def _prepare_step(self, lr):
+        # the bias-corrected rate, in float32 from the step count, as the
+        # reference takes it
+        t = self._step_count.float()
+        self._lr_t = lr * torch.sqrt(1.0 - self._beta2 ** t) / (
+            1.0 - self._beta1 ** t)
 
     def _moments(self, p, g):
         m = self._get_accumulator("moment1", p)
@@ -219,10 +248,13 @@ class Adam(Optimizer):
         v.mul_(self._beta2).addcmul_(g, g, value=1 - self._beta2)
         return m, v
 
-    def _apply_one(self, p, value, g, lr):
+    def _update(self, value, m, v):
+        """value -= lr_t * m / (sqrt(v) + eps), in the reference's order."""
+        value.addcdiv_(m * self._lr_t, v.sqrt().add_(self._eps), value=-1.0)
+
+    def _apply_one(self, p, value, g):
         m, v = self._moments(p, self._decayed_grad(value, g))
-        value.addcdiv_(m, v.sqrt().add_(self._eps),
-                       value=-self._bias_corrected_lr(lr))
+        self._update(value, m, v)
 
 
 class AdamW(Adam):
@@ -242,12 +274,15 @@ class AdamW(Adam):
                          None, grad_clip, multi_precision=multi_precision,
                          fuse_accumulators=fuse_accumulators)
 
-    def _apply_one(self, p, value, g, lr):
+    def _prepare_step(self, lr):
+        super()._prepare_step(lr)
+        self._lr_coeff = lr * self._coeff
+
+    def _apply_one(self, p, value, g):
         m, v = self._moments(p, g)
         decay = self._decay_fn is None or self._decay_fn(self._names[id(p)])
         if decay:
-            wd = value * (lr * self._coeff)  # from the value before the step
-        value.addcdiv_(m, v.sqrt().add_(self._eps),
-                       value=-self._bias_corrected_lr(lr))
+            wd = value * self._lr_coeff  # from the value before the step
+        self._update(value, m, v)
         if decay:
             value.sub_(wd)

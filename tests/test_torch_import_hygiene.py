@@ -19,10 +19,14 @@ print(len([n for n in sys.modules if n.startswith("paddle_tpu_torch")]))
 print(bad)
 print(sorted(n for n in sys.modules if n.count(".") == 1
              and n.startswith("paddle_tpu_torch.")))
+print(sorted(n for n in sys.modules if n.startswith("paddle_tpu_torch.")))
 sys.exit(1 if bad else 0)
 """
 # the training slice's modules, besides the served slice's
 _TRAINING = ("amp", "optimizer", "observability", "regularizer")
+# BERT and the k-step program
+_BERT_KSTEP = ("paddle_tpu_torch.models.bert", "paddle_tpu_torch.jit",
+               "paddle_tpu_torch.jit.to_static")
 
 
 def _forbidden(name):
@@ -35,10 +39,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    n_modules, bad, top = res.stdout.split("\n")[:3]
+    n_modules, bad, top, every = res.stdout.split("\n")[:4]
     assert int(n_modules) >= 20 and bad == "[]"
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
+    for name in _BERT_KSTEP:
+        assert f"'{name}'" in every, (name, every)
 
 
 def test_no_file_imports_jax_or_reference():

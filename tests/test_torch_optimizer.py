@@ -8,8 +8,8 @@ halfway and goes on from there.
 
 Tolerances: float32 state rtol 1e-5 / atol 1e-6 (the same float32 update
 in another operation order, so values of size O(1) may differ by an ulp,
-~2e-7, on their way; the bias correction is taken in float64 here and in
-float32 there). bf16 parameters are the cast of masters that agree
+~2e-7, on their way; both take the bias correction in float32 from the
+step count). bf16 parameters are the cast of masters that agree
 to 1e-5, so they agree to one bf16 rounding step (rtol 2^-7).
 """
 import jax.numpy as jnp
@@ -251,3 +251,96 @@ def test_unported_options_raise():
     port[0].grad = torch.zeros(8, 6).to_sparse()
     with pytest.raises(NotImplementedError, match="sparse"):
         opt.step()
+
+
+def test_step_and_lr_are_tensors_on_the_parameters_device():
+    """``@step`` (int32) and ``@lr`` (float32) live as scalar tensors
+    beside the parameters; a step reads neither on the host."""
+    _, port = _make("float32")
+    sched = port_lr.LinearWarmup(1e-2, 3, 1e-3, 1e-2)
+    opt = optimizer.AdamW(parameters=port, learning_rate=sched)
+    for t, dtype in ((opt._step_count, torch.int32),
+                     (opt._lr.tensor, torch.float32)):
+        assert t.dim() == 0 and t.dtype == dtype
+        assert t.device == port[0].device
+    _set_grads(_make("float32")[0], port, 0)
+    opt.step()
+    sched.step()
+    state = opt.state_dict()
+    assert int(state["@step"]) == 1
+    assert float(state["@lr"]) == pytest.approx(sched.last_lr, rel=1e-7)
+    assert opt.get_lr() == float(np.float32(sched.last_lr))
+
+
+def test_scheduler_step_between_program_calls_takes_effect():
+    """A scheduler stepped between two calls of a k-step program writes
+    the new rate into the lr tensor, which the next call's updates read:
+    the program matches eager steps on the same schedule, and differs from
+    a run whose scheduler was not stepped."""
+    from paddle_tpu_torch import jit
+    xs = torch.from_numpy(np.random.RandomState(4).randn(2, 5, 8)
+                          .astype("float32"))
+
+    def run(program, step_sched):
+        _, port = _make("float32")
+        sched = port_lr.LinearWarmup(1e-1, 4, 1e-3, 1e-1)
+        opt = optimizer.AdamW(parameters=port, learning_rate=sched)
+
+        def body(x):
+            loss = (x @ port[0] + port[1]).square().mean() + port[2].sum()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        step = jit.to_static(body, scan_steps=2) if program else body
+        for _ in range(2):
+            if program:
+                step(xs)
+            else:
+                for i in range(2):
+                    step(xs[i])
+            if step_sched:
+                sched.step()
+        return [p.detach().clone() for p in port]
+
+    stepped = run(True, True)
+    for a, b in zip(stepped, run(False, True)):
+        assert torch.equal(a, b)
+    assert not all(torch.equal(a, b)
+                   for a, b in zip(stepped, run(True, False)))
+
+
+def test_rate_set_inside_a_capture_raises(monkeypatch):
+    """Under CUDA-graph capture a scheduler step would freeze one rate into
+    every replay: it raises instead."""
+    from paddle_tpu_torch.optimizer import optimizer as opt_mod
+    _, port = _make("float32")
+    sched = port_lr.LinearWarmup(1e-2, 3, 1e-3, 1e-2)
+    optimizer.AdamW(parameters=port, learning_rate=sched)
+    monkeypatch.setattr(opt_mod, "_capturing", lambda t: True)
+    with pytest.raises(RuntimeError, match="captured program"):
+        sched.step()
+
+
+def test_global_norm_clip_never_reads_the_host(monkeypatch):
+    """``ClipGradByGlobalNorm`` (and the step around it) stays on the
+    device: no ``.item()``, ``float()``, ``int()``, ``bool()``,
+    ``.tolist()`` or ``.numpy()`` of a tensor."""
+    _, port = _make("bfloat16")
+    opt = optimizer.AdamW(parameters=port, multi_precision=True,
+                          grad_clip=nn.ClipGradByGlobalNorm(0.1))
+    _set_grads(_make("float32")[0], port, 0)
+    calls = []
+    for name in ("item", "__float__", "__int__", "__bool__", "tolist",
+                 "numpy"):
+        def spy(self, *a, _name=name, **kw):
+            calls.append(_name)
+            raise AssertionError(f"host read: Tensor.{_name}")
+        monkeypatch.setattr(torch.Tensor, name, spy)
+    clipped = nn.ClipGradByGlobalNorm(0.1)([(p, p.grad) for p in port])
+    opt.step()
+    monkeypatch.undo()
+    assert calls == []
+    norm = torch.sqrt(sum(g.float().square().sum() for _, g in clipped))
+    assert float(norm) == pytest.approx(0.1, rel=1e-2)
