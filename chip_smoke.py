@@ -19,7 +19,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gradients against autograd of the written-out attention; each kernel
    (CUDA events and profiled device time), its plain version and one
    PyTorch library call (a yardstick only) timed at the main paths'
-   shapes, beside the roofline bound.
+   shapes, beside the roofline bound, in bf16 and (the CUDA-core
+   variants) float32.
 3. The served path: GPT-small (vocab 50304, hidden 768, 12 layers, 12
    heads, seq 1024) with seeded random weights behind
    ``serving.Engine.from_layer(..., bucket_ladder=(1, 4), passes=("bf16",))``,
@@ -63,7 +64,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (the scheduler stepped between calls): its losses and parameters
    against the same eager steps, and one replayed call profiled, which
    must run each kernel's CUDA function (bf16 variant) layers x k times.
-8. One JSON line with every kernel of the paths, then the result line.
+8. Data parallelism and recompute on a one-rank NCCL mesh (the code a
+   larger world runs, at dp = 1): (a) BERT-base with phase 6's recipe
+   through ``to_static(one_step, scan_steps=20, dp_axis="dp")`` in nine
+   arms, each against its control over two calls, bitwise unless a bound
+   is stated: ZeRO-1, ZeRO-2, ZeRO-3 with prefetch on and off and
+   ``enable_recompute`` full, selective and offload on every encoder layer
+   against the replicated control; ZeRO-2 with ``accumulate_steps=4``
+   against the accumulating control, with two witnesses: the same pair
+   with float32 parameters (bitwise) and a window that keeps only its last
+   micro step (beyond the bound). Each arm's step time, tokens/s, MFU,
+   working set, reserved memory, ``_zero_state_bytes`` and idle share; each
+   ZeRO arm's collectives counted exactly (the memcpy nodes of its captured
+   graph and what Python issued) against what its stage implies, with the
+   profiler's count of one call beside. (b) GPT-small with phase 7's
+   recipe, ZeRO-3, prefetch and full recompute on every block through
+   ``to_static(scan_steps=10, dp_axis="dp")``, bitwise against the same
+   program without either; a profiled replayed call must run the bf16
+   forward kernel 2 x layers x k times and dQ and dK/dV layers x k times.
+   (c) BERT-base with dropout 0.1 and full or selective recompute, bitwise
+   against the same program without recompute; the attention gate writes
+   out inputs the kernels do not take.
+9. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -368,31 +390,62 @@ def check_flash(fa, failures, gen):
 
 def time_f32_variants(fa, gen):
     """The float32 (CUDA-core) variant of each kernel at the training shape
-    [8, 1024, 12, 64] causal, by CUDA events, beside its bound at the dense
-    float32 peak of the CUDA cores. The float32 dQ route also runs the
-    torch Delta before its kernel, timed with it."""
+    [8, 1024, 12, 64] causal: CUDA events (the float32 dQ route also runs
+    the torch Delta before its kernel, timed with it) and the profiler's
+    device time per launch, beside its bound at the dense float32 peak of
+    the CUDA cores and the library's float32 time for the same work
+    (``F.scaled_dot_product_attention``'s forward; its backward for dQ, dK
+    and dV together)."""
     b, h, d, dt = TRAIN_BATCH, 12, 64, torch.float32
     q, k, v = qkv_views(gen, b, h, d, dt)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     do = rand(gen, b, SEQ, h, d, dt)
     _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in
+                  (q, k, v))
+    lib_fwd_ms = cuda_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt.detach(), kt.detach(), vt.detach(), is_causal=True), 10)
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 10)
+    log(f"  library float32 [{b}, {SEQ}, {h}, {d}] causal: "
+        f"F.scaled_dot_product_attention forward {lib_fwd_ms:.4f} ms, its "
+        f"backward (dQ, dK, dV) {lib_bwd_ms:.4f} ms")
+    library = {"flash_attention_fwd": lib_fwd_ms,
+               "flash_attention_bwd_dq": lib_bwd_ms,
+               "flash_attention_bwd_dkv": lib_bwd_ms}
+    names = {meta["name"]: meta["cuda_core"] for meta in KERNELS}
+    scale = d ** -0.5
     calls = {
         "flash_attention_fwd": (
             lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+            lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True),
             flash_bound(b, SEQ, SEQ, h, d, dt, True)),
         "flash_attention_bwd_dq": (
             lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True),
+            lambda: fa.flash_attention_bwd_dq_reference(
+                q, k, v, o, do, lse, True, scale),
             bwd_bound(b, SEQ, h, d, dt, 5, 1, 3)),
         "flash_attention_bwd_dkv": (
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True),
+            lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, True, scale),
             bwd_bound(b, SEQ, h, d, dt, 4, 2, 4))}
     out = {}
-    for name, (fn, (bound_ms, bound_by)) in calls.items():
+    for name, (fn, plain, (bound_ms, bound_by)) in calls.items():
         ms = cuda_time_ms(fn, 10)
-        out[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        dev_ms = device_ms(fn, names[name] + "<", iters=5)
+        plain_ms = cuda_time_ms(plain, 3, 1)
+        out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library[name]}
         log(f"  {name} float32 [{b}, {SEQ}, {h}, {d}] causal: kernel "
-            f"{ms:.4f} ms (events), bound {bound_ms:.4f} ms ({bound_by}, "
-            f"{PEAK_FLOPS[dt]:g} FLOP/s)")
+            f"{ms:.4f} ms (events), {fmt_ms(dev_ms)} (profiled device "
+            f"time), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {PEAK_FLOPS[dt]:g} FLOP/s), library "
+            f"{library[name]:.4f} ms")
     return out
 
 
@@ -1170,6 +1223,640 @@ def gpt_kstep(pt, fa, seed, eager_step_ms, failures):
     return launches, rate
 
 
+# ---- phase 8: ZeRO data parallelism and activation recompute ----------------
+
+# NCCL at one rank implements a reduce-scatter or an all-gather as one
+# device-to-device copy of the whole payload (no ring kernel runs): a
+# captured graph holds each as one memcpy node of the payload's bytes,
+# which tell the collectives apart (a bucket of r rows reduce-scatters
+# r x 1024 float32 gradients and all-gathers r x 1024 bf16 parameters).
+ZERO_ACCUM = 4               # bench.py --accumulate for the ZeRO-2 arm
+# ZeRO-2/3 accumulation windows fold float32 mean shards of each micro
+# step, where the accumulating control sums the micro steps' gradients on
+# the parameters, in their dtype (the reference's tolerance-level case).
+# With float32 parameters both sums are float32, in one order at one rank,
+# so that witness pair is held bitwise over every window. With bf16
+# parameters the first window's losses precede any update and are bitwise,
+# and the second window's are one update apart, held to
+# ZERO_ACCUM_LOSS_REL; the later windows' losses are reported. The float32
+# masters are held: the arm's distance from the control's masters over the
+# distance the control's masters travelled (L2), within
+# ZERO_ACCUM_MASTER_REL. A window that keeps only its last micro step's
+# gradients (the control's body clearing them before that step's backward)
+# must land beyond the bound, so the bound tells a wrong window apart. The
+# bound sits between the two readings of the first run of this check at
+# seed 0 (the arm 0.201, the wrong window 0.753; both runs are
+# deterministic), 1.7x the one and 2.2x below the other.
+ZERO_ACCUM_LOSS_REL = 1e-3
+ZERO_ACCUM_MASTER_REL = 0.35
+BF16_STEP = 2.0 ** -8
+RECOMPUTE_DROPOUT = 0.1      # the recompute-with-dropout check's rate
+RECOMPUTE_DROPOUT_K = 4
+
+
+def device_copies_by_bytes(fn):
+    """{bytes: count} of the device-to-device copies in one call of ``fn``,
+    from the profiler's trace (CUDA activity only)."""
+    import collections
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return collections.Counter(
+        e["args"]["bytes"] for e in events
+        if e.get("cat") == "gpu_memcpy" and "DtoD" in e.get("name", "")
+        and "bytes" in e.get("args", {}))
+
+
+class inspect_capture:
+    """Within the block, every CUDA graph a program captures keeps its
+    nodes (``keep_graph=True``; the graph is instantiated at its first
+    replay) and the collectives Python issues while it is captured are
+    counted (``collective.counts()``)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.distributed import collective
+        self.graphs, self.counts = [], []
+        self.saved = torch.cuda.CUDAGraph, torch.cuda.graph
+        graph_cls, graph_ctx = self.saved
+        graphs, counts = self.graphs, self.counts
+
+        def keep_graph():
+            g = graph_cls(keep_graph=True)
+            graphs.append(g)
+            return g
+
+        class counted(graph_ctx):
+            def __enter__(self):
+                collective.reset_counts()
+                return super().__enter__()
+
+            def __exit__(self, *exc):
+                out = super().__exit__(*exc)
+                counts.append(collective.counts())
+                return out
+
+        torch.cuda.CUDAGraph, torch.cuda.graph = keep_graph, counted
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph, torch.cuda.graph = self.saved
+        return False
+
+
+def graph_copies(graph):
+    """{bytes: count} of the memcpy nodes of a kept graph, from its
+    ``debug_dump`` (CUDA's DOT print of every node)."""
+    import collections
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    widths = collections.Counter()
+    for node in text.split("];"):
+        if "\nMEMCPY" in node:
+            m = re.search(r"\{Width \| (\d+)\}", node)
+            if m is None:
+                raise RuntimeError("a memcpy node of the graph without its "
+                                   "extent: " + node[:200])
+            widths[int(m.group(1))] += 1
+    return widths
+
+
+def init_dp_mesh():
+    """A one-rank NCCL process group on this card (its rendezvous on a free
+    localhost port) and the dp mesh over it: the card runs the code that a
+    larger world runs, at dp = 1."""
+    from paddle_tpu_torch.distributed import parallel_env
+    parallel_env.init_parallel_env(device="cuda")
+    return parallel_env.set_mesh(parallel_env.make_mesh({"dp": 1}))
+
+
+def compare_arm(label, want_losses, got_losses, want_params, model,
+                failures):
+    """An arm's losses and final parameters against its control's,
+    bitwise. Returns the max diffs."""
+    loss_diff = float((got_losses.float() - want_losses.float()).abs().max())
+    loss_rel_diff = float(((got_losses.float() - want_losses.float()).abs()
+                           / want_losses.float().abs()).max())
+    worst = (0.0, "")
+    for (n, p), q in zip(model.named_parameters(), want_params):
+        worst = max(worst, (float((p.detach().float() - q.float()).abs()
+                                  .max()), n))
+    ok = (loss_diff == 0.0 and worst[0] == 0.0
+          and bool(torch.isfinite(got_losses).all()))
+    log(f"  {label}: {got_losses.numel()} losses max |diff| {loss_diff:.3e} "
+        f"(relative {loss_rel_diff:.3e}), parameters max |diff| "
+        f"{worst[0]:.3e} ({worst[1]}) (tol 0: bitwise) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: disagrees with its control")
+        log(f"    control losses {want_losses.tolist()}")
+        log(f"    arm losses     {got_losses.tolist()}")
+    return {"loss_max_abs_diff": loss_diff, "param_max_abs_diff": worst[0],
+            "bitwise": ok}
+
+
+def masters_of(opt, model):
+    """The optimizer's float32 masters, flat, in the model's parameter
+    order (under ZeRO at one rank a bucket's shard is the whole bucket)."""
+    if opt._zero is None:
+        parts = [opt._accumulators[("master", id(p))]
+                 for p in model.parameters()]
+    else:
+        seg = {}
+        for b in opt._zero.buckets:
+            for p, s in zip(b.params, b.segments(b.stores["master"])):
+                seg[id(p)] = s
+        parts = [seg[id(p)] for p in model.parameters()]
+    return torch.cat([t.detach().reshape(-1).float() for t in parts])
+
+
+def zero_bert_arms(pt, fa, seed, failures):
+    """Phase 8a: bench.py's BERT-base recipe through to_static(one_step,
+    scan_steps=20, dp_axis="dp") on the one-rank mesh: the nine arms, each
+    against its control over two calls, then each timed and profiled; two
+    witnesses of the accumulation windows (float32 parameters; a window
+    that keeps only its last micro step)."""
+    import gc
+
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.models.bert import (BertForPretraining, bert_base,
+                                              synthetic_mlm_batch)
+    cfg = bert_base(vocab_size=BERT_VOCAB, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    pt.seed(seed + 4)
+    base = BertForPretraining(cfg, device="cuda").to("bfloat16")
+    start = torch.cat([p.detach().float().reshape(-1)
+                       for p in base.parameters()])
+    fpt = base.flops_per_token(BERT_SEQ)
+    tokens = BERT_BATCH * BERT_SEQ
+    batches = [synthetic_mlm_batch(BERT_BATCH, BERT_SEQ, BERT_VOCAB,
+                                   seed=seed + 50 + i) for i in range(KSTEP)]
+    stacked = [torch.from_numpy(np.stack(col)).cuda() for col in zip(*batches)]
+
+    def build(stage=0, prefetch=None, remat=None, accumulate=None,
+              fp32=False, last_micro_only=False, measure=True):
+        model = copy.deepcopy(base)
+        if fp32:
+            model = model.float()
+        if remat is not None:
+            for layer in model.bert.layers:  # bench.py --remat
+                layer.enable_recompute(remat)
+        opt = optimizer.AdamW(parameters=model.parameters(),
+                              learning_rate=BERT_LR, multi_precision=True)
+        if stage:
+            opt._zero_enable(axis="dp", stage=stage, prefetch=prefetch)
+        body = bench_one_step(pt, model, opt)
+        if last_micro_only:
+            def body(*batch, one_step=body):
+                # a no-op in a window's micro steps; before the window's
+                # last backward it drops the earlier micro steps' gradients
+                opt.clear_grad()
+                return one_step(*batch)
+        program = jit.to_static(body, scan_steps=KSTEP, dp_axis="dp",
+                                accumulate_steps=accumulate)
+        return program, model, opt
+
+    def two_calls(label, program):
+        """Two calls: the first with its capture inspected, the second
+        (replays only) with the collectives Python issues counted."""
+        with inspect_capture() as seen:
+            first, peak = first_kstep_call(label, lambda: program(*stacked))
+        collective.reset_counts()
+        second = program(*stacked)
+        torch.cuda.synchronize()
+        return (torch.cat([first, second]).cpu(), peak, seen,
+                collective.counts())
+
+    acc = f"accumulate_steps={ZERO_ACCUM}"
+    arms = [("replicated control", {}, None),
+            ("ZeRO-1", dict(stage=1), "control"),
+            ("ZeRO-2", dict(stage=2), "control"),
+            (f"accumulating control ({acc})", dict(accumulate=ZERO_ACCUM),
+             None),
+            (f"ZeRO-2, {acc}", dict(stage=2, accumulate=ZERO_ACCUM),
+             "accumulating"),
+            (f"accumulating control ({acc}), last micro step only",
+             dict(accumulate=ZERO_ACCUM, last_micro_only=True,
+                  measure=False), "accumulating"),
+            (f"accumulating control ({acc}), float32 parameters",
+             dict(accumulate=ZERO_ACCUM, fp32=True, measure=False), None),
+            (f"ZeRO-2, {acc}, float32 parameters",
+             dict(stage=2, accumulate=ZERO_ACCUM, fp32=True, measure=False),
+             "accumulating float32"),
+            ("ZeRO-3, prefetch on", dict(stage=3, prefetch=True), "control"),
+            ("ZeRO-3, prefetch off", dict(stage=3, prefetch=False),
+             "control"),
+            ("recompute full", dict(remat="full"), "control"),
+            ("recompute selective", dict(remat="selective"), "control"),
+            ("recompute offload", dict(remat="offload"), "control")]
+    controls, results = {}, {}
+    for label, kw, against in arms:
+        log(f"  -- BERT-base arm: {label}")
+        try:
+            results[label] = bert_arm(label, kw, against, build, two_calls,
+                                      controls, stacked, start, tokens, fpt,
+                                      failures)
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            import traceback
+            traceback.print_exc()
+            failures.append(f"BERT arm {label} raised {type(e).__name__}: "
+                            f"{e}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_collectives(results, failures)
+    return results
+
+
+def bert_arm(label, kw, against, build, two_calls, controls, stacked, start,
+             tokens, fpt, failures):
+    """One arm of phase 8a: two calls against its control (or kept as a
+    control), the collectives of its captured unit and of a replayed call,
+    then (``measure``) timed calls, a profiled call, the profiler's device
+    copies of one call by size, and its memory."""
+    kw = dict(kw)
+    measure = kw.pop("measure", True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    program, model, opt = build(**kw)
+    torch.cuda.synchronize()
+    state_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    losses, peak, seen, call_counts = two_calls(label, program)
+    if len(seen.graphs) != 1:
+        raise RuntimeError(f"{label}: {len(seen.graphs)} graphs captured, "
+                           "not one")
+    res = {"graph_copies": graph_copies(seen.graphs[0]),
+           "capture_counts": seen.counts[0], "call_counts": call_counts}
+    masters = None if kw.get("fp32") else masters_of(opt, model)
+    if against is None:
+        key = ("control" if not kw.get("accumulate") else "accumulating"
+               + (" float32" if kw.get("fp32") else ""))
+        controls[key] = (losses, [p.detach().clone()
+                                  for p in model.parameters()], masters,
+                         res["graph_copies"])
+    elif kw.get("accumulate") and not kw.get("fp32"):
+        res.update(compare_window_arm(label, controls[against], losses,
+                                      masters, start,
+                                      kw.get("last_micro_only"), failures))
+    else:
+        res.update(compare_arm(f"{label} vs its control",
+                               controls[against][0], losses,
+                               controls[against][1], model, failures))
+    if against is not None:
+        res["control_graph_copies"] = controls[against][3]
+    if not bool(torch.isfinite(losses).all()) or not losses[-1] < losses[0]:
+        failures.append(f"BERT {label}: losses not finite and falling")
+    if not measure:
+        return res
+    calls, tel = timed_kstep(lambda: program(*stacked), KSTEP,
+                             KSTEP_TIMED_CALLS, tokens, fpt)
+    prof = report_profile(f"BERT {label} call ({KSTEP} steps)",
+                          profile_retry(lambda: program(*stacked).cpu()),
+                          failures)
+    res.update(log_rate(f"BERT-base {label}", tel, KSTEP, fpt, peak,
+                        prof))
+    layout = opt.zero_layout()
+    res.update(state_bytes=opt._zero_state_bytes(),
+               reserved_gb=torch.cuda.memory_reserved() / 1e9,
+               model_and_state_gb=state_gb,
+               bucket_rows=None if layout is None else layout["bucket_rows"],
+               prefetch=None if layout is None else layout["prefetch"],
+               stage=None if layout is None else layout["stage"],
+               profiled_copies=device_copies_by_bytes(
+                   lambda: program(*stacked)))
+    log(f"  {label}: _zero_state_bytes {res['state_bytes']} "
+        f"({res['state_bytes'] / 1e9:.3f} GB); the model and optimizer "
+        f"state {state_gb:.3f} GB; reserved {res['reserved_gb']:.3f} GB; "
+        f"buckets {None if layout is None else layout['n_buckets']}")
+    return res
+
+
+def compare_window_arm(label, control, losses, masters, start,
+                       last_micro_only, failures):
+    """An arm over accumulation windows against the accumulating control
+    (bf16 parameters): the first window's losses bitwise (no update yet),
+    the second's within ZERO_ACCUM_LOSS_REL (one update apart), the later
+    windows' reported; the masters' distance from the control's over the
+    control's travel within ZERO_ACCUM_MASTER_REL, or, for the window that
+    keeps only its last micro step, beyond it."""
+    a = ZERO_ACCUM
+    want_losses, _, want_masters, _ = control
+    rel = (losses - want_losses).abs() / want_losses.abs()
+    first_bitwise = bool(torch.equal(losses[:a], want_losses[:a]))
+    second = float(rel[a:2 * a].max())
+    travel = float((want_masters - start).norm())
+    master_rel = float((masters - want_masters).norm()) / travel
+    master_max = float((masters - want_masters).abs().max())
+    if last_micro_only:
+        ok = master_rel > ZERO_ACCUM_MASTER_REL
+        verdict = f"beyond the bound {ZERO_ACCUM_MASTER_REL:g}, as it must be"
+    else:
+        ok = (first_bitwise and second <= ZERO_ACCUM_LOSS_REL
+              and master_rel <= ZERO_ACCUM_MASTER_REL)
+        verdict = (f"first window's {a} losses bitwise {first_bitwise}; "
+                   f"second window's max relative diff {second:.3e} (tol "
+                   f"{ZERO_ACCUM_LOSS_REL:g}); masters within the bound "
+                   f"{ZERO_ACCUM_MASTER_REL:g}")
+    log(f"  {label} vs the accumulating control: masters' L2 distance "
+        f"{master_rel:.4e} of the control's travel ({travel:.4e}), max "
+        f"|diff| {master_max:.3e} ({master_max / BERT_LR:.3f} x lr); "
+        f"{verdict}; the losses' relative diff by window "
+        f"{[round(float(w.max()), 5) for w in rel.split(a)]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: outside its bound against the "
+                        f"accumulating control")
+    return {"window_bitwise": first_bitwise,
+            "second_window_rel_diff": second,
+            "loss_max_rel_diff": float(rel.max()),
+            "master_rel_l2": master_rel, "master_max_abs_diff": master_max}
+
+
+def implied_collectives(label, res):
+    """What a ZeRO arm's stage implies, for its bucket rows r: per captured
+    unit, {bytes: copies} (a reduce-scatter of r x 1024 float32 and an
+    all-gather of r x 1024 bf16 per bucket and step: ZeRO-1/2 after the
+    update, ZeRO-3 before the forward, bucket 0 at the tail with prefetch;
+    over windows of a steps, a reduce-scatters and one all-gather) and the
+    Python-issued collectives of a call beyond the replays (ZeRO-3 gathers
+    the buckets not current at its end: all but bucket 0 with prefetch;
+    every program all-reduces its loss over the ranks)."""
+    import collections
+    rows = res["bucket_rows"]
+    a = ZERO_ACCUM if "accumulate" in label else 1
+    unit = collections.Counter()
+    for r in rows:
+        unit[r * 1024 * 4] += a
+        unit[r * 1024 * 2] += 1
+    end_rows = []
+    if res["stage"] == 3:
+        end_rows = rows[1:] if res["prefetch"] else rows
+    call_end = {"all_reduce": 1}
+    if end_rows:
+        call_end["all_gather"] = len(end_rows)
+    capture = {"reduce_scatter": a * len(rows), "all_gather": len(rows)}
+    return unit, capture, call_end, [r * 1024 * 2 for r in end_rows], a
+
+
+def check_collectives(results, failures):
+    """Each ZeRO arm's collectives, counted exactly: the memcpy nodes of
+    its captured unit beyond its control's (every collective is one node at
+    one rank) and the collectives Python issued during that capture, both
+    against the unit the stage implies, and the collectives Python issues
+    in a replayed call (at its end) against what that implies. A call runs
+    units x the unit plus those. The profiler's count of the same copies in
+    one call is reported beside (its trace drops records)."""
+    import collections
+    for label, res in results.items():
+        if not res.get("bucket_rows"):
+            continue
+        unit, capture, call_end, end_copies, a = implied_collectives(label,
+                                                                     res)
+        nodes = collections.Counter(res["graph_copies"])
+        nodes.subtract(res["control_graph_copies"])
+        nodes = {b: n for b, n in nodes.items() if n}
+        captured = {kind: calls for kind, (calls, _)
+                    in res["capture_counts"].items()}
+        issued = {kind: calls for kind, (calls, _)
+                  in res["call_counts"].items()}
+        ok = (nodes == dict(unit) and captured == capture
+              and issued == call_end)
+        units = KSTEP // a
+        per_call = collections.Counter({b: units * n for b, n in unit.items()})
+        per_call.update(end_copies)
+        seen = res.pop("profiled_copies", {})
+        control_seen = next((r.get("profiled_copies", {}) for lb, r in
+                             results.items() if not r.get("bucket_rows")
+                             and ("accumulat" in lb) == (a > 1)), {})
+        profiled = sum(seen.get(b, 0) - control_seen.get(b, 0)
+                       for b in per_call)
+        log(f"  {label}: collectives of a captured unit ({a} step"
+            f"{'s' if a > 1 else ''}): {sum(nodes.values())} memcpy nodes "
+            f"beyond the control's graph, {sum(unit.values())} implied, by "
+            f"size equal {nodes == dict(unit)}; Python issued {captured} "
+            f"under capture (implied {capture}) and {issued} in a replayed "
+            f"call (implied {call_end}); a call runs "
+            f"{sum(per_call.values())} reduce-scatter and all-gather copies "
+            f"({units} replays of the unit and {len(end_copies)} at the "
+            f"end); the profiler's trace of one call held {profiled} of them "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            log(f"    graph nodes beyond the control {nodes}, implied "
+                f"{dict(unit)}")
+            failures.append(f"{label}: the collectives of a call differ "
+                            f"from what the stage implies")
+        res["collectives"] = {"unit_nodes": sum(nodes.values()),
+                              "per_call": sum(per_call.values()),
+                              "profiled": profiled}
+    for res in results.values():  # not for the JSON line
+        for key in ("graph_copies", "control_graph_copies", "capture_counts",
+                    "call_counts", "profiled_copies"):
+            res.pop(key, None)
+
+
+def check_recompute_dropout(pt, seed, failures):
+    """Phase 8c: BERT-base with dropout through to_static(one_step,
+    scan_steps=4, dp_axis="dp") with full and with selective recompute on
+    every encoder layer, bitwise against the same program without
+    recompute over two calls (the eager first unit, the capture and the
+    replays): the recomputation takes back the forward's draws."""
+    import gc
+
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.bert import (BertForPretraining, bert_base,
+                                              synthetic_mlm_batch)
+    k = RECOMPUTE_DROPOUT_K
+    cfg = bert_base(vocab_size=BERT_VOCAB, hidden_dropout=RECOMPUTE_DROPOUT,
+                    attention_dropout=RECOMPUTE_DROPOUT)
+    pt.seed(seed + 7)
+    base = BertForPretraining(cfg, device="cuda").to("bfloat16")
+    batches = [synthetic_mlm_batch(BERT_BATCH, BERT_SEQ, BERT_VOCAB,
+                                   seed=seed + 80 + i) for i in range(k)]
+    stacked = [torch.from_numpy(np.stack(col)).cuda() for col in zip(*batches)]
+    runs = {}
+    for policy in (None, "full", "selective"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = copy.deepcopy(base)
+        if policy is not None:
+            for layer in model.bert.layers:
+                layer.enable_recompute(policy)
+        opt = optimizer.AdamW(parameters=model.parameters(),
+                              learning_rate=BERT_LR, multi_precision=True)
+        program = jit.to_static(bench_one_step(pt, model, opt), scan_steps=k,
+                                dp_axis="dp")
+        pt.seed(seed + 8)  # the dropout draws
+        losses = torch.cat([program(*stacked), program(*stacked)]).cpu()
+        runs[policy] = (losses, model)
+        del program, opt
+    want, control = runs.pop(None)
+    params = [p.detach() for p in control.parameters()]
+    for policy, (losses, model) in runs.items():
+        compare_arm(f"dropout {RECOMPUTE_DROPOUT:g}, recompute {policy} vs "
+                    f"none, 2 calls of scan_steps={k}", want, losses,
+                    params, model, failures)
+
+
+def check_attention_gate(fa, failures):
+    """F1 on the card: inputs the kernels do not take (float16, head dim
+    96) are written out, launching no kernel and raising nothing."""
+    from paddle_tpu_torch.nn import functional as F
+    fa.reset_launch_counts()
+    cases = {"float16": torch.randn(1, SEQ, 2, 64, device="cuda",
+                                    dtype=torch.float16),
+             "head dim 96": torch.randn(1, SEQ, 2, 96, device="cuda",
+                                        dtype=torch.bfloat16)}
+    ok = True
+    for label, q in cases.items():
+        out = F.scaled_dot_product_attention(q, q, q, is_causal=True)
+        ok &= (not fa.supports(q, q, q) and out.shape == q.shape
+               and bool(torch.isfinite(out.float()).all()))
+    ok &= fa.flash_attention_fwd.launches == 0
+    log(f"  attention gate: float16 and head dim 96 at seq {SEQ} written "
+        f"out, {fa.flash_attention_fwd.launches} kernel launches "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("the attention gate sent unsupported inputs to the "
+                        "kernels")
+
+
+def gpt_zero3_recompute(pt, fa, seed, failures):
+    """Phase 8b: GPT-small through to_static(scan_steps=10, dp_axis="dp")
+    with ZeRO-3, prefetch and full recompute on every block, against the
+    same program without ZeRO and recompute; one replayed call profiled.
+    Returns the wrappers' launch counts over the arm's first call (counts
+    zeroed just before, read just after: the eager unit) and the profiled
+    replay's."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_small,
+                                             synthetic_lm_batch)
+    k = GPT_KSTEP
+    cfg = gpt_small(hidden_dropout=0.0, attention_dropout=0.0)
+    pt.seed(seed + 5)
+    control_model = GPTForCausalLM(cfg, device="cuda").to("bfloat16")
+    model = copy.deepcopy(control_model)
+    stacked = torch.from_numpy(np.stack([
+        synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size, seed=seed + 60 + i)
+        for i in range(k)])).cuda()
+
+    def program_for(m, zero):
+        opt, sched = make_optimizer(m)
+        if zero:
+            for blk in m.gpt.blocks:
+                blk.enable_recompute("full")
+            opt._zero_enable(axis="dp", stage=3, prefetch=True)
+
+        def one_step(ids):
+            with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+                loss = m.loss(m(ids), ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return jit.to_static(one_step, scan_steps=k, dp_axis="dp"), sched, opt
+
+    control, csched, _ = program_for(control_model, False)
+    program, sched, opt = program_for(model, True)
+    want, got = [], []
+    counted = {}
+    for call in range(2):  # the schedulers step between calls
+        want.append(control(stacked))
+        csched.step()
+        if call == 0:
+            fa.reset_launch_counts()
+            out, peak = first_kstep_call("GPT-small ZeRO-3 + recompute",
+                                         lambda: program(stacked))
+            counted = {w.__name__: w.launches for w in (
+                fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)}
+        else:
+            out = program(stacked)
+        got.append(out)
+        sched.step()
+    res = compare_arm(f"GPT-small ZeRO-3 + prefetch + full recompute, 2 calls "
+                      f"of scan_steps={k}, vs the replicated program",
+                      torch.cat(want).cpu(), torch.cat(got).cpu(),
+                      [p.detach() for p in control_model.parameters()], model,
+                      failures)
+    want_eager = {"flash_attention_fwd": 2 * cfg.num_layers,
+                  "flash_attention_bwd_dq": cfg.num_layers,
+                  "flash_attention_bwd_dkv": cfg.num_layers}
+    log(f"  wrapper launch counts over the arm's first call (its eager "
+        f"inner step; the capture and replays count nothing): {counted} "
+        f"(want {want_eager})")
+    if counted != want_eager:
+        failures.append(f"GPT ZeRO-3 + recompute: wrapper launches "
+                        f"{counted}, not {want_eager}")
+    del control
+    calls, tel = timed_kstep(lambda: program(stacked), k, KSTEP_TIMED_CALLS,
+                             stacked[0].numel(), model.flops_per_token(SEQ))
+    prof = report_profile(f"GPT-small ZeRO-3 + recompute call ({k} steps)",
+                          profile_retry(lambda: program(stacked).cpu()),
+                          failures)
+    launches = {}
+    for meta, per_step in zip(KERNELS, (2, 1, 1)):
+        counts = {} if prof is None else prof["counts"]
+        n = sum(c for name, c in counts.items() if meta["kernel"] in name)
+        want_n = per_step * cfg.num_layers * k
+        launches[meta["name"]] = n
+        log(f"  profiled replayed call: {meta['name']} ({meta['kernel']}) {n} "
+            f"launches (want {per_step} x {cfg.num_layers} layers x {k} = "
+            f"{want_n})")
+        if n != want_n:
+            failures.append(f"the replayed GPT ZeRO-3 + recompute call ran "
+                            f"{meta['kernel']} {n} times, not {want_n}")
+    res.update(log_rate(f"GPT-small ZeRO-3 + recompute (scan_steps={k})", tel,
+                        k, model.flops_per_token(SEQ), peak, prof))
+    res.update(state_bytes=opt._zero_state_bytes(),
+               reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    return counted, launches, res
+
+
+def phase8(pt, fa, seed, failures):
+    """Phase 8 on a one-rank NCCL mesh, torn down at the end; a phase that
+    raises is a failure and the next one still runs."""
+    import traceback
+    log("phase 8: ZeRO-1/2/3 and recompute through to_static(..., "
+        "dp_axis=\"dp\") on a one-rank NCCL mesh")
+    init_dp_mesh()
+    out = [{}, {}, {}, {}]
+    try:
+        for i, fn in ((0, lambda: zero_bert_arms(pt, fa, seed, failures)),
+                      (1, lambda: gpt_zero3_recompute(pt, fa, seed,
+                                                      failures)),
+                      (None, lambda: check_recompute_dropout(pt, seed,
+                                                             failures)),
+                      (None, lambda: check_attention_gate(fa, failures))):
+            try:
+                r = fn()
+            except Exception as e:  # noqa: BLE001 -- reported as a failure
+                traceback.print_exc()
+                failures.append(f"phase 8 raised {type(e).__name__}: {e}")
+                continue
+            if i == 0:
+                out[0] = r
+            elif i == 1:
+                out[1:] = r
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"  {card_line()}")
+    return tuple(out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1305,7 +1992,11 @@ def main():
     kstep_launches, gpt_rate = gpt_kstep(pt, fa, args.seed, eager_ms,
                                          failures)
 
-    # ---- 8. kernels line and result
+    # ---- 8. data parallelism (ZeRO) and recompute, one-rank NCCL mesh
+    zero_rates, zr_counted, zr_launches, zr_rate = phase8(pt, fa, args.seed,
+                                                          failures)
+
+    # ---- 9. kernels line and result
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
     kernels = []
@@ -1317,8 +2008,10 @@ def main():
             {k: v for k, v in meta.items()
              if k not in ("variants", "cuda_core")},
             launches=n, **timing, step_device_ms=step_ms.get(name),
-            launches_by_path=dict(paths, training=n, training_kstep_call=
-                                  kstep_launches[name]),
+            launches_by_path=dict(
+                paths, training=n, training_kstep_call=kstep_launches[name],
+                zero3_recompute_first_call=zr_counted[name],
+                zero3_recompute_kstep_call=zr_launches[name]),
             variants={dt: dict(
                 source=src,
                 training_launches=(trained_bf16[name] if dt == "bf16"
@@ -1328,7 +2021,9 @@ def main():
             shape=[TRAIN_BATCH, SEQ, 12, 64], dtype="bf16"))
     log(json.dumps({"steps": {"bert_base": bert_rates,
                               "gpt_small_kstep": gpt_rate,
-                              "gpt_small_eager_step_ms": eager_ms}}))
+                              "gpt_small_eager_step_ms": eager_ms,
+                              "bert_base_dp_arms": zero_rates,
+                              "gpt_small_zero3_recompute": zr_rate}}))
     log(json.dumps({"kernels": kernels}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -6,19 +6,48 @@ Pallas TPU kernel with a kernel written by hand for Hopper
 (``kernels/csrc``). Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
 
-Paths of this package: ``models.bert.BertForPretraining`` (the JAX
-package's ``bench.py`` step) and ``models.gpt.GPTForCausalLM`` trained under
+Paths of this package: ``models.BertForPretraining`` (the JAX package's
+``bench.py`` step) and ``models.GPTForCausalLM`` trained under
 ``amp.auto_cast`` with ``optimizer.AdamW`` (float32 masters), eagerly or as
 the k-step program ``jit.to_static(one_step, scan_steps=k)`` (a CUDA graph
-on the card); GPT also served behind ``serving.Engine.from_layer``. Causal
-attention at ``seq_len >= 1024`` runs through the CUDA flash-attention
-kernels, forward and backward (``kernels.flash_attention``).
+on the card), data-parallel over a ``torch.distributed`` group with ZeRO-1/2/3
+(``dp_axis``, ``optimizer._zero_enable``, ``distributed``), with
+accumulation windows (``accumulate_steps``) and activation recompute
+(``recompute``, ``Layer.enable_recompute``); GPT also served behind
+``serving.Engine.from_layer``. Causal attention at ``seq_len >= 1024``
+runs through the CUDA flash-attention kernels, forward and backward
+(``kernels.flash_attention``).
 """
-from . import amp, jit, nn, optimizer, regularizer  # noqa: F401
-from .core.device import resolve_device  # noqa: F401
+import numpy as np
+import torch
+
+from . import (amp, distributed, jit, models, nn, optimizer,  # noqa: F401
+               recompute, regularizer, serving)
+from .core.device import resolve_device
 from .core.dtype import bfloat16, convert_dtype, float32, int32  # noqa: F401
 from .core.random import default_generator, seed  # noqa: F401
+from .regularizer import L1Decay, L2Decay  # noqa: F401
+
+
+def to_tensor(data, dtype=None, place=None, stop_gradient=True):
+    """``data`` (a tensor, numpy array, scalar or nested list) as a tensor
+    on the card, unless ``place`` asks for the CPU (``"cpu"``); numpy's
+    dtype is kept unless ``dtype`` names another. ``stop_gradient=False``
+    makes it require grad."""
+    where = resolve_device(place)
+    if isinstance(data, torch.Tensor):
+        t = data.detach()
+    else:
+        t = torch.from_numpy(np.array(data, copy=True))
+    t = t.to(device=where, dtype=convert_dtype(dtype) if dtype else None,
+             copy=True)
+    if not stop_gradient:
+        t.requires_grad_(True)
+    return t
+
 
 __all__ = ["seed", "default_generator", "resolve_device", "convert_dtype",
-           "float32", "bfloat16", "int32", "amp", "jit", "nn", "optimizer",
-           "regularizer"]
+           "to_tensor", "float32", "bfloat16", "int32", "L1Decay", "L2Decay",
+           "amp", "distributed",
+           "jit", "models", "nn", "optimizer", "recompute", "regularizer",
+           "serving"]

@@ -13,22 +13,40 @@ across the steps (the reference's persistable gradients); one the body
 clears is ``None`` afterwards. The stacked outputs are values: they carry
 no autograd history (the backward belongs inside the body).
 
+``dp_axis="dp"`` (with ``scan_steps``) runs the program as one rank of the
+mesh's data-parallel group (``distributed.parallel_env``): the caller
+passes the global ``[k, B, ...]`` batch and this rank takes its ``B/dp``
+rows of dim 1 (the reference's ``PartitionSpec(None, dp_axis)``; inputs
+that disagree on dim 1 stay whole, with a warning); the optimizer reduces
+the gradients over the group, per parameter for a replicated optimizer,
+per bucket after ``_zero_enable``; floating outputs come back averaged over
+the group. ``accumulate_steps=a`` groups the k inner steps into windows of
+a: the first a - 1 steps of a window run in the "accum" phase (the
+optimizer and ``clear_grad`` leave the gradients be) and the last in the
+"fire" phase (one update over the window's gradients, scaled 1/a).
+Programs with a dp axis call the hooks of :func:`register_call_begin_hook`
+once a call, before its first step (outside any capture), those of
+:func:`register_step_hook` at the start of every inner step and those of
+:func:`register_call_end_hook` once a call, after its last step (ZeRO-3
+releases, gathers and regathers its parameters there).
+
 Where the program runs is where its tensor arguments are:
 
 - On the CPU it is a plain loop over the body, so its results are bitwise
   those of the same eager calls.
-- On the card it is a CUDA graph (``torch.cuda.CUDAGraph``). The first call
-  for a signature (the shapes and dtypes of the tensors and the values of
-  the other arguments, as the reference keys its compile cache) runs the
-  body once eagerly on the program's stream from the program's static
-  input buffers: that is inner step 0, and it creates whatever the body
-  builds lazily (kernel attributes, cuBLAS workspaces) before any capture.
-  Then one step of the body is captured from the same buffers, and every
-  further step copies its microbatch into the buffers and replays the
-  graph. The graph holds one step, not k: its capture time and its memory
-  pool do not grow with k, as the reference's scan traces its body once.
-  The per-step outputs are copied into ``[k, ...]`` device tensors; the
-  host reads nothing.
+- On the card it is a CUDA graph (``torch.cuda.CUDAGraph``) of one unit:
+  one inner step, or one accumulation window of a steps, whose steps are
+  not alike. The first call for a signature (the shapes and dtypes of the
+  tensors and the values of the other arguments, as the reference keys
+  its compile cache) runs unit 0 eagerly on the program's stream from the
+  program's static input buffers: those are real steps, and they create
+  whatever the body builds lazily (kernel attributes, cuBLAS workspaces,
+  NCCL communicators, pinned host buffers) before any capture. Then one
+  unit is captured from the same buffers, and every further unit copies
+  its microbatches into the buffers and replays the graph. The graph's
+  capture time and its memory pool grow with the unit, never with k, as
+  the reference's scan traces its body once. The per-step outputs are
+  copied into ``[k, ...]`` device tensors; the host reads nothing.
 
 Rules that capture imposes on the body, each enforced where it can be:
 
@@ -48,18 +66,54 @@ Rules that capture imposes on the body, each enforced where it can be:
   profiler.
 
 A capture or replay that fails raises; the program never runs eagerly in
-its place. Not ported: ``dp_axis`` and ``accumulate_steps`` (ZeRO data
-parallelism, ROADMAP item 10), the AST fallback, ``input_spec`` and
-per-program compiler flags.
+its place. ``xla_flags`` and ``donate_state`` are accepted for the
+reference's signature and have no effect on CUDA. Not ported: the AST
+fallback and ``input_spec``.
 """
 import functools
+import gc
+import warnings
+import weakref
 
 import torch
 
 from ..core import random as _random
+from ..distributed import collective as _collective
+from ..distributed import parallel_env
 
-_ZERO = ("is an option of the ZeRO data-parallel step program, which is not "
-         "ported yet (ROADMAP item 10)")
+_hooks = {"call_begin": [], "step": [], "call_end": []}
+
+
+def _register(kind, method):
+    ref = weakref.WeakMethod(method)
+    _hooks[kind] = [r for r in _hooks[kind] if r() is not None] + [ref]
+
+
+def register_step_hook(method):
+    """Call the bound ``method(dp_axis, program)`` at the start of every
+    inner step of a program with a dp axis (held weakly, in registration
+    order: every rank must issue its collectives alike)."""
+    _register("step", method)
+
+
+def register_call_begin_hook(method):
+    """Call the bound ``method(dp_axis, program)`` once at the start of
+    every call of a program with a dp axis, before any step, capture or
+    replay."""
+    _register("call_begin", method)
+
+
+def register_call_end_hook(method):
+    """Call the bound ``method(dp_axis, program)`` once at the end of every
+    call of a program with a dp axis."""
+    _register("call_end", method)
+
+
+def _run_hooks(kind, axis, program):
+    for ref in list(_hooks[kind]):
+        fn = ref()
+        if fn is not None:
+            fn(axis, program)
 
 
 def _flatten(tree, leaves):
@@ -119,12 +173,16 @@ def _step_leaves(leaves, i):
     return [x[i] if isinstance(x, torch.Tensor) else x for x in leaves]
 
 
-def _stack(outputs):
-    """Per-step output nests -> one nest of ``[k, ...]`` tensors."""
+def _check_outputs(outputs):
     spec = _structure(outputs[0], _output_leaf)
     if any(_structure(o, _output_leaf) != spec for o in outputs[1:]):
         raise ValueError("the body returned differently structured outputs "
                          "from one inner step to the next")
+
+
+def _stack(outputs):
+    """Per-step output nests -> one nest of ``[k, ...]`` tensors."""
+    _check_outputs(outputs)
     per_step = [_tree(o)[0] for o in outputs]
     _, rebuild = _tree(outputs[0])
     return rebuild([None if col[0] is None else
@@ -133,51 +191,65 @@ def _stack(outputs):
 
 
 class _GraphProgram:
-    """One step of the body captured into a CUDA graph, with the static
-    input buffers it reads and the output tensors it writes."""
+    """One unit of the body (``n`` inner steps) captured into a CUDA graph,
+    with the static input buffers it reads and the outputs it writes."""
 
-    def __init__(self, fn, rebuild, step_leaves, device):
-        self.fn = fn
-        self.rebuild = rebuild
+    def __init__(self, run_step, unit_leaves, n, stacked, device):
+        self.run_step = run_step  # (i, step leaves) -> the body's output
+        self.n = n
+        self.stacked = stacked  # tensor inputs carry a leading [n] dim
         self.device = device
         self.stream = torch.cuda.Stream(device)
         self.consts = [None if isinstance(x, torch.Tensor) else x
-                       for x in step_leaves]
+                       for x in unit_leaves]
         self.inputs = None  # allocated on the program's stream
         self.graph = None
-        self.outputs = None
+        self.outputs = None  # per inner step, the output leaves
 
     def _call(self):
         leaves = [c if buf is None else buf
                   for buf, c in zip(self.inputs, self.consts)]
-        args, kwargs = self.rebuild(leaves)
-        return self.fn(*args, **kwargs)
+        return [self.run_step(i, _step_leaves(leaves, i) if self.stacked
+                              else leaves) for i in range(self.n)]
 
-    def _load(self, step_leaves):
-        for buf, x in zip(self.inputs, step_leaves):
+    def _load(self, unit_leaves):
+        for buf, x in zip(self.inputs, unit_leaves):
             if buf is not None:
                 buf.copy_(x)
 
-    def warm_up_and_capture(self, step_leaves):
-        """Run the body once eagerly from the static buffers (a real step),
-        then capture one step; returns the eager step's output leaves."""
+    def warm_up_and_capture(self, unit_leaves):
+        """Run the unit once eagerly from the static buffers (real steps),
+        then capture one unit; returns the eager unit's output leaves."""
         self.inputs = [torch.empty_like(x) if isinstance(x, torch.Tensor)
-                       else None for x in step_leaves]
-        self._load(step_leaves)
+                       else None for x in unit_leaves]
+        self._load(unit_leaves)
         out = self._call()
-        spec = _structure(out, _output_leaf)
+        _check_outputs(out)
+        spec = _structure(out[0], _output_leaf)
         self.graph = torch.cuda.CUDAGraph()
         _random.register_with_graph(self.graph, self.device)
-        with torch.cuda.graph(self.graph, stream=self.stream):
-            captured = self._call()
-        if _structure(captured, _output_leaf) != spec:
+        # A graph that Python's collector frees destroys itself, which
+        # invalidates a capture under way: collect what is dead now (a
+        # dropped program is a reference cycle) and not during the capture.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                captured = self._call()
+        finally:
+            if collecting:
+                gc.enable()
+        if _structure(captured[0], _output_leaf) != spec:
             raise RuntimeError("the captured step returned other outputs "
                                "than its eager warm-up")
-        self.outputs, self.out_rebuild = _tree(captured)
-        return _tree(out)[0]
+        _check_outputs(captured)
+        self.outputs = [_tree(o)[0] for o in captured]
+        self.out_rebuild = _tree(captured[0])[1]
+        return [_tree(o)[0] for o in out]
 
-    def replay(self, step_leaves):
-        self._load(step_leaves)
+    def replay(self, unit_leaves):
+        self._load(unit_leaves)
         self.graph.replay()
         return self.outputs
 
@@ -187,20 +259,74 @@ class StaticFunction:
     over ``[k, ...]``-stacked arguments; programs on the card are cached by
     signature."""
 
-    def __init__(self, fn, input_spec=None, scan_steps=None, dp_axis=None,
-                 accumulate_steps=None):
+    def __init__(self, fn, input_spec=None, donate_state=True,
+                 scan_steps=None, dp_axis=None, accumulate_steps=None,
+                 xla_flags=None):
         if scan_steps is not None and int(scan_steps) < 1:
             raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
-        if dp_axis is not None:
-            raise NotImplementedError(f"dp_axis {_ZERO}")
+        self._scan_steps = int(scan_steps) if scan_steps is not None else None
+        if dp_axis is not None and self._scan_steps is None:
+            raise ValueError(
+                "dp_axis is an option of the scan step program; pass "
+                "scan_steps=k (k=1 runs a single-step program)")
+        self._dp_axis = dp_axis
+        self._accumulate_steps = None
         if accumulate_steps is not None:
-            raise NotImplementedError(f"accumulate_steps {_ZERO}")
+            a = int(accumulate_steps)
+            if self._scan_steps is None:
+                raise ValueError(
+                    "accumulate_steps is an option of the scan step "
+                    "program; pass scan_steps=k")
+            if a < 1:
+                raise ValueError(
+                    f"accumulate_steps must be >= 1, got {accumulate_steps}")
+            if a > 1 and self._scan_steps % a:
+                raise ValueError(
+                    f"scan_steps={self._scan_steps} must be a multiple of "
+                    f"accumulate_steps={a} (whole accumulation windows)")
+            self._accumulate_steps = a if a > 1 else None
         if input_spec is not None:
             raise NotImplementedError("input_spec is not ported")
         self._fn = fn
-        self._scan_steps = int(scan_steps) if scan_steps is not None else None
         self._programs = {}
         functools.update_wrapper(self, fn)
+
+    def _run_step(self, i, leaves, rebuild):
+        """Inner step ``i`` of a unit, in its dp and accumulation context."""
+        a = self._accumulate_steps
+        axis = self._dp_axis
+        with parallel_env.dp_axis_ctx(axis), parallel_env.program_ctx(
+                self), parallel_env.accum_ctx(
+                "fire" if a is None or i == a - 1 else "accum", a or 1):
+            if axis is not None:
+                _run_hooks("step", axis, self)
+            args, kwargs = rebuild(leaves)
+            return self._fn(*args, **kwargs)
+
+    def _rank_slice(self, leaves):
+        """This rank's ``B/dp`` rows of dim 1 of every stacked input, where
+        all of them agree on a dim 1 that dp divides; else all whole."""
+        mesh = parallel_env.current_mesh()
+        axis = self._dp_axis
+        if mesh is None or axis not in mesh.axis_names:
+            raise RuntimeError(f"dp_axis={axis!r} needs an active mesh with "
+                               f"that axis (distributed.set_mesh)")
+        dp = parallel_env.axis_degree(mesh, axis)
+        group = parallel_env.axis_group(mesh, axis)
+        rank = torch.distributed.get_rank(group)
+        dim1 = {x.shape[1] for x in leaves
+                if isinstance(x, torch.Tensor) and x.dim() >= 2}
+        if len(dim1) != 1 or next(iter(dim1)) % dp:
+            if dp > 1:
+                warnings.warn(
+                    f"dp_axis={axis!r}: stacked inputs disagree on a "
+                    f"microbatch dim (dim-1 sizes {sorted(dim1)}) or dp={dp} "
+                    "does not divide it; all inputs stay whole on every rank")
+            return leaves, dp, group
+        b = next(iter(dim1)) // dp
+        return [x[:, rank * b:(rank + 1) * b]
+                if isinstance(x, torch.Tensor) and x.dim() >= 2 else x
+                for x in leaves], dp, group
 
     def __call__(self, *args, **kwargs):
         leaves, rebuild = _tree((args, kwargs))
@@ -220,29 +346,53 @@ class StaticFunction:
                         f"scan_steps={k}: every dynamic input must be "
                         f"stacked [k, ...]; got shape {tuple(t.shape)}")
         device = devices.pop()
-        if device.type == "cuda":
-            key = _structure((args, kwargs), _argument_leaf)
-            return self._run_graph(device, key, leaves, rebuild)
-        if device.type != "cpu":
+        if device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {device}")
+        dp = group = None
+        if self._dp_axis is not None:
+            leaves, dp, group = self._rank_slice(leaves)
 
-        def call(step):
-            a, kw = rebuild(step)
-            return self._fn(*a, **kw)
+        def run_step(i, step_leaves):
+            return self._run_step(i, step_leaves, rebuild)
 
-        if k is None:
-            return call(leaves)
-        return _stack([call(_step_leaves(leaves, i)) for i in range(k)])
+        if device.type == "cuda":
+            key = _structure(leaves, _argument_leaf)
+            out = self._run_graph(device, key, leaves, run_step)
+        elif k is None:
+            return run_step(0, leaves)
+        else:
+            a = self._accumulate_steps or 1
+            if self._dp_axis is not None:
+                _run_hooks("call_begin", self._dp_axis, self)
+            out = _stack([run_step(i % a, _step_leaves(leaves, i))
+                          for i in range(k)])
+            if self._dp_axis is not None:
+                _run_hooks("call_end", self._dp_axis, self)
+        if self._dp_axis is not None:
+            out = self._mean_over_ranks(out, dp, group)
+        return out
 
-    def _run_graph(self, device, key, leaves, rebuild):
+    @staticmethod
+    def _mean_over_ranks(out, dp, group):
+        leaves, rebuild = _tree(out)
+        for t in leaves:
+            if t is not None and t.is_floating_point():
+                _collective.all_reduce(t, group=group)
+                t.div_(dp)
+        return rebuild(leaves)
+
+    def _run_graph(self, device, key, leaves, run_step):
         k = self._scan_steps
-        steps = k or 1
-        step_of = ((lambda i: _step_leaves(leaves, i)) if k is not None
-                   else (lambda i: leaves))
+        a = self._accumulate_steps or 1
+        units = k // a if k is not None else 1
+        unit_of = ((lambda u: [x[u * a:(u + 1) * a]
+                               if isinstance(x, torch.Tensor) else x
+                               for x in leaves]) if k is not None
+                   else (lambda u: leaves))
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = _GraphProgram(
-                self._fn, rebuild, step_of(0), device)
+                run_step, unit_of(0), a, k is not None, device)
         current = torch.cuda.current_stream(device)
         prog.stream.wait_stream(current)
         stacked = None
@@ -251,21 +401,26 @@ class StaticFunction:
                 for x in leaves:
                     if isinstance(x, torch.Tensor):
                         x.record_stream(prog.stream)
-                for i in range(steps):
+                if self._dp_axis is not None:
+                    _run_hooks("call_begin", self._dp_axis, self)
+                for u in range(units):
                     if prog.graph is None:
-                        out = prog.warm_up_and_capture(step_of(i))
+                        outs = prog.warm_up_and_capture(unit_of(u))
                     else:
-                        out = prog.replay(step_of(i))
+                        outs = prog.replay(unit_of(u))
                     if k is None:
                         stacked = [None if o is None else o.detach().clone()
-                                   for o in out]
+                                   for o in outs[0]]
                         continue
                     if stacked is None:
                         stacked = [None if o is None else o.new_empty(
-                            (k, *o.shape)) for o in out]
-                    for buf, o in zip(stacked, out):
-                        if buf is not None:
-                            buf[i].copy_(o.detach())
+                            (k, *o.shape)) for o in outs[0]]
+                    for j, out in enumerate(outs):
+                        for buf, o in zip(stacked, out):
+                            if buf is not None:
+                                buf[u * a + j].copy_(o.detach())
+                if self._dp_axis is not None:
+                    _run_hooks("call_end", self._dp_axis, self)
         except BaseException:
             if prog.graph is None or prog.outputs is None:
                 self._programs.pop(key, None)  # never replay half a capture
@@ -278,18 +433,25 @@ class StaticFunction:
 
 
 def to_static(function=None, input_spec=None, build_strategy=None,
-              scan_steps=None, dp_axis=None, accumulate_steps=None):
+              scan_steps=None, dp_axis=None, accumulate_steps=None,
+              xla_flags=None, **kwargs):
     """Decorator or wrapper, ``@to_static`` or ``to_static(fn, ...)``:
     ``fn`` as one program, or with ``scan_steps=k`` as the k-step program
-    over ``[k, ...]``-stacked arguments with ``[k, ...]``-stacked outputs.
-    On the card the program is a CUDA graph; on the CPU a loop."""
+    over ``[k, ...]``-stacked arguments with ``[k, ...]``-stacked outputs,
+    optionally one rank of a data-parallel group (``dp_axis``) with
+    accumulation windows (``accumulate_steps``). On the card the program
+    is a CUDA graph; on the CPU a loop. ``xla_flags`` and the other
+    keywords of the reference's ``StaticFunction`` (``donate_state``) have
+    no effect on CUDA."""
     if function is None:
         return lambda fn: to_static(fn, input_spec=input_spec,
                                     build_strategy=build_strategy,
                                     scan_steps=scan_steps, dp_axis=dp_axis,
-                                    accumulate_steps=accumulate_steps)
+                                    accumulate_steps=accumulate_steps,
+                                    xla_flags=xla_flags, **kwargs)
     if isinstance(function, StaticFunction):
         return function
     return StaticFunction(function, input_spec=input_spec,
                           scan_steps=scan_steps, dp_axis=dp_axis,
-                          accumulate_steps=accumulate_steps)
+                          accumulate_steps=accumulate_steps,
+                          xla_flags=xla_flags, **kwargs)

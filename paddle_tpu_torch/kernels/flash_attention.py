@@ -182,6 +182,30 @@ def _check_tma(tensors):
                 f"(address {t.data_ptr():#x}, strides {t.stride()})")
 
 
+def supports(q, k, v):
+    """True when the CUDA kernels take q/k/v ``[B, S, H, D]`` as they are:
+    one dtype, float32 or bfloat16; head dim in :data:`HEAD_DIMS`; a
+    contiguous head dim; B*H within the grid limit; for bfloat16 (TMA
+    loads) 16-byte aligned bases and batch/seq/head strides. Reads shapes,
+    dtypes, strides and addresses only: the attention gate consults it and
+    writes the attention out where it is false."""
+    tensors = (q, k, v)
+    if any(t.dim() != 4 for t in tensors):
+        return False
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in VARIANTS:
+        return False
+    b, _, h, d = q.shape
+    if d not in HEAD_DIMS or b * h > _MAX_GRID_Y:
+        return False
+    if any(t.stride(3) != 1 for t in tensors):
+        return False
+    if q.dtype == torch.bfloat16:
+        return all(t.data_ptr() % 16 == 0
+                   and all(s * t.element_size() % 16 == 0
+                           for s in t.stride()[:3]) for t in tensors)
+    return True
+
+
 def _device_of(t):
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")

@@ -2,11 +2,12 @@
 ``paddle_tpu/nn/functional/attention.py``).
 
 Same gate and branch conditions as the reference: with no mask, dropout
-inactive and ``seq_len >= _FLASH_MIN_SEQ`` the call goes to the
-flash-attention kernels (``kernels.flash_attention``: the CUDA kernels on
-the card, their plain versions on the CPU); otherwise the attention is
-written out in torch ops, with the reference's ``-1e9`` masking and
-max-subtracted softmax.
+inactive, ``seq_len >= _FLASH_MIN_SEQ`` and inputs the kernels take
+(``kernels.flash_attention.supports``, where the reference asks
+``is_available()``) the call goes to the flash-attention kernels (the CUDA
+kernels on the card, their plain versions on the CPU); otherwise the
+attention is written out in torch ops, with the reference's ``-1e9``
+masking and max-subtracted softmax.
 """
 import torch
 
@@ -19,6 +20,16 @@ from ...kernels import flash_attention as _fa
 _FLASH_MIN_SEQ = 1024
 
 
+def takes_flash(query, key, value, attn_mask=None, dropout_p=0.0,
+                training=True):
+    """The gate: no mask, dropout inactive, ``seq_len >= _FLASH_MIN_SEQ``
+    and inputs the kernels take."""
+    dropout_inactive = dropout_p == 0.0 or not training
+    return (dropout_inactive and attn_mask is None
+            and query.shape[1] >= _FLASH_MIN_SEQ
+            and _fa.supports(query, key, value))
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False, training=True,
                                  scale=None):
@@ -26,9 +37,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     branch is differentiable through the kernels' autograd Function."""
     query, key, value, attn_mask = cast_inputs(
         "scaled_dot_product_attention", query, key, value, attn_mask)
-    seq_len = query.shape[1]
-    dropout_inactive = dropout_p == 0.0 or not training
-    if dropout_inactive and attn_mask is None and seq_len >= _FLASH_MIN_SEQ:
+    if takes_flash(query, key, value, attn_mask, dropout_p, training):
         return _fa.flash_attention_bshd(query, key, value, causal=is_causal,
                                         scale=scale)
 
@@ -39,8 +48,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     vt = value.transpose(1, 2)
     logits = torch.matmul(qt, kt.transpose(-1, -2)) * s
     # a Python scalar, not a tensor made from one: that would be a
-    # blocking host copy, which CUDA-graph capture prohibits
-    neg = -1e9
+    # blocking host copy, which CUDA-graph capture prohibits. Where -1e9
+    # overflows the dtype (float16) it is -inf, as the reference's
+    # jnp.asarray(-1e9, float16) rounds it.
+    neg = -1e9 if torch.finfo(logits.dtype).max > 1e9 else float("-inf")
     if is_causal:
         causal = torch.ones(logits.shape[-2], logits.shape[-1], dtype=torch.bool,
                             device=logits.device).tril()

@@ -19,12 +19,21 @@ Parameters are named by ``p.param_name`` where set (``Layer.parameters()``
 sets the structured ``state_dict`` name), else ``param_<i>`` in order; the
 names key ``state_dict`` and are what AdamW's ``apply_decay_param_fun``
 receives.
-Not ported: ZeRO sharding, sparse (row) gradients and coalesced
-accumulator stores (``fuse_accumulators``); asking for them raises.
+
+Inside a step program with a dp axis (``jit.to_static(..., dp_axis=)``)
+the step first reduces every gradient over the mesh's group, a float32
+mean all-reduce per parameter (``_reduce_dp_grads``: the replicated
+control). In an accumulation window's micro steps ``step`` and
+``clear_grad`` return at once, so the gradients accumulate; the window's
+last step scales them 1/a after the reduction and before the clip.
+``_zero_enable`` partitions the state instead (ZeRO-1/2/3, ``zero.py``).
+Not ported: sparse (row) gradients and coalesced accumulator stores
+(``fuse_accumulators``); asking for them raises.
 """
 import numpy as np
 import torch
 
+from ..distributed import collective, parallel_env
 from ..nn.clip import ClipGradBase
 from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
@@ -64,6 +73,11 @@ class _LRValue:
 
 
 class Optimizer:
+    # ZeRO (zero.ZeroState) once _zero_enable() partitions the state; an
+    # optimizer whose update is not elementwise cannot run on a flat shard
+    _zero = None
+    _zero_compatible = True
+
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None, fuse_accumulators=False):
         if fuse_accumulators:
@@ -142,8 +156,13 @@ class Optimizer:
             yield from group["params"]
 
     def clear_grad(self, set_to_zero=False):
+        acc = parallel_env.current_accum()
+        if acc is not None and acc[0] == "accum":
+            return  # an accumulation window's gradients outlive its steps
         for p in self._parameters():
             p.grad = None
+
+    clear_gradients = clear_grad
 
     def _decayed_grad(self, value, g):
         """L2/L1 decay folded into the gradient (the reference's
@@ -157,15 +176,78 @@ class Optimizer:
             return g + reg * value
         return g
 
-    def _zero_enable(self, *args, **kwargs):
-        raise NotImplementedError("ZeRO sharding is not ported yet")
+    # -- data parallelism -------------------------------------------------
+    def _reduce_dp_grads(self, axis):
+        """The replicated control under a dp axis: each gradient as a
+        float32 mean over the mesh's group, one all-reduce per parameter.
+        Returns the (param, reduced gradient) pairs; ``p.grad`` keeps the
+        local gradient (a float32 mean does not fit a bf16 ``grad``)."""
+        mesh = parallel_env.current_mesh()
+        group = parallel_env.axis_group(mesh, axis)
+        degree = parallel_env.axis_degree(mesh, axis)
+        out = []
+        for p in self._parameters():
+            if not p.requires_grad or p.grad is None:
+                continue
+            g = p.grad.float()
+            collective.all_reduce(g, group=group)
+            out.append((p, g.div_(degree)))
+        return out
+
+    def _zero_enable(self, axis=None, mesh=None, stage=1, comm_buffer_mb=None,
+                     last_comm_buffer_mb=None, prefetch=None):
+        """Partition this optimizer's state for ZeRO data parallelism over
+        one mesh axis (``zero.ZeroState``): moments and float32 masters in
+        per-bucket flat ``[rows, 1024]`` stores of which each rank keeps
+        ``rows/degree``; stage 2 frees each gradient once its bucket is
+        reduced and keeps a sharded accumulator for accumulation windows;
+        stage 3 also keeps the parameters sharded and gathers them before
+        each step's forward. ``prefetch`` (default on) issues bucket i+1's
+        reduce-scatter before bucket i's update and, at stage 3, refills
+        bucket 0's parameters at the step's tail. Returns the number of
+        sharded stores; enabling again with other settings raises."""
+        from .zero import ZeroState
+        if self._zero is not None:
+            return self._zero.reenable(axis, stage, comm_buffer_mb, prefetch)
+        self._zero = ZeroState(self, axis, mesh, stage, comm_buffer_mb,
+                               last_comm_buffer_mb, prefetch)
+        return self._zero.n_sharded
+
+    def _zero_state_bytes(self):
+        """Per-rank bytes of the optimizer state: the shards of the ZeRO
+        stores, or every accumulator without ZeRO."""
+        if self._zero is not None:
+            return self._zero.state_bytes()
+        return sum(t.numel() * t.element_size()
+                   for t in self._accumulators.values())
+
+    def zero_layout(self):
+        """The active ZeRO layout (``stage``, ``axis``, ``degree``,
+        ``n_buckets``, ``prefetch``, ``comm_buffer_mb``, ``bucket_rows``,
+        ``shard_rows``, ``store_names``, ``state_bytes``), or None."""
+        return None if self._zero is None else self._zero.layout()
 
     @torch.no_grad()
     def step(self):
-        params_grads = [(p, p.grad) for p in self._parameters()
-                        if p.requires_grad and p.grad is not None]
+        acc = parallel_env.current_accum()
+        if self._zero is not None:
+            if acc is not None and acc[0] == "accum":
+                return self._zero.accum_fold()
+            return self._zero.step()
+        if acc is not None and acc[0] == "accum":
+            return  # the window's last step updates
+        axis = parallel_env.current_dp_axis()
+        if axis is not None:
+            params_grads = self._reduce_dp_grads(axis)
+        else:
+            params_grads = [(p, p.grad) for p in self._parameters()
+                            if p.requires_grad and p.grad is not None]
         if any(g.is_sparse for _, g in params_grads):
             raise NotImplementedError("sparse gradients are not ported")
+        if acc is not None and acc[1] > 1:
+            # the window's gradients are sums of a micro-batch means: the
+            # big batch's mean, before the clip
+            params_grads = [(p, g / acc[1]) for p, g in params_grads]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._step_count.add_(1)
@@ -182,6 +264,16 @@ class Optimizer:
             if value is not p:
                 p.copy_(value)
 
+    minimize_step = step
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """The dygraph ``minimize``: backward, step, clear the gradients."""
+        loss.backward()
+        self.step()
+        self.clear_grad()
+        return None, None
+
     def _prepare_step(self, lr):
         """Per-step scalars the updates share, from the lr tensor ``lr``
         and the step tensor (on the device)."""
@@ -191,11 +283,19 @@ class Optimizer:
         from gradient ``g``, at the rates :meth:`_prepare_step` set."""
         raise NotImplementedError
 
+    def _slot_names(self):
+        """The per-parameter float32 state slots besides the master."""
+        return sorted({slot for slot, _ in self._accumulators
+                       if slot != "master"})
+
     def state_dict(self):
         """``{"<param name>.<slot>": tensor, "@step", "@lr"[,
-        "LR_Scheduler"]}``, as the reference keys it."""
+        "LR_Scheduler"]}``, as the reference keys it; under ZeRO this
+        rank's shard of each store by its name (``zero_<slot>_b<i>``)."""
         out = {f"{self._names[pid]}.{slot}": t
                for (slot, pid), t in self._accumulators.items()}
+        if self._zero is not None:
+            out.update(self._zero.stores_by_name())
         out["@step"] = self._step_count.detach().clone()
         out["@lr"] = self._lr.tensor.detach().clone()
         if self._lr.scheduler is not None:
@@ -207,6 +307,8 @@ class Optimizer:
         keys of no accumulator here are skipped, as in the reference."""
         by_name = {f"{self._names[pid]}.{slot}": t
                    for (slot, pid), t in self._accumulators.items()}
+        if self._zero is not None:
+            by_name.update(self._zero.stores_by_name())
         for k, v in state.items():
             if k == "@step":
                 self._step_count.fill_(int(_host_scalar(v)))
@@ -241,19 +343,27 @@ class Adam(Optimizer):
         self._lr_t = lr * torch.sqrt(1.0 - self._beta2 ** t) / (
             1.0 - self._beta1 ** t)
 
-    def _moments(self, p, g):
-        m = self._get_accumulator("moment1", p)
-        v = self._get_accumulator("moment2", p)
+    def _moments(self, m, v, g):
         m.mul_(self._beta1).add_(g, alpha=1 - self._beta1)
         v.mul_(self._beta2).addcmul_(g, g, value=1 - self._beta2)
-        return m, v
 
     def _update(self, value, m, v):
         """value -= lr_t * m / (sqrt(v) + eps), in the reference's order."""
         value.addcdiv_(m * self._lr_t, v.sqrt().add_(self._eps), value=-1.0)
 
+    def _slots_of(self, p):
+        return {"moment1": self._get_accumulator("moment1", p),
+                "moment2": self._get_accumulator("moment2", p)}
+
     def _apply_one(self, p, value, g):
-        m, v = self._moments(p, self._decayed_grad(value, g))
+        self._apply_flat(value, g, self._slots_of(p), decay=None)
+
+    def _apply_flat(self, value, g, slots, decay):
+        """The update on ``value`` with its state ``slots`` (by slot name),
+        elementwise: a parameter or a ZeRO shard of flat rows alike.
+        ``decay`` is AdamW's (True, False or a 0/1 row mask)."""
+        m, v = slots["moment1"], slots["moment2"]
+        self._moments(m, v, self._decayed_grad(value, g))
         self._update(value, m, v)
 
 
@@ -278,11 +388,20 @@ class AdamW(Adam):
         super()._prepare_step(lr)
         self._lr_coeff = lr * self._coeff
 
+    def _decays(self, name):
+        return self._decay_fn is None or bool(self._decay_fn(name))
+
     def _apply_one(self, p, value, g):
-        m, v = self._moments(p, g)
-        decay = self._decay_fn is None or self._decay_fn(self._names[id(p)])
-        if decay:
+        self._apply_flat(value, g, self._slots_of(p),
+                         decay=self._decays(self._names[id(p)]))
+
+    def _apply_flat(self, value, g, slots, decay):
+        m, v = slots["moment1"], slots["moment2"]
+        self._moments(m, v, g)
+        if decay is not False:
             wd = value * self._lr_coeff  # from the value before the step
+            if decay is not True:
+                wd.mul_(decay)  # a 0/1 row mask: exact
         self._update(value, m, v)
-        if decay:
+        if decay is not False:
             value.sub_(wd)

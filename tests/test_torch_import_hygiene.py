@@ -27,6 +27,12 @@ _TRAINING = ("amp", "optimizer", "observability", "regularizer")
 # BERT and the k-step program
 _BERT_KSTEP = ("paddle_tpu_torch.models.bert", "paddle_tpu_torch.jit",
                "paddle_tpu_torch.jit.to_static")
+# data parallelism (ZeRO) and recompute
+_DP_RECOMPUTE = ("paddle_tpu_torch.distributed",
+                 "paddle_tpu_torch.distributed.parallel_env",
+                 "paddle_tpu_torch.distributed.collective",
+                 "paddle_tpu_torch.distributed.bucketing",
+                 "paddle_tpu_torch.optimizer.zero", "paddle_tpu_torch.recompute")
 
 
 def _forbidden(name):
@@ -43,8 +49,23 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert int(n_modules) >= 20 and bad == "[]"
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
-    for name in _BERT_KSTEP:
+    for name in _BERT_KSTEP + _DP_RECOMPUTE:
         assert f"'{name}'" in every, (name, every)
+
+
+def test_package_import_brings_its_top_level_modules():
+    """``import paddle_tpu_torch`` alone (no walk) imports the modules the
+    package's top level names, the new ones included, still without JAX."""
+    probe = ("import sys, paddle_tpu_torch as pt\n"
+             "print(all(hasattr(pt, n) for n in ('models', 'serving', "
+             "'distributed', 'recompute', 'to_tensor')))\n"
+             "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split("\n")[:2] == ["True", "[]"], res.stdout
 
 
 def test_no_file_imports_jax_or_reference():

@@ -138,9 +138,13 @@ def test_outputs_come_back_stacked():
 def test_contract_errors():
     with pytest.raises(ValueError, match="scan_steps"):
         jit.to_static(lambda x: x, scan_steps=0)
+    # dp_axis and accumulate_steps are options of the scan step program,
+    # with the reference's errors (tests/test_zero_sharding.py)
     for kw in (dict(dp_axis="dp"), dict(accumulate_steps=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            jit.to_static(lambda x: x, scan_steps=4, **kw)
+        with pytest.raises(ValueError, match="scan step"):
+            jit.to_static(lambda x: x, **kw)
+    with pytest.raises(ValueError, match="multiple of"):
+        jit.to_static(lambda x: x, scan_steps=3, accumulate_steps=2)
     m = nn.Linear(4, 2, device="cpu")
     step = jit.to_static(lambda x: m(x).mean(), scan_steps=3)
     with pytest.raises(ValueError, match=r"stacked \[k, \.\.\.\]"):
