@@ -41,7 +41,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    float32 loss. Step time, tokens/s and MFU (the port's ``StepTimer``),
    peak memory and one profiled step (device busy time, idle share, each
    kernel's device time per launch) are printed; the profiled step must
-   show each kernel's CUDA function 12 times.
+   launch each kernel 12 times (the wrappers' counts) and its trace show
+   each kernel's CUDA function, at most that often (a trace drops a
+   record now and then).
 5. BERT-base (``bert_base``, vocab 30720 as in ``bench.py``): a float32
    step on the card (no hand-written kernel: BERT's seq 512 stays below
    the flash gate) held against the same step on the CPU at 2 x 128, the
@@ -63,7 +65,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 7. GPT-small trained through the k-step program with phase 4's recipe
    (the scheduler stepped between calls): its losses and parameters
    against the same eager steps, and one replayed call profiled, which
-   must run each kernel's CUDA function (bf16 variant) layers x k times.
+   must launch each kernel (bf16 variant) layers x k times: the kernel
+   nodes of the captured graph times the call's replays of it, exactly;
+   its trace must show each kernel's CUDA function, at most that often.
 8. Data parallelism and recompute on a one-rank NCCL mesh (the code a
    larger world runs, at dp = 1): (a) BERT-base with phase 6's recipe
    through ``to_static(one_step, scan_steps=20, dp_axis="dp")`` in nine
@@ -80,12 +84,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    profiler's count of one call beside. (b) GPT-small with phase 7's
    recipe, ZeRO-3, prefetch and full recompute on every block through
    ``to_static(scan_steps=10, dp_axis="dp")``, bitwise against the same
-   program without either; a profiled replayed call must run the bf16
-   forward kernel 2 x layers x k times and dQ and dK/dV layers x k times.
+   program without either; a profiled replayed call must launch the bf16
+   forward kernel 2 x layers x k times and dQ and dK/dV layers x k times
+   (counted as in phase 7).
    (c) BERT-base with dropout 0.1 and full or selective recompute, bitwise
    against the same program without recompute; the attention gate writes
    out inputs the kernels do not take.
-9. One JSON line with every kernel of the paths, then the result line.
+9. Step checkpoints (``checkpoint.CheckpointManager``) on the one-rank
+   mesh, written to the card's machine's disk under the checkout: (a)
+   BERT-base with phase 6's recipe through ``to_static(one_step,
+   scan_steps=20, dp_axis="dp")``, replicated, ZeRO-1, ZeRO-3 with prefetch
+   and ZeRO-2 with ``accumulate_steps=4``: call 1, a save, everything
+   freed, fresh objects from another seed, a restore and call 2, whose
+   losses and parameters must be bitwise an uninterrupted run's; (b)
+   GPT-small with phase 8b's program: a restore into the same objects,
+   whose graph stays captured, replays calls 2 and 3 bitwise, with each
+   kernel at phase 8b's count in the profiled call 3 (counted as in
+   phase 7) and
+   the step's time before and after the restore; (c) BERT-base with
+   dropout 0.1 resumed bitwise, in place and into fresh objects (the
+   generators' states ride the checkpoint); (d) a fault at every kill
+   point of the checkpoint core never leaves a checkpoint that restores
+   other than exactly the previous or the new state, and a flipped byte
+   falls back to the previous step; (e) ``amp.GradScaler`` inside the
+   captured program, a step with an inf skipped on the device, bitwise
+   against the same eager steps and again after an in-place restore. Each
+   save and restore: bytes, seconds, GB/s, the share of the copies between
+   the card and the host, and the checkpoint spans.
+10. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -711,6 +737,7 @@ def profile_step(step_fn):
     kernel and the device's idle share of the step's wall time (None if the
     profiler saw no device activity)."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()  # the trace starts on an idle device
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -810,7 +837,18 @@ def train(model, ids, fa, failures):
         f"{model.flops_per_token(SEQ)}, peak {PEAK_FLOPS[torch.bfloat16]:g} "
         f"FLOP/s: H100 SXM dense bf16)")
     log(f"  peak device memory (max_memory_allocated): {peak_gb:.3f} GB")
-    prof = report_profile("training step", profile_retry(one_step), failures)
+    def counted_step():  # the wrappers count the profiled step exactly
+        fa.reset_launch_counts()
+        return one_step()
+
+    prof = report_profile("training step", profile_retry(counted_step),
+                          failures)
+    check_launches("profiled step", {c.__name__: c.launches
+                                     for c in counters},
+                   {c.__name__: c.launches - c.variant_launches["bf16"]
+                    for c in counters}, prof,
+                   {c.__name__: cfg.num_layers for c in counters}, failures,
+                   by="by the wrappers")
     step_ms = {}  # device ms per launch of each kernel in the profiled step
     if prof is not None:
         for meta in KERNELS:
@@ -818,14 +856,11 @@ def train(model, ids, fa, failures):
                     if meta["kernel"] in n]
             us = sum(u for u, _ in hits)
             n = sum(c for _, c in hits)
-            if n != cfg.num_layers:
-                failures.append(f"the profiled step ran {meta['kernel']} "
-                                f"{n} times, not {cfg.num_layers}")
             if n:
                 step_ms[meta["name"]] = us / n / 1e3
-            log(f"  profiled step: {meta['name']} ({meta['kernel']}) {n} "
-                f"launches, {fmt_ms(us / n / 1e3 if n else None)} device "
-                f"time per launch")
+            log(f"  profiled step: {meta['name']} ({meta['kernel']}) "
+                f"{fmt_ms(us / n / 1e3 if n else None)} device time per "
+                f"launch over the {n} the trace shows")
     return launches, bf16_launches, step_ms, tel["step_time_ms"]
 
 
@@ -1177,8 +1212,9 @@ def gpt_kstep(pt, fa, seed, eager_step_ms, failures):
         want += [eager_step(stacked[i]).detach() for i in range(k)]
         eager_sched.step()
         if call == 0:
-            out, peak = first_kstep_call("GPT-small k-step",
-                                         lambda: program(stacked))
+            with inspect_capture():  # its graph keeps its nodes
+                out, peak = first_kstep_call("GPT-small k-step",
+                                             lambda: program(stacked))
         else:
             out = program(stacked)
         got.append(out)
@@ -1194,28 +1230,18 @@ def gpt_kstep(pt, fa, seed, eager_step_ms, failures):
     if not bool(torch.isfinite(losses).all()) or not losses[-1] < losses[0]:
         failures.append("GPT k-step losses not finite and falling")
     fa.reset_launch_counts()
+    replays = count_replays(program)
     prof = report_profile(f"k-step GPT call ({k} steps)", profile_retry(
-        lambda: program(stacked).cpu()), failures)
+        lambda: replays.run(lambda: program(stacked).cpu())), failures)
     counted = sum(w.launches for w in (fa.flash_attention_fwd,
                                        fa.flash_attention_bwd_dq,
                                        fa.flash_attention_bwd_dkv))
     log(f"  wrapper launch counts over the replayed calls: {counted} (a "
-        f"replay runs no Python; the profiler counts below)")
-    launches, per_launch = {}, {}
-    want_n = cfg.num_layers * k
-    for meta in KERNELS:
-        counts = {} if prof is None else prof["counts"]
-        n = sum(c for name, c in counts.items() if meta["kernel"] in name)
-        off = sum(c for name, c in counts.items()
-                  if meta["cuda_core"] + "<" in name)
-        launches[meta["name"]] = n
-        log(f"  profiled k-step call: {meta['name']} ({meta['kernel']}) {n} "
-            f"launches (want {cfg.num_layers} layers x {k} = {want_n}), "
-            f"{off} on the CUDA-core variant")
-        if n != want_n or off:
-            failures.append(f"the replayed GPT call ran {meta['kernel']} {n} "
-                            f"times ({off} off the bf16 variant), not "
-                            f"{want_n}")
+        f"replay runs no Python; the graph's nodes count below)")
+    launches, off = replays.launches()
+    check_launches("replayed GPT k-step call", launches, off, prof,
+                   {meta["name"]: cfg.num_layers * k for meta in KERNELS},
+                   failures)
     rate = log_rate(f"GPT-small k-step (scan_steps={k}, CUDA graph)", tel, k,
                     twin.flops_per_token(SEQ), peak, prof)
     log(f"  GPT-small step: eager (phase 4) {eager_step_ms:.3f} ms, k-step "
@@ -1313,19 +1339,23 @@ class inspect_capture:
         return False
 
 
-def graph_copies(graph):
-    """{bytes: count} of the memcpy nodes of a kept graph, from its
-    ``debug_dump`` (CUDA's DOT print of every node)."""
-    import collections
+def graph_dot(graph):
+    """The nodes of a kept graph as CUDA's DOT print (``debug_dump``),
+    one string a node."""
     import os
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "graph.dot")
         graph.debug_dump(path)
         with open(path) as f:
-            text = f.read()
+            return f.read().split("];")
+
+
+def graph_copies(graph):
+    """{bytes: count} of the memcpy nodes of a kept graph."""
+    import collections
     widths = collections.Counter()
-    for node in text.split("];"):
+    for node in graph_dot(graph):
         if "\nMEMCPY" in node:
             m = re.search(r"\{Width \| (\d+)\}", node)
             if m is None:
@@ -1333,6 +1363,75 @@ def graph_copies(graph):
                                    "extent: " + node[:200])
             widths[int(m.group(1))] += 1
     return widths
+
+
+class count_replays:
+    """Each kernel's launches in a call of ``program`` (whose graphs were
+    captured under ``inspect_capture``), exactly: ``run`` makes the call
+    and counts the replays of each captured unit; ``launches`` then reads
+    the kernel nodes of each unit's graph, on the bf16 and on the
+    CUDA-core variant, times its replays. Returns ({kernel: launches},
+    {kernel: launches off the bf16 variant})."""
+
+    def __init__(self, program):
+        self.units = list(program._programs.values())
+        self.replays = [0] * len(self.units)
+
+    def run(self, call):
+        self.replays = replays = [0] * len(self.units)
+
+        def counted(i, replay):
+            def wrapper(*args):
+                replays[i] += 1
+                return replay(*args)
+            return wrapper
+
+        for i, unit in enumerate(self.units):
+            unit.replay = counted(i, unit.replay)
+        try:
+            return call()
+        finally:
+            for unit in self.units:
+                del unit.replay  # the class's method again
+
+    def launches(self):
+        launches = {meta["name"]: 0 for meta in KERNELS}
+        off = dict(launches)
+        for unit, n in zip(self.units, self.replays):
+            if not n:
+                continue
+            nodes = graph_dot(unit.graph)
+            for meta in KERNELS:
+                launches[meta["name"]] += n * sum(meta["kernel"] in node
+                                                  for node in nodes)
+                off[meta["name"]] += n * sum(meta["cuda_core"] in node
+                                             for node in nodes)
+        return launches, off
+
+
+def check_launches(label, exact, off, prof, want, failures,
+                   by="from the graph"):
+    """Each kernel's launches in a profiled call: ``exact`` (the wrappers'
+    counts of an eager call, or a replayed call's from its graph:
+    ``count_replays``) must be ``want`` with none off the bf16
+    variant, and the profiler's trace of the same call must show the
+    kernel's CUDA function, at most that often (the trace drops a record
+    now and then; the shortfall is printed)."""
+    counts = {} if prof is None else prof["counts"]
+    for meta in KERNELS:
+        name = meta["name"]
+        seen = sum(c for fn, c in counts.items() if meta["kernel"] in fn)
+        ok = exact[name] == want[name] and not off[name] and (
+            0 < seen <= exact[name])
+        log(f"  {label}: {name} ({meta['kernel']}) {exact[name]} launches "
+            f"{by} (want {want[name]}), {off[name]} on the "
+            f"CUDA-core variant; the profiler's trace shows {seen} "
+            f"({exact[name] - seen} records dropped) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{label}: {meta['kernel']} launched "
+                            f"{exact[name]} times ({off[name]} off the bf16 "
+                            f"variant), the profiler saw {seen}; want "
+                            f"{want[name]}")
 
 
 def init_dp_mesh():
@@ -1778,8 +1877,9 @@ def gpt_zero3_recompute(pt, fa, seed, failures):
         csched.step()
         if call == 0:
             fa.reset_launch_counts()
-            out, peak = first_kstep_call("GPT-small ZeRO-3 + recompute",
-                                         lambda: program(stacked))
+            with inspect_capture():  # its graph keeps its nodes
+                out, peak = first_kstep_call("GPT-small ZeRO-3 + recompute",
+                                             lambda: program(stacked))
             counted = {w.__name__: w.launches for w in (
                 fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv)}
@@ -1804,21 +1904,15 @@ def gpt_zero3_recompute(pt, fa, seed, failures):
     del control
     calls, tel = timed_kstep(lambda: program(stacked), k, KSTEP_TIMED_CALLS,
                              stacked[0].numel(), model.flops_per_token(SEQ))
+    replays = count_replays(program)
     prof = report_profile(f"GPT-small ZeRO-3 + recompute call ({k} steps)",
-                          profile_retry(lambda: program(stacked).cpu()),
-                          failures)
-    launches = {}
-    for meta, per_step in zip(KERNELS, (2, 1, 1)):
-        counts = {} if prof is None else prof["counts"]
-        n = sum(c for name, c in counts.items() if meta["kernel"] in name)
-        want_n = per_step * cfg.num_layers * k
-        launches[meta["name"]] = n
-        log(f"  profiled replayed call: {meta['name']} ({meta['kernel']}) {n} "
-            f"launches (want {per_step} x {cfg.num_layers} layers x {k} = "
-            f"{want_n})")
-        if n != want_n:
-            failures.append(f"the replayed GPT ZeRO-3 + recompute call ran "
-                            f"{meta['kernel']} {n} times, not {want_n}")
+                          profile_retry(lambda: replays.run(
+                              lambda: program(stacked).cpu())), failures)
+    launches, off = replays.launches()
+    check_launches("replayed GPT ZeRO-3 + recompute call", launches, off,
+                   prof, {meta["name"]: per_step * cfg.num_layers * k
+                          for meta, per_step in zip(KERNELS, (2, 1, 1))},
+                   failures)
     res.update(log_rate(f"GPT-small ZeRO-3 + recompute (scan_steps={k})", tel,
                         k, model.flops_per_token(SEQ), peak, prof))
     res.update(state_bytes=opt._zero_state_bytes(),
@@ -1855,6 +1949,570 @@ def phase8(pt, fa, seed, failures):
         torch.distributed.destroy_process_group()
     log(f"  {card_line()}")
     return tuple(out)
+
+
+# ---- phase 9: step checkpoints ----------------------------------------------
+
+# Checkpoints are written under the checkout (a git-ignored directory that
+# the phase removes at its end): the card's machine's own filesystem.
+CKPT_DIR = ".chip_smoke_checkpoints"
+
+
+def ckpt_dir(name):
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), CKPT_DIR,
+                        name)
+
+
+def slug(label):
+    return re.sub(r"[^0-9A-Za-z]+", "_", label).strip("_").lower()
+
+
+def free_cuda():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class ckpt_io:
+    """One save or restore: host seconds (the card synchronized at both
+    ends), the bytes of the checkpoint, and the copies between the card and
+    the host that it made (``checkpoint_d2h_*`` and ``checkpoint_h2d_*``,
+    counted while tracing's ``checkpoint`` category is on)."""
+
+    KEYS = ("checkpoint_bytes_written_total", "checkpoint_d2h_ns",
+            "checkpoint_d2h_bytes", "checkpoint_h2d_ns",
+            "checkpoint_h2d_bytes")
+
+    def __init__(self, kind, root):
+        self.kind, self.root = kind, root
+
+    def __enter__(self):
+        from paddle_tpu_torch import monitor
+        from paddle_tpu_torch.observability import tracing
+        torch.cuda.synchronize()
+        self.before = {k: monitor.stat_get(k) for k in self.KEYS}
+        self.n_spans = len(tracing.spans())
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        from paddle_tpu_torch import monitor
+        from paddle_tpu_torch.checkpoint import core
+        from paddle_tpu_torch.observability import tracing
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        d = {k: monitor.stat_get(k) - self.before[k] for k in self.KEYS}
+        self.spans = {}  # the checkpoint spans' seconds, by name
+        for sp in tracing.spans()[self.n_spans:]:
+            name = sp["name"].split("/", 1)[1]
+            self.spans[name] = (self.spans.get(name, 0.0)
+                                + (sp["t1"] - sp["t0"]) / 1e9)
+        step = core.latest_step(self.root)
+        folder = os.path.join(self.root, core.step_dirname(step))
+        self.bytes = sum(os.path.getsize(os.path.join(folder, f))
+                         for f in os.listdir(folder))
+        copy = "d2h" if self.kind == "save" else "h2d"
+        self.copy_s = d[f"checkpoint_{copy}_ns"] / 1e9
+        self.copy_bytes = d[f"checkpoint_{copy}_bytes"]
+        self.written = d["checkpoint_bytes_written_total"]
+        return False
+
+    def line(self):
+        what = ("device-to-host" if self.kind == "save"
+                else "host-to-device")
+        spans = ", ".join(f"{k} {v:.3f} s" for k, v in self.spans.items())
+        rate = self.bytes / self.seconds / 1e9
+        share = self.copy_s / self.seconds
+        return (f"{self.kind} {self.bytes} bytes ({self.bytes / 1e9:.3f} GB) "
+                f"in {self.seconds:.3f} s = {rate:.3f} GB/s; {what} copies "
+                f"{self.copy_bytes} bytes in {self.copy_s:.3f} s ({share:.1%} "
+                f"of the {self.kind}); spans: {spans}")
+
+    def record(self):
+        return {"bytes": self.bytes, "seconds": self.seconds,
+                "gb_per_s": self.bytes / self.seconds / 1e9,
+                "copy_seconds": self.copy_s, "copy_bytes": self.copy_bytes,
+                "copy_share": self.copy_s / self.seconds,
+                "span_seconds": self.spans}
+
+
+def bert_batches(seed, k, offset):
+    from paddle_tpu_torch.models.bert import synthetic_mlm_batch
+    batches = [synthetic_mlm_batch(BERT_BATCH, BERT_SEQ, BERT_VOCAB,
+                                   seed=seed + offset + i) for i in range(k)]
+    return [torch.from_numpy(np.stack(col)).cuda() for col in zip(*batches)]
+
+
+def bert_program(pt, cfg, init_seed, k, stage=0, prefetch=None,
+                 accumulate=None):
+    """bench.py's BERT-base recipe through to_static(one_step,
+    scan_steps=k, dp_axis="dp"), from the package's seed ``init_seed``."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.bert import BertForPretraining
+    pt.seed(init_seed)
+    model = BertForPretraining(cfg, device="cuda").to("bfloat16")
+    opt = optimizer.AdamW(parameters=model.parameters(),
+                          learning_rate=BERT_LR, multi_precision=True)
+    if stage:
+        opt._zero_enable(axis="dp", stage=stage, prefetch=prefetch)
+    program = jit.to_static(bench_one_step(pt, model, opt), scan_steps=k,
+                            dp_axis="dp", accumulate_steps=accumulate)
+    return program, model, opt
+
+
+def manager_for(root, model, opt, keep_last_n=1):
+    from paddle_tpu_torch import checkpoint
+    return checkpoint.CheckpointManager(root, keep_last_n=keep_last_n) \
+        .add_model(model).add_optimizer(opt)
+
+
+def ckpt_bert_resume(pt, seed, failures):
+    """Phase 9a: each arm runs two calls uninterrupted; then again call 1,
+    a save, everything freed, fresh objects from another seed, a restore
+    and call 2, whose losses and final parameters must be the
+    uninterrupted run's, bitwise."""
+    import shutil
+    from paddle_tpu_torch.models.bert import bert_base
+    cfg = bert_base(vocab_size=BERT_VOCAB, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    call1 = bert_batches(seed, KSTEP, 50)
+    call2 = bert_batches(seed, KSTEP, 90)
+    arms = [("replicated control", {}), ("ZeRO-1", dict(stage=1)),
+            ("ZeRO-3, prefetch on", dict(stage=3, prefetch=True)),
+            (f"ZeRO-2, accumulate_steps={ZERO_ACCUM}",
+             dict(stage=2, accumulate=ZERO_ACCUM))]
+    out = {}
+    for label, kw in arms:
+        program, model, opt = bert_program(pt, cfg, seed + 4, KSTEP, **kw)
+        program(*call1)
+        want = program(*call2).cpu()
+        want_params = [p.detach().clone() for p in model.parameters()]
+        del program, model, opt
+        free_cuda()
+        root = ckpt_dir("bert_" + slug(label))
+        program, model, opt = bert_program(pt, cfg, seed + 4, KSTEP, **kw)
+        program(*call1)
+        with ckpt_io("save", root) as save:
+            manager_for(root, model, opt).save(1)
+        del program, model, opt
+        free_cuda()
+        program, model, opt = bert_program(pt, cfg, seed + 99, KSTEP, **kw)
+        with ckpt_io("restore", root) as rest:
+            meta = manager_for(root, model, opt).restore()
+        got = program(*call2).cpu()
+        res = compare_arm(
+            f"BERT-base {label}: call 2 of scan_steps={KSTEP} resumed into "
+            f"fresh objects (another seed) vs the uninterrupted run", want,
+            got, want_params, model, failures)
+        if meta["step"] != 1:
+            failures.append(f"BERT {label}: restored step {meta['step']}")
+        log(f"    {save.line()}")
+        log(f"    {rest.line()}")
+        res.update(save=save.record(), restore=rest.record())
+        out[label] = res
+        del program, model, opt, want_params
+        free_cuda()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def ckpt_gpt_in_place(pt, fa, seed, failures):
+    """Phase 9b: GPT-small with phase 8b's program (ZeRO-3, prefetch, full
+    recompute, scan_steps=10, dp_axis="dp"): call 1, a save, calls 2 and
+    3; a restore into the same objects (the graph stays captured), call 2
+    again, bitwise, and call 3 again under the profiler, bitwise, which
+    must launch each kernel at phase 8b's count. Returns the
+    wrappers' launch counts over call 1 (counts zeroed just before it,
+    read just after: its eager inner step) and the profiled replay's."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_small,
+                                             synthetic_lm_batch)
+    k = GPT_KSTEP
+    cfg = gpt_small(hidden_dropout=0.0, attention_dropout=0.0)
+    pt.seed(seed + 5)
+    model = GPTForCausalLM(cfg, device="cuda").to("bfloat16")
+    opt, sched = make_optimizer(model)
+    for blk in model.gpt.blocks:
+        blk.enable_recompute("full")
+    opt._zero_enable(axis="dp", stage=3, prefetch=True)
+
+    def one_step(ids):
+        with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+            loss = model.loss(model(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    program = jit.to_static(one_step, scan_steps=k, dp_axis="dp")
+
+    def batch(offset):
+        return torch.from_numpy(np.stack([
+            synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size,
+                               seed=seed + offset + i)
+            for i in range(k)])).cuda()
+    call1, call2, call3 = batch(60), batch(100), batch(140)
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    fa.reset_launch_counts()
+    with inspect_capture():  # its graph keeps its nodes
+        program(call1)
+    torch.cuda.synchronize()
+    counted = {w.__name__: w.launches for w in wrappers}
+    want_eager = {"flash_attention_fwd": 2 * cfg.num_layers,
+                  "flash_attention_bwd_dq": cfg.num_layers,
+                  "flash_attention_bwd_dkv": cfg.num_layers}
+    log(f"  GPT-small call 1: wrapper launch counts (its eager inner step) "
+        f"{counted} (want {want_eager})")
+    if counted != want_eager:
+        failures.append(f"phase 9b: wrapper launches {counted}, not "
+                        f"{want_eager}")
+    sched.step()
+    root = ckpt_dir("gpt")
+    mgr = manager_for(root, model, opt)
+    with ckpt_io("save", root) as save:
+        mgr.save(1)
+    graphs = {key: p.graph for key, p in program._programs.items()}
+
+    def timed_call(ids):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = program(ids).cpu()
+        return losses, (time.perf_counter() - t0) * 1e3 / k
+
+    def params():
+        return [p.detach().clone() for p in model.parameters()]
+
+    before, before_ms = timed_call(call2)
+    before_params = params()
+    sched.step()
+    third = program(call3).cpu()  # the uninterrupted run's call 3
+    third_params = params()
+    sched.step()
+    with ckpt_io("restore", root) as rest:
+        mgr.restore()
+    after, after_ms = timed_call(call2)
+    res = compare_arm("GPT-small ZeRO-3 + prefetch + full recompute: call 2 "
+                      "replayed again after a restore into the same objects "
+                      "vs its first run", before, after, before_params,
+                      model, failures)
+    same_graphs = {key: p.graph for key, p in program._programs.items()}
+    recaptured = (same_graphs.keys() != graphs.keys() or any(
+        same_graphs[key] is not g for key, g in graphs.items()))
+    log(f"  step time of call 2: before the restore {before_ms:.3f} ms, after "
+        f"it {after_ms:.3f} ms (replays of the graph captured in call 1, "
+        f"re-captured: {recaptured})")
+    if recaptured:
+        failures.append("phase 9b: the restore made the program capture "
+                        "again")
+    want_n = {meta["name"]: per_step * cfg.num_layers * k
+              for meta, per_step in zip(KERNELS, (2, 1, 1))}
+    # Call 3 after the restored run's call 2, profiled: the graph's buffers
+    # hold call 2's values, so a kernel that did not run would show in its
+    # losses and parameters against the uninterrupted call 3. The
+    # profiler's trace now and then records nothing: up to three profiled
+    # calls (each from a restore and call 2), until one trace holds device
+    # activity.
+    replays = count_replays(program)
+    for attempt in range(3):
+        if attempt:
+            mgr.restore()
+            program(call2)
+        sched.step()
+        got = []
+        prof = profile_step(lambda: replays.run(
+            lambda: got.append(program(call3).cpu())))
+        if not (torch.equal(got[0], third) and all(
+                torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                  third_params))):
+            failures.append("phase 9b: the restored run's call 3 disagrees "
+                            "with the uninterrupted run's")
+        if prof is not None:
+            break
+    prof = report_profile("GPT-small call 3 replayed after a restore and "
+                          "call 2", prof, failures)
+    launches, off = replays.launches()
+    check_launches("call 3 of the restored run, replayed (bitwise against "
+                   "the uninterrupted call 3; want phase 8b's counts)",
+                   launches, off, prof, want_n, failures)
+    log(f"    {save.line()}")
+    log(f"    {rest.line()}")
+    res.update(save=save.record(), restore=rest.record(),
+               step_ms_before_restore=before_ms,
+               step_ms_after_restore=after_ms, recaptured=recaptured)
+    del program, model, opt, mgr
+    free_cuda()
+    return counted, launches, res
+
+
+def ckpt_dropout(pt, seed, failures):
+    """Phase 9c: BERT-base with dropout 0.1 through the k-step program:
+    call 1, a save (the generators' states with it), call 2; a restore into
+    the same objects (the generator is registered with the captured graph)
+    and call 2 again; a restore into fresh objects and call 2 there. Both
+    must be the first call 2, bitwise."""
+    from paddle_tpu_torch.models.bert import bert_base
+    k = RECOMPUTE_DROPOUT_K
+    cfg = bert_base(vocab_size=BERT_VOCAB, hidden_dropout=RECOMPUTE_DROPOUT,
+                    attention_dropout=RECOMPUTE_DROPOUT)
+    call1, call2 = bert_batches(seed, k, 120), bert_batches(seed, k, 130)
+    program, model, opt = bert_program(pt, cfg, seed + 7, k)
+    program(*call1)
+    root = ckpt_dir("dropout")
+    mgr = manager_for(root, model, opt)
+    mgr.save(1)
+    want = program(*call2).cpu()
+    want_params = [p.detach().clone() for p in model.parameters()]
+    mgr.restore()
+    got = program(*call2).cpu()
+    res = {"in_place": compare_arm(
+        f"dropout {RECOMPUTE_DROPOUT:g}: call 2 after a restore into the same "
+        f"objects (Generator.set_state on the generator registered with the "
+        f"captured graph, torch {torch.__version__}) vs its first run", want,
+        got, want_params, model, failures)}
+    del program, model, opt
+    free_cuda()
+    program, model, opt = bert_program(pt, cfg, seed + 99, k)
+    manager_for(root, model, opt).restore()
+    got = program(*call2).cpu()
+    res["fresh"] = compare_arm(
+        f"dropout {RECOMPUTE_DROPOUT:g}: call 2 after a restore into fresh "
+        f"objects (a new program: an eager first step, then its capture) vs "
+        f"the uninterrupted call 2", want, got, want_params, model, failures)
+    del program, model, opt, want_params
+    free_cuda()
+    return res
+
+
+def ckpt_net(pt, init_seed):
+    """A two-layer MLP on the card (1024 -> 2048 -> 1024, float32), from
+    the package's seed ``init_seed``."""
+    from paddle_tpu_torch import nn
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.up = nn.Linear(1024, 2048, device="cuda")
+            self.down = nn.Linear(2048, 1024, device="cuda")
+
+        def forward(self, x):
+            return self.down(torch.relu(self.up(x)))
+
+    pt.seed(init_seed)
+    return Net()
+
+
+def ckpt_scaler(pt, seed, failures):
+    """Phase 9e: amp.GradScaler inside the captured k-step program (the
+    scale, its counts and the found-inf flag on the device, a step that
+    overflows skipped on the device): two calls of scan_steps=4, an inf in
+    the gradients of call 1's second step, bitwise against the same eight
+    eager steps (losses, parameters, the scaler's state, 7 updates); then
+    a restore into the same objects, scaler included, replays call 2
+    bitwise. The inf enters the step's gradients only (``PoisonGrad``), so
+    the losses stay finite."""
+    from paddle_tpu_torch import amp, checkpoint, jit, optimizer
+    k = 4
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 13)
+    xs = torch.randn(2, k, 64, 1024, device="cuda", generator=gen)
+    poison = torch.ones(2, k, device="cuda")
+    poison[0, 1] = float("inf")
+
+    class PoisonGrad(torch.autograd.Function):
+        """The identity forward; the backward multiplies the gradient by
+        ``p`` (inf makes every parameter's gradient non-finite)."""
+
+        @staticmethod
+        def forward(ctx, h, p):
+            ctx.save_for_backward(p)
+            return h.view_as(h)
+
+        @staticmethod
+        def backward(ctx, g):
+            (p,) = ctx.saved_tensors
+            return g * p, None
+
+    def build():
+        net = ckpt_net(pt, seed + 12)
+        opt = optimizer.AdamW(parameters=net.parameters(), learning_rate=1e-3)
+        sc = amp.GradScaler(init_loss_scaling=2.0 ** 10, incr_every_n_steps=2,
+                            decr_every_n_nan_or_inf=1)
+
+        def one(x, p):
+            loss = PoisonGrad.apply(net(x), p).square().mean()
+            sc.scale(loss).backward()
+            sc.step(opt)
+            opt.clear_grad()
+            return loss
+        return one, net, opt, sc
+
+    def scaler_state(sc, opt):
+        return (sc.get_init_loss_scaling(), int(sc._good_steps),
+                int(sc._bad_steps), int(opt._step_count))
+
+    one, net, opt, sc = build()
+    want = torch.stack([one(xs[c, i], poison[c, i]).detach()
+                        for c in range(2) for i in range(k)]).view(2, k).cpu()
+    want_params = [p.detach().clone() for p in net.parameters()]
+    want_state = scaler_state(sc, opt)
+    one, net, opt, sc = build()
+    program = jit.to_static(one, scan_steps=k)
+    first = program(xs[0], poison[0]).cpu()
+    root = ckpt_dir("scaler")
+    mgr = checkpoint.CheckpointManager(root).add_model(net) \
+        .add_optimizer(opt).add_scaler(sc)
+    mgr.save(1)
+    second = program(xs[1], poison[1]).cpu()
+    state = scaler_state(sc, opt)
+    res = {"program": compare_arm(
+        "GradScaler inside the captured program (an inf gradient at call "
+        "1's step 2) vs the same eager steps", want,
+        torch.stack([first, second]),
+        want_params, net, failures)}
+    ok = state == want_state and want_state[3] == 2 * k - 1
+    log(f"  the scaler after 8 steps: (scale, good, bad, updates) {state}, "
+        f"eager {want_state} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 9e: the scaler's state under the program "
+                        "differs from the eager steps'")
+    mgr.restore()
+    again = program(xs[1], poison[1]).cpu()
+    res["in_place"] = compare_arm(
+        "GradScaler: call 2 replayed after a restore into the same objects "
+        "vs its first run", second, again, want_params, net, failures)
+    res["state"] = state
+    del program, net, opt, sc, mgr
+    return res
+
+
+def ckpt_crash(pt, seed, failures):
+    """Phase 9d: a fault at every kill point of the checkpoint core, in a
+    save through CheckpointManager of a model and optimizer on the card;
+    restore into fresh objects must give exactly the state of the previous
+    save (a kill before the publish) or of the new one (after it). Then a
+    flipped byte in the newest checkpoint's payload: restore falls back to
+    the previous step, exactly, and counts it; asking for the corrupt step
+    raises."""
+    import os
+    from paddle_tpu_torch import checkpoint, monitor, optimizer
+    from paddle_tpu_torch.checkpoint import core
+    from paddle_tpu_torch.testing import faults
+
+    def build(init_seed):
+        net = ckpt_net(pt, init_seed)
+        return net, optimizer.AdamW(parameters=net.parameters(),
+                                    learning_rate=1e-3)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn(64, 1024, device="cuda", generator=gen)
+    net, opt = build(seed + 11)
+
+    def snapshot(n, o):
+        return ([p.detach().clone() for p in n.parameters()]
+                + [t.clone() for t in o._accumulators.values()]
+                + [o._step_count.clone()])
+
+    def train():
+        net(x).square().mean().backward()
+        opt.step()
+        opt.clear_grad()
+        return snapshot(net, opt)
+
+    after_publish = {"checkpoint/after_publish", "checkpoint/before_gc"}
+    verdicts = {}
+    for kp in core.KILL_POINTS:
+        root = ckpt_dir("crash_" + slug(kp))
+        first = train()
+        manager_for(root, net, opt, keep_last_n=2).save(1)
+        second = train()
+        faults.inject(kp)
+        try:
+            manager_for(root, net, opt, keep_last_n=2).save(2)
+            raised = False
+        except faults.FaultInjected:
+            raised = True
+        faults.clear()
+        fresh, fresh_opt = build(seed + 99)
+        meta = manager_for(root, fresh, fresh_opt).restore()
+        want_step = 2 if kp in after_publish else 1
+        want = second if want_step == 2 else first
+        exact = all(torch.equal(a, b) for a, b in
+                    zip(snapshot(fresh, fresh_opt), want))
+        verdicts[kp] = raised and meta["step"] == want_step and exact
+        log(f"  kill at {kp}: save raised {raised}; restore took step "
+            f"{meta['step']} (want {want_step}), the saved state exactly "
+            f"{exact} {'ok' if verdicts[kp] else 'FAIL'}")
+    root = ckpt_dir("corrupt")
+    first = train()
+    manager_for(root, net, opt, keep_last_n=2).save(1)
+    train()
+    manager_for(root, net, opt, keep_last_n=2).save(2)
+    with open(os.path.join(root, core.step_dirname(2), "optimizer_opt.pkl"),
+              "r+b") as f:
+        f.seek(100)
+        byte = f.read(1)
+        f.seek(100)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    skipped = monitor.stat_get("checkpoint_corrupt_skipped_total")
+    fresh, fresh_opt = build(seed + 99)
+    meta = manager_for(root, fresh, fresh_opt).restore()
+    skipped = monitor.stat_get("checkpoint_corrupt_skipped_total") - skipped
+    exact = all(torch.equal(a, b) for a, b in
+                zip(snapshot(fresh, fresh_opt), first))
+    try:
+        manager_for(root, fresh, fresh_opt).restore(step=2)
+        refused = False
+    except checkpoint.CheckpointCorruptError:
+        refused = True
+    ok = meta["step"] == 1 and exact and skipped == 1 and refused
+    log(f"  a flipped byte in step 2's optimizer payload: restore took step "
+        f"{meta['step']} (want 1), exactly {exact}, counted {skipped} skip, "
+        f"restore(step=2) refused {refused} {'ok' if ok else 'FAIL'}")
+    verdicts["corrupt payload"] = ok
+    bad = [kp for kp, v in verdicts.items() if not v]
+    if bad:
+        failures.append(f"phase 9d: a torn or wrong checkpoint at {bad}")
+    return verdicts
+
+
+def phase9(pt, fa, seed, failures):
+    """Phase 9 on a one-rank NCCL mesh, torn down at the end, with tracing's
+    checkpoint category on (its counters time the copies); the checkpoint
+    directory is removed at the end. A part that raises is a failure and
+    the next one still runs."""
+    import shutil
+    import traceback
+    from paddle_tpu_torch.observability import tracing
+    log("phase 9: step checkpoints (CheckpointManager) around the k-step "
+        "programs on a one-rank NCCL mesh")
+    init_dp_mesh()
+    tracing.enable(categories=["checkpoint"])
+    out = {}
+    try:
+        for key, fn in (
+                ("bert_resume", lambda: ckpt_bert_resume(pt, seed, failures)),
+                ("gpt_in_place", lambda: ckpt_gpt_in_place(pt, fa, seed,
+                                                           failures)),
+                ("dropout", lambda: ckpt_dropout(pt, seed, failures)),
+                ("crash", lambda: ckpt_crash(pt, seed, failures)),
+                ("scaler", lambda: ckpt_scaler(pt, seed, failures))):
+            log(f"  -- {key}")
+            try:
+                out[key] = fn()
+            except Exception as e:  # noqa: BLE001 -- reported as a failure
+                traceback.print_exc()
+                failures.append(f"phase 9 ({key}) raised "
+                                f"{type(e).__name__}: {e}")
+            free_cuda()
+    finally:
+        tracing.disable()
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(ckpt_dir(""), ignore_errors=True)
+    log(f"  {card_line()}")
+    return out
 
 
 def main():
@@ -1996,7 +2654,12 @@ def main():
     zero_rates, zr_counted, zr_launches, zr_rate = phase8(pt, fa, args.seed,
                                                           failures)
 
-    # ---- 9. kernels line and result
+    # ---- 9. step checkpoints around the k-step programs
+    ckpt = phase9(pt, fa, args.seed, failures)
+    ck_counted, ck_launches, ck_gpt = ckpt.pop("gpt_in_place",
+                                               ({}, {}, {}))
+
+    # ---- 10. kernels line and result
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
     kernels = []
@@ -2011,7 +2674,9 @@ def main():
             launches_by_path=dict(
                 paths, training=n, training_kstep_call=kstep_launches[name],
                 zero3_recompute_first_call=zr_counted[name],
-                zero3_recompute_kstep_call=zr_launches[name]),
+                zero3_recompute_kstep_call=zr_launches[name],
+                checkpoint_first_call=ck_counted.get(name),
+                checkpoint_restored_kstep_call=ck_launches.get(name)),
             variants={dt: dict(
                 source=src,
                 training_launches=(trained_bf16[name] if dt == "bf16"
@@ -2023,7 +2688,8 @@ def main():
                               "gpt_small_kstep": gpt_rate,
                               "gpt_small_eager_step_ms": eager_ms,
                               "bert_base_dp_arms": zero_rates,
-                              "gpt_small_zero3_recompute": zr_rate}}))
+                              "gpt_small_zero3_recompute": zr_rate},
+                    "checkpoints": dict(ckpt, gpt_small_in_place=ck_gpt)}))
     log(json.dumps({"kernels": kernels}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -13,7 +13,10 @@ the k-step program ``jit.to_static(one_step, scan_steps=k)`` (a CUDA graph
 on the card), data-parallel over a ``torch.distributed`` group with ZeRO-1/2/3
 (``dp_axis``, ``optimizer._zero_enable``, ``distributed``), with
 accumulation windows (``accumulate_steps``) and activation recompute
-(``recompute``, ``Layer.enable_recompute``); GPT also served behind
+(``recompute``, ``Layer.enable_recompute``), with crash-consistent step
+checkpoints of the whole training state that resume bit for bit, at
+another dp degree too, and move between this package and the reference
+(``checkpoint``, ``save``/``load``); GPT also served behind
 ``serving.Engine.from_layer``. Causal attention at ``seq_len >= 1024``
 runs through the CUDA flash-attention kernels, forward and backward
 (``kernels.flash_attention``).
@@ -21,12 +24,14 @@ runs through the CUDA flash-attention kernels, forward and backward
 import numpy as np
 import torch
 
-from . import (amp, distributed, jit, models, nn, optimizer,  # noqa: F401
-               recompute, regularizer, serving)
+from . import (amp, checkpoint, distributed, incubate, jit,  # noqa: F401
+               models, monitor, nn, optimizer, recompute, regularizer,
+               serving)
 from .core.device import resolve_device
 from .core.dtype import bfloat16, convert_dtype, float32, int32  # noqa: F401
 from .core.random import default_generator, seed  # noqa: F401
 from .regularizer import L1Decay, L2Decay  # noqa: F401
+from .serialization import load, save  # noqa: F401
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True):
@@ -48,6 +53,6 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
 
 __all__ = ["seed", "default_generator", "resolve_device", "convert_dtype",
            "to_tensor", "float32", "bfloat16", "int32", "L1Decay", "L2Decay",
-           "amp", "distributed",
-           "jit", "models", "nn", "optimizer", "recompute", "regularizer",
-           "serving"]
+           "save", "load", "amp", "checkpoint", "distributed", "incubate",
+           "jit", "models", "monitor", "nn", "optimizer", "recompute",
+           "regularizer", "serving"]

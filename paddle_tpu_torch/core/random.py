@@ -11,6 +11,12 @@ only from a generator registered with the graph being captured
 (:func:`register_with_graph`): torch then advances its offset on every
 replay, so each replayed step draws a new mask. A draw from an unregistered
 generator raises instead of freezing one mask into every replay.
+
+:func:`capture_state` and :func:`restore_state` carry the generators'
+states through a checkpoint. A restore sets each generator's state in
+place (``Generator.set_state``): torch keeps one state object per
+generator, which a graph registered with it reads at every replay, so a
+restored state takes effect at the next replay.
 """
 import threading
 
@@ -70,3 +76,23 @@ def register_with_graph(graph, device):
         if not any(g is r for r in _state["graph_safe"]):
             _state["graph_safe"].append(g)
     return True
+
+
+def capture_state():
+    """``{"seed": the package's seed, "generators": {device: state}}``,
+    each state a uint8 numpy array (``Generator.get_state``)."""
+    with _lock:
+        gens = dict(_state["generators"])
+        out = {"seed": _state["seed"], "generators": {}}
+    for dev, g in gens.items():
+        out["generators"][str(dev)] = g.get_state().numpy().copy()
+    return out
+
+
+def restore_state(state):
+    """Set the package's seed and each saved device's generator to a
+    :func:`capture_state` record, in place (outside any capture)."""
+    with _lock:
+        _state["seed"] = int(state["seed"])
+    for dev, arr in state["generators"].items():
+        default_generator(dev).set_state(torch.from_numpy(arr.copy()))

@@ -62,8 +62,9 @@ Rules that capture imposes on the body, each enforced where it can be:
 - No host synchronisation (``.item()``, ``float(tensor)``) inside the body:
   capture refuses it.
 - Kernel wrappers do not count launches while a graph is captured, and a
-  replay runs no Python: launches under the program are counted by the
-  profiler.
+  replay runs no Python: launches under the program are counted from
+  the captured graph's kernel nodes (``CUDAGraph(keep_graph=True)``,
+  ``debug_dump``) times its replays, or by the profiler.
 
 A capture or replay that fails raises; the program never runs eagerly in
 its place. ``xla_flags`` and ``donate_state`` are accepted for the

@@ -1,4 +1,16 @@
-"""Step telemetry (counterpart: ``paddle_tpu/observability``)."""
+"""Observability (counterpart: ``paddle_tpu/observability``): step
+telemetry (``StepTimer``), span tracing and guarded counters
+(``tracing``), and the per-process JSONL run-log (``runlog``). Not ported:
+the exporters, the flight recorder, the perf gate and the XLA analyses
+(``ROADMAP.md`` item 16)."""
+from . import runlog, step, tracing  # noqa: F401
+from .runlog import start_run, stop_run  # noqa: F401
 from .step import StepTimer  # noqa: F401
+from .tracing import (CATEGORIES, attach_context, count,  # noqa: F401
+                      current_span, disable, enable, enabled,
+                      mint_context, record_span, trace_context, trace_span)
 
-__all__ = ["StepTimer"]
+__all__ = ["StepTimer", "enable", "disable", "enabled", "trace_span",
+           "current_span", "count", "CATEGORIES", "trace_context",
+           "attach_context", "mint_context", "record_span", "start_run",
+           "stop_run", "tracing", "runlog", "step"]

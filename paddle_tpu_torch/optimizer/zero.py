@@ -473,6 +473,26 @@ class ZeroState:
                     held.append((part, part.clone()))
         return held
 
+    # -- checkpoints ---------------------------------------------------------
+    def gather_shards(self, store):
+        """Every rank's shard of ``store`` (this state's ``[shard_rows,
+        1024]`` tensor), in rank order; every rank of the group calls it."""
+        if self.degree == 1:
+            return [store]
+        full = torch.empty((self.degree * store.shape[0], *store.shape[1:]),
+                           dtype=store.dtype, device=store.device)
+        collective.all_gather_flat(full, store, self.group)
+        return list(full.chunk(self.degree))
+
+    def refresh_parameters(self):
+        """After a restore wrote the stores: stage 3 gathers every
+        parameter buffer from its ``param`` store again (bucket 0's too,
+        the prefetch slot), in place, so the next forward, eager or
+        replayed, reads the restored parameters. Stages 1/2 keep the
+        parameters themselves, which the model section restores."""
+        if self.stage == 3:
+            self._gather(self.buckets)
+
     # -- stage 3: the parameters ---------------------------------------------
     def _gather(self, buckets):
         for b in buckets:

@@ -28,7 +28,15 @@ PORTED_MODULES = {
     "paddle_tpu.distributed.collective", "paddle_tpu.distributed.bucketing",
     "paddle_tpu.amp.auto_cast", "paddle_tpu.nn.clip",
     "paddle_tpu.regularizer", "paddle_tpu.core.random",
-    "paddle_tpu.observability.step"}
+    "paddle_tpu.observability.step",
+    # step checkpoints and what they stand on
+    "paddle_tpu.checkpoint", "paddle_tpu.checkpoint.core",
+    "paddle_tpu.checkpoint.state", "paddle_tpu.checkpoint.multihost",
+    "paddle_tpu.amp.grad_scaler", "paddle_tpu.serialization",
+    "paddle_tpu.incubate.auto_checkpoint", "paddle_tpu.monitor",
+    "paddle_tpu.testing.faults", "paddle_tpu.observability.tracing",
+    "paddle_tpu.observability.runlog",
+    "paddle_tpu.distributed.fleet.utils.fs"}
 PORTED_CLASSES = {
     "paddle_tpu.optimizer.optimizer": {"Optimizer", "Adam", "AdamW"},
     "paddle_tpu.optimizer.lr": {"LRScheduler", "LinearWarmup",

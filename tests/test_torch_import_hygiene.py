@@ -33,6 +33,17 @@ _DP_RECOMPUTE = ("paddle_tpu_torch.distributed",
                  "paddle_tpu_torch.distributed.collective",
                  "paddle_tpu_torch.distributed.bucketing",
                  "paddle_tpu_torch.optimizer.zero", "paddle_tpu_torch.recompute")
+# step checkpoints and the modules they stand on
+_CHECKPOINT = ("paddle_tpu_torch.checkpoint", "paddle_tpu_torch.checkpoint.core",
+               "paddle_tpu_torch.checkpoint.state",
+               "paddle_tpu_torch.checkpoint.multihost",
+               "paddle_tpu_torch.amp.grad_scaler",
+               "paddle_tpu_torch.serialization",
+               "paddle_tpu_torch.incubate.auto_checkpoint",
+               "paddle_tpu_torch.monitor", "paddle_tpu_torch.testing.faults",
+               "paddle_tpu_torch.observability.tracing",
+               "paddle_tpu_torch.observability.runlog",
+               "paddle_tpu_torch.distributed.fleet.utils.fs")
 
 
 def _forbidden(name):
@@ -49,7 +60,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert int(n_modules) >= 20 and bad == "[]"
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
-    for name in _BERT_KSTEP + _DP_RECOMPUTE:
+    for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT:
         assert f"'{name}'" in every, (name, every)
 
 
@@ -58,7 +69,8 @@ def test_package_import_brings_its_top_level_modules():
     package's top level names, the new ones included, still without JAX."""
     probe = ("import sys, paddle_tpu_torch as pt\n"
              "print(all(hasattr(pt, n) for n in ('models', 'serving', "
-             "'distributed', 'recompute', 'to_tensor')))\n"
+             "'distributed', 'recompute', 'to_tensor', 'checkpoint', "
+             "'save', 'load', 'incubate')))\n"
              "print(sorted(n for n in sys.modules if n.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -33,6 +33,7 @@ Bounds:
   without ``dp_axis``: its ``shard_map`` form passes ``check_rep``, which
   jax 0.9's ``shard_map`` no longer takes.
 """
+import gc
 import os
 import pickle
 import subprocess
@@ -145,9 +146,15 @@ def _diff(a, b):
 
 def _param_bytes(model, opt):
     """The bytes of parameters this rank holds: the storages the
-    parameters are views of, and stage 3's parameter shards."""
-    held = {p.untyped_storage().data_ptr(): p.untyped_storage().nbytes()
-            for p in model.parameters()}
+    parameters are views of, each counted once, and stage 3's parameter
+    shards. A storage is told apart by its identity (``_cdata``), not by
+    its address: a released storage holds no memory, and whether its
+    address reads as null or as a stale pointer that a live storage may
+    reuse depends on the allocator and the build of torch."""
+    held = {}
+    for p in model.parameters():
+        storage = p.untyped_storage()
+        held[storage._cdata] = storage.nbytes()
     shards = opt._zero.stores_by_name() if opt._zero is not None else {}
     return sum(held.values()) + sum(
         t.numel() * t.element_size() for name, t in shards.items()
@@ -158,6 +165,9 @@ def _resident(data, stage, prefetch, bf16):
     """The parameter bytes held after each step of a call of two steps,
     and after the call, with the layout."""
     seen = []
+    # the earlier arms' optimizers are reference cycles: collect them now,
+    # not at a time of the collector's choosing inside the probed call
+    gc.collect()
     step, m, opt = _build(data, stage, 2, bf16, prefetch=prefetch,
                           probe=lambda m, opt: seen.append(
                               _param_bytes(m, opt)))
