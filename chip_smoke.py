@@ -111,7 +111,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against the same eager steps and again after an in-place restore. Each
    save and restore: bytes, seconds, GB/s, the share of the copies between
    the card and the host, and the checkpoint spans.
-10. One JSON line with every kernel of the paths, then the result line.
+10. GPT-3 1.3B (``gpt3_1p3b``: vocab 50304, hidden 2048, 24 layers, 16
+   heads, head dim 128, seq 1024; seeded random weights, dropout 0) under
+   the fleet's hybrid parallelism on a one-rank NCCL world (``fleet.init``
+   with every degree 1 and ``strategy.sharding``: one-rank groups on every
+   axis, the code a larger world runs), with phase 4's recipe at GPT-3
+   XL's rate on 8 x 1024 tokens a step: (a) the ``use_mp`` model under
+   ``TensorParallel`` against the plain model from the same weights over
+   two eager steps (losses and every gradient, bitwise), then 2 warm-up and
+   5 timed eager steps, each kernel 24 launches a step on the bf16 variant;
+   (b) the same step through ``to_static(one_step, scan_steps=4,
+   dp_axis="dp")`` with ZeRO-1, bitwise against 4 eager steps, each kernel
+   24 x 4 nodes in the replayed call (counted as in phase 7) and one
+   profiled call; (c) ``build_pipeline_layer(cfg, 1)`` under
+   ``PipelineParallel`` (4 microbatches of 2 x 1024) against plain
+   accumulation, bitwise, with the reference's schedule, and
+   ``build_gpt_1f1b_step`` at pp = 1 within its stated bound; (d) ring and
+   Ulysses attention and MoE on one-rank groups in bf16 against their dense
+   forms; (e) a float32 two-layer step on the card against the CPU. Step
+   time, tokens/s, MFU, working set, reserved memory and idle share beside
+   the card's name and power limit. Phase 2 also checks and times the
+   three kernels at GPT-3 1.3B's shape [8, 1024, 16, 128].
+11. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -185,6 +206,8 @@ BERT_F32_BATCH, BERT_F32_SEQ = 2, 128  # the float32 card-vs-CPU step
 KSTEP = 20                    # bench.py's k on an accelerator
 KSTEP_TIMED_CALLS = 3
 GPT_KSTEP = 10                # phase 7: 10 steps a call, full depth
+# phase 10: GPT-3 1.3B (BASELINE.md config 4) at full width and depth
+GPT3_BATCH, GPT3_HEADS, GPT3_HEAD_DIM = 8, 16, 128
 SOURCES = {name: f"paddle_tpu_torch/kernels/csrc/{name}.cu" for name in (
     "flash_attention_fwd", "flash_attention_bwd",   # float32: CUDA cores
     "flash_attention_fwd_sm90",                     # bf16: tensor cores
@@ -608,6 +631,106 @@ def check_flash_bwd(fa, failures, gen):
     return out
 
 
+def check_gpt3_shape(fa, failures, gen):
+    """The three kernels at GPT-3 1.3B's training shape [8, 1024, 16, 128]
+    (bf16, causal; q/k/v strided views of one fused QKV, as the model
+    gives them): each against its plain version within the bf16 bounds,
+    timed (CUDA events and profiled device time) beside its plain version,
+    the library call and its bound. Returns {kernel name: fields}."""
+    b, h, d, dt = GPT3_BATCH, GPT3_HEADS, GPT3_HEAD_DIM, torch.bfloat16
+    x = torch.randn(b, SEQ, 3, h, d, generator=gen, device="cuda").to(dt)
+    q, k, v = x.unbind(2)
+    do = rand(gen, b, SEQ, h, d, dt)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    rdq, rdelta = fa.flash_attention_bwd_dq_reference(q, k, v, o, do, lse,
+                                                      True, scale)
+    rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, rdelta,
+                                                    True, scale)
+
+    def err(got, want, tol):
+        e = (got.float() - want.float()).abs()
+        ok = bool((e <= tol["atol"] + tol["rtol"] * want.float().abs()).all()
+                  and torch.isfinite(got.float()).all())
+        return e.max().item(), ok
+
+    fwd_tol = {"atol": TOL[dt]["o_atol"], "rtol": TOL[dt]["o_rtol"]}
+    checks = {"flash_attention_fwd": [("O", o, ro, fwd_tol),
+                                      ("lse", lse, rlse,
+                                       {"atol": TOL[dt]["lse_atol"],
+                                        "rtol": 0.0})],
+              "flash_attention_bwd_dq": [("dQ", dq, rdq, BWD_TOL[dt]),
+                                         ("Delta", delta, rdelta,
+                                          BWD_TOL[torch.float32])],
+              "flash_attention_bwd_dkv": [("dK", dk, rdk, BWD_TOL[dt]),
+                                          ("dV", dv, rdv, BWD_TOL[dt])]}
+    out = {}
+    for name, parts in checks.items():
+        worst, all_ok, text = 0.0, True, []
+        for label, got, want, tol in parts:
+            e, ok = err(got, want, tol)
+            all_ok &= ok
+            text.append(f"{label} {e:.3e} (tol {tol['atol']:g} + "
+                        f"{tol['rtol']:g}*|ref|)")
+            if label not in ("lse", "Delta"):
+                worst = max(worst, e)
+        log(f"  {name} [{b}, {SEQ}, {h}, {d}] bf16 causal vs plain: "
+            f"max_abs_err {', '.join(text)} {'ok' if all_ok else 'FAIL'}")
+        if not all_ok:
+            failures.append(f"{name} at [{b}, {SEQ}, {h}, {d}] disagrees "
+                            f"with its plain version")
+        out[name] = {"max_abs_err": worst}
+    del ro, rlse, rdq, rdk, rdv
+    calls = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+            lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True)),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True),
+            lambda: fa.flash_attention_bwd_dq_reference(q, k, v, o, do, lse,
+                                                        True, scale)),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True),
+            lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, True, scale))}
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_fwd = cuda_time_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True), 20)
+    xl = x.detach().requires_grad_()
+    ql, kl, vl = (t.transpose(1, 2) for t in xl.unbind(2))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=True)
+    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), do.transpose(1, 2), retain_graph=True), 20)
+    bounds = {"flash_attention_fwd": flash_bound(b, SEQ, SEQ, h, d, dt, True),
+              "flash_attention_bwd_dq": bwd_bound(b, SEQ, h, d, dt, 5, 1, 3),
+              "flash_attention_bwd_dkv": bwd_bound(b, SEQ, h, d, dt, 4, 2, 4)}
+    for meta in KERNELS:
+        name = meta["name"]
+        kernel, plain = calls[name]
+        bound_ms, bound_by = bounds[name]
+        out[name].update(
+            shape=[b, SEQ, h, d], ms=cuda_time_ms(kernel, 20),
+            device_ms=device_ms(kernel, meta["kernel"]),
+            plain_ms=cuda_time_ms(plain, 3, 1), bound_ms=bound_ms,
+            bound_by=bound_by,
+            library_ms=lib_fwd if name == "flash_attention_fwd" else lib_bwd)
+        r = out[name]
+        log(f"  {name} [{b}, {SEQ}, {h}, {d}] bf16 causal: kernel "
+            f"{r['ms']:.4f} ms (events), {fmt_ms(r['device_ms'])} (profiled "
+            f"device time), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms ("
+            f"{'forward' if name == 'flash_attention_fwd' else 'whole backward'}"
+            f"), bound {bound_ms:.4f} ms ({bound_by}), kernel / bound "
+            f"{r['ms'] / bound_ms:.2f}")
+    return out
+
+
 def serve(model, serving, ids_by_req, failures):
     """The main path: a bf16 engine at buckets (1, 4) fed a burst of
     concurrent requests, then sequential requests per bucket for latency.
@@ -654,13 +777,13 @@ def serve(model, serving, ids_by_req, failures):
     return burst, stats, latency, results
 
 
-def make_optimizer(model):
+def make_optimizer(model, peak_lr=PEAK_LR, start_lr=START_LR):
     """The recipe's optimizer: AdamW with float32 masters for bf16
     parameters, decay on the weight matrices and embeddings only, a global
     norm clip at 1.0 and a linear warm-up over the warm-up steps."""
     from paddle_tpu_torch import nn, optimizer
-    sched = optimizer.lr.LinearWarmup(PEAK_LR, WARMUP_STEPS, START_LR,
-                                      PEAK_LR)
+    sched = optimizer.lr.LinearWarmup(peak_lr, WARMUP_STEPS, start_lr,
+                                      peak_lr)
     opt = optimizer.AdamW(
         learning_rate=sched, parameters=model.parameters(),
         multi_precision=True, grad_clip=nn.ClipGradByGlobalNorm(1.0),
@@ -2515,6 +2638,419 @@ def phase9(pt, fa, seed, failures):
     return out
 
 
+# ---- phase 10: GPT-3 1.3B under the fleet's hybrid parallelism --------------
+
+GPT3_KSTEP = 4
+GPT3_STEPS, GPT3_WARMUP = 7, 2     # (a): 2 warm-up and 5 timed eager steps
+GPT3_MICRO = 4                     # (c): 4 microbatches of 2 x 1024
+# GPT-3 XL's (1.3B) published peak rate, Brown et al. 2020, table 2.1
+GPT3_PEAK_LR, GPT3_START_LR = 2e-4, 2e-5
+GPT3_F32_BATCH, GPT3_F32_SEQ = 2, 128   # (e): the float32 card-vs-CPU step
+# (a) the use_mp model under TensorParallel against the plain model from
+# the same weights, bf16: at one rank every all-reduce is a copy and the
+# row-parallel bias joins after the reduction as F.linear adds it after the
+# product, so the two run the same kernels in the same order: bitwise
+# (the CPU twin in tests/test_torch_fleet.py is bitwise too).
+# (c) PipelineParallel at pp = 1 runs the plain accumulation's kernels in
+# its order (F0 B0 F1 B1 ...): bitwise. build_gpt_1f1b_step at pp = 1
+# recomputes each microbatch's stage through functional_call and sums the
+# four microbatches' gradients in the parameters' dtype (bf16, as the
+# reference accumulates), scaling by 1/4 after, where plain accumulation
+# scales each microbatch's loss first: gradients within 2e-2 relative L2
+# (a few bf16 rounding steps of 2^-8), the loss within 1e-5 relative
+# (float32 sums of the microbatch losses in another order).
+F1B_LOSS_REL, F1B_GRAD_REL = 1e-5, 2e-2
+# (d) ring and Ulysses attention (float32 math on bf16 inputs, bf16 out)
+# against the written-out float32 attention: one bf16 rounding step (2^-8)
+# of values up to ~4; MoE on a one-rank ep group against its dense form:
+# the same kernels, the all-to-all a copy: bitwise.
+SP_ATOL, SP_RTOL = 1e-2, 1e-2
+
+
+def lm_loss(logits, labels):
+    """``GPTForCausalLM.loss`` for a PipelineLayer's logits: positions
+    0..S-2 against labels 1..S-1."""
+    from paddle_tpu_torch.nn import functional as F
+    v = logits.shape[-1]
+    return F.cross_entropy(logits[:, :-1].reshape(-1, v),
+                           labels[:, 1:].reshape(-1).long())
+
+
+def gpt3_cfg(**kw):
+    from paddle_tpu_torch.models.gpt import gpt3_1p3b
+    return gpt3_1p3b(hidden_dropout=0.0, attention_dropout=0.0, **kw)
+
+
+def gpt3_model(pt, seed, use_mp=False):
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    pt.seed(seed)
+    return GPTForCausalLM(gpt3_cfg(use_mp=use_mp),
+                          device="cuda").to("bfloat16")
+
+
+def gpt3_ids(seed, batch=GPT3_BATCH):
+    from paddle_tpu_torch.models.gpt import synthetic_lm_batch
+    return torch.from_numpy(synthetic_lm_batch(
+        batch, SEQ, gpt3_cfg().vocab_size, seed=seed)).cuda()
+
+
+def amp_step(pt, forward, model, opt, keep_grads=False):
+    """The recipe's step: forward and loss under bf16 auto_cast, backward,
+    the optimizer step and clear_grad; returns the loss (and the gradients
+    before the step, cloned, with ``keep_grads``)."""
+    def one_step(ids):
+        with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+            loss = model.loss(forward(ids), ids)
+        loss.backward()
+        grads = ({n: p.grad.clone() for n, p in model.named_parameters()}
+                 if keep_grads else None)
+        opt.step()
+        opt.clear_grad()
+        return (loss, grads) if keep_grads else loss
+    return one_step
+
+
+def gpt3_tensor_parallel(pt, fa, seed, hcg, failures):
+    """(a) the use_mp model under TensorParallel against the plain model
+    over two eager steps, then its timed eager steps."""
+    import copy as _copy
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.base import fleet_base
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        TensorParallel
+    ids = gpt3_ids(seed + 100)
+    plain = gpt3_model(pt, seed + 100)
+    mp = gpt3_model(pt, seed + 100, use_mp=True)
+    mp.set_state_dict(plain.state_dict())
+    tp = TensorParallel(mp, hcg)
+    # (a) replicates the optimizer state: the strategy without sharding
+    replicated = _copy.deepcopy(fleet_base._strategy)
+    replicated.sharding = False
+    opt_p, sched_p = make_optimizer(plain, GPT3_PEAK_LR, GPT3_START_LR)
+    inner, sched_m = make_optimizer(mp, GPT3_PEAK_LR, GPT3_START_LR)
+    opt_m = fleet.distributed_optimizer(inner, replicated)
+    step_p = amp_step(pt, plain, plain, opt_p, keep_grads=True)
+    step_m = amp_step(pt, tp, mp, opt_m, keep_grads=True)
+    loss_diff, worst = 0.0, (0.0, "")
+    for _ in range(2):
+        lp, gp = step_p(ids)
+        lm, gm = step_m(ids)
+        loss_diff = max(loss_diff, float((lp - lm).detach().abs()))
+        for n, g in gp.items():
+            worst = max(worst, (float((g.float() - gm[n].float()).abs()
+                                      .max()), n))
+        del gp, gm
+        sched_p.step()
+        sched_m.step()
+    params = max(float((p.float() - q.float()).abs().max())
+                 for p, q in zip(plain.parameters(), mp.parameters()))
+    ok = loss_diff == 0.0 and worst[0] == 0.0 and params == 0.0
+    log(f"  (a) use_mp GPT-3 1.3B under TensorParallel vs the plain model, 2 "
+        f"eager steps: losses max |diff| {loss_diff:.3e}, gradients max "
+        f"|diff| {worst[0]:.3e} ({worst[1]}), parameters after max |diff| "
+        f"{params:.3e} (tol 0: bitwise) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 10a: the use_mp model under TensorParallel "
+                        "disagrees with the plain model")
+    del plain, opt_p, step_p
+    free_cuda()
+
+    step = amp_step(pt, tp, mp, opt_m)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    fa.reset_launch_counts()
+    losses, tel, peak = timed_eager(lambda: step(ids), GPT3_STEPS,
+                                    GPT3_WARMUP, ids.numel(),
+                                    mp.flops_per_token(SEQ))
+    launches = {c.__name__: c.launches for c in counters}
+    for c in counters:
+        want = gpt3_cfg().num_layers * GPT3_STEPS
+        ok = c.launches == want and c.variant_launches["bf16"] == want
+        log(f"  (a) {c.__name__}: {c.launches} launches over {GPT3_STEPS} "
+            f"steps (want {want}: 24 a step), {c.variant_launches['bf16']} "
+            f"on the bf16 variant {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 10a: {c.__name__} launched {c.launches}"
+                            f" times, not {want}, all bf16")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"phase 10a: losses not finite and falling: "
+                        f"{losses}")
+    log(f"  (a) losses: {[round(x, 4) for x in losses]}")
+    prof = report_profile("GPT-3 1.3B eager step", profile_retry(
+        lambda: step(ids).item()), failures)
+    rate = log_rate("GPT-3 1.3B eager (TensorParallel, mp = 1)", tel, 1,
+                    mp.flops_per_token(SEQ), peak, prof)
+    rate["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    log(f"  (a) reserved memory {rate['reserved_gb']:.3f} GB; "
+        f"{card_line()}")
+    return launches, rate
+
+
+def gpt3_kstep(pt, fa, seed, hcg, failures):
+    """(b) the same step through to_static(scan_steps=4, dp_axis="dp") with
+    ZeRO-1 (strategy.sharding), against 4 eager steps of the same arm."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        TensorParallel
+    k = GPT3_KSTEP
+    stacked = torch.stack([gpt3_ids(seed + 200 + i) for i in range(k)])
+
+    def arm():
+        mp = gpt3_model(pt, seed + 200, use_mp=True)
+        tp = TensorParallel(mp, hcg)
+        inner, sched = make_optimizer(mp, GPT3_PEAK_LR, GPT3_START_LR)
+        opt = fleet.distributed_optimizer(inner)  # ZeRO-1 over dp
+        return mp, amp_step(pt, tp, mp, opt), opt
+
+    mp, step, opt = arm()
+    layout = opt.zero_layout()
+    want = torch.stack([step(stacked[i]).detach() for i in range(k)])
+    want_params = [p.detach().cpu() for p in mp.parameters()]
+    names = [n for n, _ in mp.named_parameters()]
+    del mp, step, opt
+    free_cuda()
+    mp, step, opt = arm()
+    program = jit.to_static(step, scan_steps=k, dp_axis="dp")
+    with inspect_capture():
+        got, peak = first_kstep_call("(b) GPT-3 1.3B k-step",
+                                     lambda: program(stacked))
+    loss_diff = float((got.float() - want.float()).abs().max())
+    worst = max((float((p.detach().cpu().float() - q.float()).abs().max()),
+                 n) for n, p, q in zip(names, mp.parameters(), want_params))
+    ok = loss_diff == 0.0 and worst[0] == 0.0
+    log(f"  (b) ZeRO {layout['stage']} over {layout['axis']!r} (degree "
+        f"{layout['degree']}, {layout['n_buckets']} buckets); k-step vs 4 "
+        f"eager steps: losses max |diff| {loss_diff:.3e}, parameters max "
+        f"|diff| {worst[0]:.3e} ({worst[1]}) (tol 0: bitwise) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 10b: the k-step program disagrees with the "
+                        "same eager steps")
+    del want_params
+    fa.reset_launch_counts()
+    replays = count_replays(program)
+    prof = report_profile(f"GPT-3 1.3B k-step call ({k} steps)",
+                          profile_retry(lambda: replays.run(
+                              lambda: program(stacked).cpu())), failures)
+    launches, off = replays.launches()
+    check_launches("(b) replayed GPT-3 1.3B k-step call", launches, off, prof,
+                   {meta["name"]: gpt3_cfg().num_layers * k
+                    for meta in KERNELS}, failures)
+    calls, tel = timed_kstep(lambda: program(stacked), k, 2,
+                             stacked[0].numel(), mp.flops_per_token(SEQ))
+    losses = torch.cat([got.cpu()] + calls)
+    if not bool(torch.isfinite(losses).all()):
+        failures.append("phase 10b: k-step losses not finite")
+    rate = log_rate(f"GPT-3 1.3B k-step (scan_steps={k}, ZeRO-1, CUDA "
+                    "graph)", tel, k, mp.flops_per_token(SEQ), peak, prof)
+    rate["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    log(f"  (b) reserved memory {rate['reserved_gb']:.3f} GB; "
+        f"{card_line()}")
+    return launches, rate
+
+
+def gpt3_pipeline(pt, seed, hcg, failures):
+    """(c) PipelineParallel at pp = 1 and build_gpt_1f1b_step at pp = 1
+    against plain accumulation of the same microbatches."""
+    import copy as _copy
+    from paddle_tpu_torch.distributed.fleet.base import fleet_base
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineParallel
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             build_gpt_1f1b_step,
+                                             build_pipeline_layer)
+    ids = gpt3_ids(seed + 300)
+    strategy = _copy.deepcopy(fleet_base._strategy)
+    strategy.pipeline_configs = {"accumulate_steps": GPT3_MICRO,
+                                 "micro_batch_size": GPT3_BATCH // GPT3_MICRO}
+
+    def layer():
+        pt.seed(seed + 300)
+        pl = build_pipeline_layer(gpt3_cfg(), 1, loss_fn=lm_loss,
+                                  device="cuda").to("bfloat16")
+        return pl, make_optimizer(pl, GPT3_PEAK_LR, GPT3_START_LR)[0]
+
+    pl, opt = layer()
+    pipe = PipelineParallel(pl, hcg, strategy)
+    with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+        loss = pipe.train_batch((ids, ids), opt)
+    got = [p.detach().cpu() for p in pl.parameters()]
+    schedule = list(pipe._last_schedule)
+    del pl, opt, pipe
+    free_cuda()
+    pl, opt = layer()
+    total = torch.zeros((), device="cuda")
+    with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+        for x in ids.chunk(GPT3_MICRO):
+            micro = lm_loss(pl(x), x) / GPT3_MICRO
+            micro.backward()
+            total += micro.detach().float()
+    opt.step()
+    loss_diff = float((loss - total).abs())
+    worst = max(float((p.detach().cpu().float() - q.float()).abs().max())
+                for p, q in zip(pl.parameters(), got))
+    want_schedule = [(kind, m) for m in range(GPT3_MICRO) for kind in "FB"]
+    ok = loss_diff == 0.0 and worst == 0.0 and schedule == want_schedule
+    log(f"  (c) PipelineParallel (pp = 1, {GPT3_MICRO} microbatches of "
+        f"{GPT3_BATCH // GPT3_MICRO} x {SEQ}) vs plain accumulation: loss "
+        f"{float(loss):.6f} max |diff| {loss_diff:.3e}, parameters after "
+        f"the step max |diff| {worst:.3e} (tol 0: bitwise); schedule "
+        f"{schedule} (the reference's for S = 1, M = {GPT3_MICRO}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 10c: the pipeline disagrees with plain "
+                        "accumulation or the reference's schedule")
+    del pl, opt, got
+    free_cuda()
+
+    pt.seed(seed + 301)
+    model = GPTForCausalLM(gpt3_cfg(), device="cuda").to("bfloat16")
+    run, (sp, fp, lp, _) = build_gpt_1f1b_step(model, axis_pp="pp")
+    micro = ids.view(GPT3_MICRO, GPT3_BATCH // GPT3_MICRO, SEQ)
+    with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+        f_loss, (gP, gF, gL) = run(micro, micro)
+        acc = torch.zeros((), device="cuda")
+        for x in micro:
+            part = model.loss(model(x), x) / GPT3_MICRO
+            part.backward()
+            acc += part.detach().float()
+    loss_rel = float((f_loss - acc).abs() / acc)
+    pairs = [(g, p.grad) for blk, pblk in zip(gP, sp)
+             for g, p in zip(blk, pblk)]
+    pairs += [(gF[1], fp[1].grad), (gL[0], lp[0].grad), (gL[1], lp[1].grad),
+              (gF[0] + gL[2], fp[0].grad)]  # the tied wte: both parts
+    grad_rel = max(float((a.float() - b.float()).norm() / b.float().norm())
+                   for a, b in pairs)
+    ok = loss_rel <= F1B_LOSS_REL and grad_rel <= F1B_GRAD_REL
+    log(f"  (c) build_gpt_1f1b_step (pp = 1, {GPT3_MICRO} microbatches) vs "
+        f"plain accumulation: loss rel {loss_rel:.3e} (tol "
+        f"{F1B_LOSS_REL:g}), worst gradient rel L2 {grad_rel:.3e} (tol "
+        f"{F1B_GRAD_REL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 10c: build_gpt_1f1b_step disagrees with "
+                        "plain accumulation")
+
+
+def gpt3_sequence_expert(pt, seed, failures):
+    """(d) ring and Ulysses attention on a one-rank sp group at [1, 1024,
+    16, 128] against the written-out attention; moe_ffn on a one-rank ep
+    group (4 experts, 2048 -> 8192) against its dense form; bf16."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.parallel import (moe_ffn, ring_attention,
+                                           ulysses_attention)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 400)
+    sp = collective.new_group([0], axis_name="sp")
+    q, k, v = (rand(gen, 1, SEQ, GPT3_HEADS, GPT3_HEAD_DIM, torch.bfloat16)
+               for _ in range(3))
+    want = written_out_attention(q.float(), k.float(), v.float(), True)
+    for name, fn in (("ring_attention", ring_attention),
+                     ("ulysses_attention", ulysses_attention)):
+        out = fn(q, k, v, group=sp, causal=True)
+        err = (out.float() - want).abs()
+        ok = bool((err <= SP_ATOL + SP_RTOL * want.abs()).all()) and \
+            out.dtype == torch.bfloat16
+        log(f"  (d) {name} (one-rank sp group, [1, {SEQ}, {GPT3_HEADS}, "
+            f"{GPT3_HEAD_DIM}] bf16, causal) vs the written-out attention: "
+            f"max_abs_err {err.max().item():.3e} (tol {SP_ATOL:g} + "
+            f"{SP_RTOL:g}*|ref|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 10d: {name} disagrees with the "
+                            "written-out attention")
+    h, f, e = 2048, 8192, 4
+    x = torch.randn(SEQ, h, generator=gen, device="cuda").bfloat16()
+    ws = [torch.randn(*shape, generator=gen, device="cuda").mul(scale)
+          .bfloat16() for shape, scale in (
+              ((h, e), 0.05), ((e, h, f), h ** -0.5), ((e, f), 0.02),
+              ((e, f, h), f ** -0.5), ((e, h), 0.02))]
+    ep = collective.new_group([0], axis_name="ep")
+    y1, aux1 = moe_ffn(x, *ws, group=ep)
+    y0, aux0 = moe_ffn(x, *ws)
+    diff = float((y1.float() - y0.float()).abs().max())
+    ok = diff == 0.0 and float(aux1) == float(aux0) and bool(
+        torch.isfinite(y1.float()).all())
+    log(f"  (d) moe_ffn (one-rank ep group, {e} experts, {h} -> {f}, {SEQ} "
+        f"tokens, bf16) vs its dense form: max |diff| {diff:.3e}, aux "
+        f"{float(aux1):.6f} vs {float(aux0):.6f} (tol 0: bitwise) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 10d: moe_ffn at ep = 1 disagrees with its "
+                        "dense form")
+
+
+def gpt3_f32_step(pt, seed, failures):
+    """(e) a float32 GPT-3 1.3B of two layers: one step on the card against
+    the same step on the CPU."""
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt3_1p3b,
+                                             synthetic_lm_batch)
+    cfg = gpt3_1p3b(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0)
+    pt.seed(seed + 500)
+    model = GPTForCausalLM(cfg, device="cuda")
+    ids = synthetic_lm_batch(GPT3_F32_BATCH, GPT3_F32_SEQ, cfg.vocab_size,
+                             seed=seed + 500)
+
+    def loss_fn(m, device):
+        x = torch.from_numpy(ids).to(device)
+        return m.loss(m(x), x)
+
+    check_f32_step(model, lambda m: make_optimizer(
+        m, GPT3_PEAK_LR, GPT3_START_LR)[0], loss_fn, GPT3_START_LR,
+        f"GPT-3 1.3B width, 2 layers, {GPT3_F32_BATCH} x {GPT3_F32_SEQ}",
+        failures)
+
+
+def phase10(pt, fa, seed, failures):
+    """Phase 10: GPT-3 1.3B under the fleet's hybrid parallelism on a
+    one-rank NCCL world (every axis a one-rank group), torn down at the
+    end. A part that raises is a failure and the next one still runs."""
+    import traceback
+    from paddle_tpu_torch.distributed import fleet
+    log("phase 10: GPT-3 1.3B (vocab 50304, hidden 2048, 24 layers, 16 "
+        "heads, seq 1024) under fleet hybrid parallelism at degree 1")
+    free_cuda()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                               "pp_degree": 1, "sharding_degree": 1}
+    strategy.sharding = True
+    hcg = fleet.init(is_collective=True, strategy=strategy)
+    cfg = gpt3_cfg()
+    n = sum(p.numel() for p in gpt3_model(pt, seed).parameters())
+    free_cuda()
+    fpt = 6 * n + 12 * cfg.num_layers * cfg.hidden_size * SEQ
+    log(f"  {n} parameters, flops_per_token 6 N + 12 L h S = {fpt} "
+        f"({fpt * GPT3_BATCH * SEQ:.4g} FLOP a step of {GPT3_BATCH} x "
+        f"{SEQ} tokens); mesh {hcg.mesh}")
+    out = {"parameters": n, "flops_per_token": fpt}
+    try:
+        for key, fn in (
+                ("tensor_parallel", lambda: gpt3_tensor_parallel(
+                    pt, fa, seed, hcg, failures)),
+                ("kstep", lambda: gpt3_kstep(pt, fa, seed, hcg, failures)),
+                ("pipeline", lambda: gpt3_pipeline(pt, seed, hcg, failures)),
+                ("sequence_expert", lambda: gpt3_sequence_expert(
+                    pt, seed, failures)),
+                ("float32", lambda: gpt3_f32_step(pt, seed, failures))):
+            log(f"  -- {key}")
+            t0 = time.perf_counter()
+            try:
+                out[key] = fn()
+            except Exception as e:  # noqa: BLE001 -- reported as a failure
+                traceback.print_exc()
+                failures.append(f"phase 10 ({key}) raised "
+                                f"{type(e).__name__}: {e}")
+            free_cuda()
+            log(f"  -- {key}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        from paddle_tpu_torch.distributed import parallel_env
+        from paddle_tpu_torch.distributed.fleet.base import topology
+        topology.set_hybrid_communicate_group(None)
+        parallel_env.set_mesh(None)
+        torch.distributed.destroy_process_group()
+    log(f"  {card_line()}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2557,6 +3093,7 @@ def main():
     flash = check_flash(fa, failures, gen)
     flash_bwd = check_flash_bwd(fa, failures, gen)
     f32_times = time_f32_variants(fa, gen)
+    gpt3_shape = check_gpt3_shape(fa, failures, gen)
 
     # ---- 3. the served path
     log("phase 3: GPT-small served through the engine (bf16, buckets 1, 4)")
@@ -2659,7 +3196,12 @@ def main():
     ck_counted, ck_launches, ck_gpt = ckpt.pop("gpt_in_place",
                                                ({}, {}, {}))
 
-    # ---- 10. kernels line and result
+    # ---- 10. GPT-3 1.3B under the fleet's hybrid parallelism
+    gpt3 = phase10(pt, fa, args.seed, failures)
+    gpt3_tp, gpt3_tp_rate = gpt3.pop("tensor_parallel", ({}, None))
+    gpt3_ks, gpt3_ks_rate = gpt3.pop("kstep", ({}, None))
+
+    # ---- 11. kernels line and result
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
     kernels = []
@@ -2676,7 +3218,10 @@ def main():
                 zero3_recompute_first_call=zr_counted[name],
                 zero3_recompute_kstep_call=zr_launches[name],
                 checkpoint_first_call=ck_counted.get(name),
-                checkpoint_restored_kstep_call=ck_launches.get(name)),
+                checkpoint_restored_kstep_call=ck_launches.get(name),
+                gpt3_1p3b_tensor_parallel_eager=gpt3_tp.get(name),
+                gpt3_1p3b_kstep_call=gpt3_ks.get(name)),
+            gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,
                 training_launches=(trained_bf16[name] if dt == "bf16"
@@ -2688,7 +3233,11 @@ def main():
                               "gpt_small_kstep": gpt_rate,
                               "gpt_small_eager_step_ms": eager_ms,
                               "bert_base_dp_arms": zero_rates,
-                              "gpt_small_zero3_recompute": zr_rate},
+                              "gpt_small_zero3_recompute": zr_rate,
+                              "gpt3_1p3b_tensor_parallel_eager":
+                                  gpt3_tp_rate,
+                              "gpt3_1p3b_kstep": gpt3_ks_rate,
+                              "gpt3_1p3b": gpt3},
                     "checkpoints": dict(ckpt, gpt_small_in_place=ck_gpt)}))
     log(json.dumps({"kernels": kernels}))
     if failures:

@@ -17,7 +17,11 @@ accumulation windows (``accumulate_steps``) and activation recompute
 checkpoints of the whole training state that resume bit for bit, at
 another dp degree too, and move between this package and the reference
 (``checkpoint``, ``save``/``load``); GPT also served behind
-``serving.Engine.from_layer``. Causal attention at ``seq_len >= 1024``
+``serving.Engine.from_layer``. GPT-3 1.3B (``models.gpt3_1p3b``) and BERT
+train under the fleet's hybrid parallelism (``distributed.fleet``: dp x pp
+x sharding x mp process groups, tensor-parallel layers, ``PipelineLayer``
+with the 1F1B schedules), with ring and Ulysses attention and Switch MoE
+over their own groups (``parallel``). Causal attention at ``seq_len >= 1024``
 runs through the CUDA flash-attention kernels, forward and backward
 (``kernels.flash_attention``).
 """
@@ -25,9 +29,10 @@ import numpy as np
 import torch
 
 from . import (amp, checkpoint, distributed, incubate, jit,  # noqa: F401
-               models, monitor, nn, optimizer, recompute, regularizer,
-               serving)
+               models, monitor, nn, optimizer, parallel, recompute,
+               regularizer, serving)
 from .core.device import resolve_device
+from .distributed.parallel import DataParallel  # noqa: F401
 from .core.dtype import bfloat16, convert_dtype, float32, int32  # noqa: F401
 from .core.random import default_generator, seed  # noqa: F401
 from .regularizer import L1Decay, L2Decay  # noqa: F401
@@ -52,7 +57,8 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
 
 
 __all__ = ["seed", "default_generator", "resolve_device", "convert_dtype",
+           "DataParallel",
            "to_tensor", "float32", "bfloat16", "int32", "L1Decay", "L2Decay",
            "save", "load", "amp", "checkpoint", "distributed", "incubate",
-           "jit", "models", "monitor", "nn", "optimizer", "recompute",
-           "regularizer", "serving"]
+           "jit", "models", "monitor", "nn", "optimizer", "parallel",
+           "recompute", "regularizer", "serving"]

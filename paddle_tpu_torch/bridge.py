@@ -5,7 +5,15 @@
 that the names and shapes equal the module's own, and copies the values
 onto each parameter's device and dtype. Both packages keep the same
 structured names and layouts (``Linear`` weights are ``[in, out]``), so
-the copy needs no transposes.
+the copy needs no transposes. Under tensor parallelism a sliced parameter
+(``split_axis`` set, see ``fleet.meta_parallel.mp_layers``) takes its
+rank's slice of the full array: a fused QKV's columns are ordered (q|k|v,
+heads, head_dim), so each rank takes whole heads of each of q, k and v (a
+re-layout, not the reference's contiguous thirds of the columns);
+``full_state_dict`` gathers the slices back into the reference's full
+layout. A ``PipelineLayer`` takes the names of the stage it holds and
+skips the other stages'. Wrappers (``DataParallel``, ``TensorParallel``,
+...) load into the layer they wrap.
 
 ``load_reference_optimizer_state(optimizer, state, names)`` does the same
 for an optimizer: the reference keys its state by its own parameter names
@@ -18,25 +26,100 @@ import numpy as np
 import torch
 
 
+def _inner(module):
+    from .distributed.parallel import _LayerWrapper
+    while isinstance(module, _LayerWrapper):
+        module = module._layers
+    return module
+
+
+def _sliced(t):
+    from .distributed.fleet.meta_parallel.mp_layers import is_sliced
+    return is_sliced(t)
+
+
+def _split_view(shape, t):
+    """``shape`` with the split dim viewed as (groups, degree, chunk)."""
+    ax, g, n = t.split_axis, t.split_groups, t.split_degree
+    return (*shape[:ax], g, n, shape[ax] // (g * n), *shape[ax + 1:])
+
+
+def local_slice(full, t):
+    """This rank's slice of the full array ``full`` for the sliced
+    parameter ``t``."""
+    full = np.asarray(full)
+    if not _sliced(t):
+        return full
+    ax = t.split_axis
+    v = full.reshape(_split_view(full.shape, t))
+    v = np.take(v, t.split_rank, axis=ax + 1)
+    return v.reshape(tuple(t.shape))
+
+
+def _full_shape(t):
+    shape = list(t.shape)
+    if _sliced(t):
+        shape[t.split_axis] *= t.split_degree
+    return tuple(shape)
+
+
 def load_reference_state(module, state):
     """Copy ``state`` ({name: numpy array}) into ``module``'s parameters
-    and buffers; raises ``ValueError`` on any missing or extra name or any
-    shape mismatch, before anything is copied."""
+    and buffers, each sliced parameter its rank's slice; raises
+    ``ValueError`` on any missing or extra name or any shape mismatch,
+    before anything is copied. A ``PipelineLayer`` skips the names of the
+    stages it does not hold."""
+    module = _inner(module)
     own = module.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
+    other_stage = getattr(module, "other_stage", None)
+    if other_stage is not None:
+        extra = [n for n in extra if not other_stage(n)]
     if missing or extra:
         raise ValueError(f"state names differ: missing {missing}, "
                          f"unexpected {extra}")
-    bad = [(n, tuple(np.shape(state[n])), tuple(t.shape))
-           for n, t in own.items() if tuple(np.shape(state[n])) != tuple(t.shape)]
+    bad = [(n, tuple(np.shape(state[n])), _full_shape(t))
+           for n, t in own.items()
+           if tuple(np.shape(state[n])) != _full_shape(t)]
     if bad:
         raise ValueError("shape mismatch (name, given, expected): "
                          + ", ".join(map(str, bad)))
     with torch.no_grad():
         for name, t in own.items():
-            t.copy_(torch.from_numpy(np.array(state[name], copy=True)))
+            t.copy_(torch.from_numpy(np.array(local_slice(state[name], t),
+                                              copy=True)))
     return module
+
+
+def full_state_dict(module, group=None):
+    """``module``'s state in the reference's full layout ({name: numpy
+    array}): each sliced parameter gathered from the mp group (``group``,
+    default the fleet topology's) and laid back. Every rank of the group
+    calls it."""
+    from .distributed import collective
+    from .distributed.fleet.meta_parallel.mp_layers import \
+        model_parallel_group
+    module = _inner(module)
+    out = {}
+    for name, p in module.state_dict(keep_vars=True).items():
+        t = p.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()  # numpy has no bfloat16
+        if not _sliced(p) or p.split_degree == 1:
+            out[name] = t.cpu().numpy().copy()
+            continue
+        parts = []
+        collective.all_gather(parts, t.contiguous(),
+                              group=group or model_parallel_group())
+        # [n, *local] -> the split dim as (groups, n, chunk) -> full
+        ax, g, n = p.split_axis, p.split_groups, p.split_degree
+        shape = list(t.shape)
+        v = torch.stack(parts).reshape(n, *shape[:ax], g, shape[ax] // g,
+                                       *shape[ax + 1:])
+        out[name] = v.movedim(0, ax + 1).reshape(_full_shape(p)).cpu() \
+            .numpy().copy()
+    return out
 
 
 _META = ("@step", "@lr", "LR_Scheduler")

@@ -17,8 +17,12 @@ states through a checkpoint. A restore sets each generator's state in
 place (``Generator.set_state``): torch keeps one state object per
 generator, which a graph registered with it reads at every replay, so a
 restored state takes effect at the next replay.
+
+:func:`generators_from` hands the package's draws in a block to other
+generators (the tensor-parallel RNG tracker's states).
 """
 import threading
+from contextlib import contextmanager
 
 import torch
 
@@ -26,6 +30,7 @@ from .device import resolve_device
 
 _lock = threading.Lock()
 _state = {"seed": 0, "generators": {}, "graph_safe": []}
+_override = []  # generators_from's factories, innermost last
 
 
 def seed(s):
@@ -39,6 +44,8 @@ def default_generator(device=None):
     """The package's generator for ``device`` (created on first use from
     the current seed)."""
     dev = resolve_device(device)
+    if _override:
+        return _override[-1](dev)
     with _lock:
         g = _state["generators"].get(dev)
         if g is None:
@@ -46,6 +53,17 @@ def default_generator(device=None):
             g.manual_seed(_state["seed"])
             _state["generators"][dev] = g
         return g
+
+
+@contextmanager
+def generators_from(factory):
+    """In the block the package draws from ``factory(device)`` instead of
+    its own generators (the tensor-parallel RNG tracker's states)."""
+    _override.append(factory)
+    try:
+        yield
+    finally:
+        _override.pop()
 
 
 def draw_generator(device):

@@ -2,8 +2,12 @@
 ``paddle_tpu/distributed/parallel_env.py``).
 
 One process drives one device and is one rank of a ``torch.distributed``
-process group. A mesh is one data-parallel axis over such a group
-(:class:`Mesh`); the group's size is the axis size. ``init_parallel_env``
+process group. A mesh (:class:`Mesh`) lays the group's ranks out on named
+axes: one data-parallel axis over the whole group (the ZeRO mesh), or the
+hybrid axes in the reference's data x pipe x sharding x model order
+(``make_mesh({"dp": a, "pp": b, "sharding": c, "mp": d})``), the last axis
+the fastest, with one ``new_group`` for every slice of every axis;
+:func:`axis_group` is this rank's group on an axis. ``init_parallel_env``
 creates the default group: NCCL on the card, gloo only when the caller asks
 for the CPU; it never picks a backend by itself.
 
@@ -15,6 +19,7 @@ micro steps the update waits for the window's last step.
 """
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -30,17 +35,32 @@ _program = [None]
 
 
 class Mesh:
-    """A data-parallel mesh: one axis (``axis_names == (name,)``) over the
-    ranks of a ``torch.distributed`` process group."""
+    """Named axes over the ranks of a ``torch.distributed`` process group.
 
-    def __init__(self, axis_name, size, group=None):
-        self.axis_names = (axis_name,)
-        self.shape = {axis_name: int(size)}
+    ``shape`` maps each axis to its size (in order), ``groups`` each axis to
+    this rank's process group on it, ``coords`` each axis to this rank's
+    index there, and ``ranks`` is the grid of global ranks (a numpy array of
+    ``shape``). ``group`` is the group the whole mesh spans (None: the
+    default group)."""
+
+    def __init__(self, axes, groups=None, coords=None, ranks=None,
+                 group=None):
+        self.axis_names = tuple(axes)
+        self.shape = {a: int(n) for a, n in axes.items()}
         self.group = group
+        self.groups = dict(groups) if groups else {
+            a: group for a in self.axis_names}
+        self.coords = dict(coords) if coords else {
+            a: (dist.get_rank(group) if dist.is_initialized() else 0)
+            for a in self.axis_names}
+        self.ranks = ranks
 
     @property
     def size(self):
-        return next(iter(self.shape.values()))
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
 
     def __repr__(self):
         return f"Mesh({self.shape})"
@@ -131,34 +151,64 @@ def axis_degree(mesh, axis):
 
 
 def axis_group(mesh, axis):
-    """The process group behind a mesh axis (the default group if the mesh
-    names none)."""
+    """This rank's process group on a mesh axis (the default group where a
+    one-axis mesh names none)."""
     if mesh is None or axis not in mesh.shape:
         raise ValueError(f"mesh {mesh} has no axis {axis!r}")
-    return mesh.group if mesh.group is not None else dist.group.WORLD
+    g = mesh.groups.get(axis)
+    return g if g is not None else dist.group.WORLD
+
+
+def axis_rank(mesh, axis):
+    """This rank's index on a mesh axis (0 without a mesh or the axis)."""
+    if mesh is None or axis not in mesh.shape:
+        return 0
+    return mesh.coords[axis]
 
 
 def make_mesh(axes, devices=None, group=None):
-    """``{"dp": n}`` -> a :class:`Mesh` over ``group`` (default: the
-    default process group). ``-1`` takes the group's size. Raises unless
-    the group's size is the axis size; only a dp axis is ported."""
+    """``{"dp": n}`` -> a one-axis :class:`Mesh` over ``group`` (default:
+    the default process group); ``{"dp": a, "pp": b, "sharding": c, "mp":
+    d}`` (any names, in order) -> the hybrid mesh over the default group,
+    whose ranks lie in C order (the last axis fastest, the reference's
+    ``CommunicateTopology``) with one ``new_group`` per slice of each axis,
+    made by every rank in the same order. ``-1`` takes what the group's
+    size leaves. Raises unless the sizes multiply to the group's size."""
     if devices is not None:
         raise NotImplementedError("a mesh here is a process group: one "
                                   "device per rank, no device list")
     axes = dict(axes)
-    if len(axes) != 1:
-        raise NotImplementedError(
-            f"mesh {axes}: only a single data-parallel axis is ported")
-    (name, size), = axes.items()
+    if not axes:
+        raise ValueError("a mesh needs at least one axis")
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(init_parallel_env)")
     n = dist.get_world_size(group)
-    size = n if size == -1 else int(size)
-    if size != n:
-        raise ValueError(f"mesh axis {name!r} of size {size} needs a "
-                         f"process group of {size} ranks; this one has {n}")
-    return Mesh(name, size, group)
+    sizes = [int(v) for v in axes.values()]
+    if sizes.count(-1) > 1:
+        raise ValueError(f"mesh {axes}: at most one axis may be -1")
+    if -1 in sizes:
+        known = int(np.prod([v for v in sizes if v != -1]))
+        sizes[sizes.index(-1)] = n // max(known, 1)
+    axes = dict(zip(axes, sizes))
+    if int(np.prod(sizes)) != n:
+        raise ValueError(f"mesh {axes} needs a process group of "
+                         f"{int(np.prod(sizes))} ranks; this one has {n}")
+    if len(axes) == 1:
+        return Mesh(axes, group=group)
+    if group is not None:
+        raise NotImplementedError("a hybrid mesh spans the default group")
+    grid = np.arange(n).reshape(sizes)
+    me = dist.get_rank()
+    coords = dict(zip(axes, (int(c) for c in np.unravel_index(me, sizes))))
+    groups = {}
+    for i, name in enumerate(axes):
+        lines = np.moveaxis(grid, i, -1).reshape(-1, sizes[i])
+        for line in lines:  # every rank makes every group, in one order
+            g = dist.new_group([int(r) for r in line])
+            if me in line:
+                groups[name] = g
+    return Mesh(axes, groups=groups, coords=coords, ranks=grid)
 
 
 def init_parallel_env(device=None, init_method=None, world_size=None,

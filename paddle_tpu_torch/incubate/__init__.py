@@ -1,5 +1,6 @@
 """Incubating APIs (counterpart: ``paddle_tpu/incubate``): the epoch-loop
-``auto_checkpoint``."""
-from . import auto_checkpoint  # noqa: F401
+``auto_checkpoint`` and the Switch ``MoELayer``."""
+from . import auto_checkpoint, moe  # noqa: F401
+from .moe import MoELayer  # noqa: F401
 
-__all__ = ["auto_checkpoint"]
+__all__ = ["auto_checkpoint", "moe", "MoELayer"]

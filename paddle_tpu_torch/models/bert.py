@@ -12,7 +12,13 @@ copy (``bridge``). The MLM decoder is tied to the word embeddings.
 Attention runs through ``F.scaled_dot_product_attention``. BERT's
 positions stop at 512 and the flash gate opens at 1024, so BERT takes the
 written-out branch and runs no hand-written kernel, as in the reference.
-Not ported: the tensor-parallel (``use_mp``) sharding annotations.
+
+``use_mp=True`` builds the tensor-parallel layers that the reference's
+sharding annotations imply, at the degree of the fleet topology's mp group
+(``models/gpt.py`` has the same): the word embeddings vocabulary-parallel
+(and with them the tied decoder's logits and its bias), ``qkv`` (whole
+heads) and ``fc1`` column-parallel, ``out`` and ``fc2`` row-parallel; the
+MLM loss is the parallel cross entropy.
 """
 import numpy as np
 
@@ -27,10 +33,6 @@ class BertConfig:
                  max_position_embeddings=512, type_vocab_size=2,
                  hidden_dropout=0.1, attention_dropout=0.1, use_mp=False,
                  hidden_act="gelu_tanh"):
-        if use_mp:
-            raise NotImplementedError(
-                "use_mp (tensor-parallel sharding of BERT's weights) is not "
-                "ported")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -55,6 +57,16 @@ def _act_fn(cfg):
     raise ValueError(f"unknown hidden_act {act!r}")
 
 
+def _mp():
+    from ..distributed.fleet.meta_parallel import mp_layers
+    return mp_layers
+
+
+def _mp_degree():
+    mp = _mp()
+    return mp.group_rank_size(mp.model_parallel_group())[1]
+
+
 def bert_base(**kw):
     return BertConfig(**kw)
 
@@ -68,7 +80,12 @@ class BertEmbeddings(nn.Layer):
     def __init__(self, cfg, device=None):
         super().__init__()
         h = cfg.hidden_size
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=device)
+        if cfg.use_mp:
+            self.word_embeddings = _mp().VocabParallelEmbedding(
+                cfg.vocab_size, h, device=device)
+        else:
+            self.word_embeddings = nn.Embedding(cfg.vocab_size, h,
+                                                device=device)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
                                                 h, device=device)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h,
@@ -92,8 +109,16 @@ class BertSelfAttention(nn.Layer):
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         h = cfg.hidden_size
-        self.qkv = nn.Linear(h, 3 * h, device=device)
-        self.out = nn.Linear(h, h, device=device)
+        if cfg.use_mp:
+            mp = _mp()
+            self.qkv = mp.ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                               device=device, split_groups=3)
+            self.out = mp.RowParallelLinear(h, h, input_is_parallel=True,
+                                            device=device)
+            self.num_heads = cfg.num_heads // _mp_degree()
+        else:
+            self.qkv = nn.Linear(h, 3 * h, device=device)
+            self.out = nn.Linear(h, h, device=device)
         self.dropout_p = cfg.attention_dropout
 
     def forward(self, x, attn_mask=None):
@@ -114,8 +139,17 @@ class BertLayer(nn.Layer):
         h = cfg.hidden_size
         self.attention = BertSelfAttention(cfg, device=device)
         self.norm1 = nn.LayerNorm(h, device=device)
-        self.fc1 = nn.Linear(h, cfg.intermediate_size, device=device)
-        self.fc2 = nn.Linear(cfg.intermediate_size, h, device=device)
+        if cfg.use_mp:
+            mp = _mp()
+            self.fc1 = mp.ColumnParallelLinear(h, cfg.intermediate_size,
+                                               gather_output=False,
+                                               device=device)
+            self.fc2 = mp.RowParallelLinear(cfg.intermediate_size, h,
+                                            input_is_parallel=True,
+                                            device=device)
+        else:
+            self.fc1 = nn.Linear(h, cfg.intermediate_size, device=device)
+            self.fc2 = nn.Linear(cfg.intermediate_size, h, device=device)
         self.norm2 = nn.LayerNorm(h, device=device)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
         self.act = _act_fn(cfg)
@@ -155,8 +189,19 @@ class BertPretrainingHeads(nn.Layer):
         h = cfg.hidden_size
         self.transform = nn.Linear(h, h, device=device)
         self.layer_norm = nn.LayerNorm(h, device=device)
-        self.decoder_bias = self.create_parameter(
-            [cfg.vocab_size], is_bias=True, device=device)
+        self._group = None
+        if cfg.use_mp:
+            # the decoder's logits are the word embeddings' vocabulary
+            # slice, and so is its bias
+            mp = _mp()
+            self._group = mp.model_parallel_group()
+            n = _mp_degree()
+            self.decoder_bias = mp._mark(self.create_parameter(
+                [cfg.vocab_size // n], is_bias=True, device=device), 0,
+                self._group)
+        else:
+            self.decoder_bias = self.create_parameter(
+                [cfg.vocab_size], is_bias=True, device=device)
         # the tie is held, not registered: a registered parameter would add
         # a ``cls._tied`` entry to the state_dict, which the reference lacks
         object.__setattr__(self, "_tied", embedding_weight)
@@ -165,6 +210,8 @@ class BertPretrainingHeads(nn.Layer):
 
     def forward(self, sequence_output, pooled_output):
         x = self.layer_norm(self.act(self.transform(sequence_output)))
+        if self._group is not None:
+            x = _mp().copy_to_region(x, self._group)
         logits = ops.matmul(x, self._tied, transpose_y=True)
         # the bias joins in the logits' dtype: a float32 bias would promote
         # the [B, S, vocab] logits to float32 under AMP
@@ -191,8 +238,15 @@ class BertForPretraining(nn.Layer):
 
     def loss(self, prediction_logits, nsp_logits, masked_labels, nsp_labels,
              ignore_index=-100):
-        mlm = F.cross_entropy(prediction_logits, masked_labels,
-                              ignore_index=ignore_index)
+        if self.config.use_mp:
+            labels = masked_labels.reshape(-1)
+            per = _mp().parallel_cross_entropy(
+                prediction_logits.reshape(-1, prediction_logits.shape[-1]),
+                labels, self.cls._group, ignore_index)
+            mlm = per.sum() / (labels != ignore_index).sum().clamp_min(1)
+        else:
+            mlm = F.cross_entropy(prediction_logits, masked_labels,
+                                  ignore_index=ignore_index)
         nsp = F.cross_entropy(nsp_logits, nsp_labels)
         return mlm + nsp
 
@@ -200,7 +254,9 @@ class BertForPretraining(nn.Layer):
         """Training FLOPs a token, 6 N (N the unique parameters) plus the
         attention's 12 L h s (for MFU accounting)."""
         cfg = self.config
-        n_params = sum(p.numel() for p in self.parameters())
+        n = _mp_degree() if cfg.use_mp else 1
+        n_params = sum(p.numel() * (n if _mp().is_sliced(p)
+                                    else 1) for p in self.parameters())
         s = seq_len or cfg.max_position_embeddings
         return 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * s
 

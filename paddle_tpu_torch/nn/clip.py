@@ -56,12 +56,18 @@ class ClipGradByGlobalNorm(ClipGradBase):
     def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
 
+    def _total_sq(self, params, sq):
+        """The squared global norm from ``sq``, the per-parameter sums of
+        squares of ``params`` (a hybrid-parallel clip also sums over the
+        ranks that hold other parts of the model)."""
+        return sq.sum()
+
     def _clip(self, params_grads):
-        sq = [g.float().square().sum() for _, g in params_grads
-              if g is not None]
-        if not sq:
+        pairs = [(p, g) for p, g in params_grads if g is not None]
+        if not pairs:
             return params_grads
-        global_norm = torch.stack(sq).sum().sqrt()
+        sq = torch.stack([g.float().square().sum() for _, g in pairs])
+        global_norm = self._total_sq([p for p, _ in pairs], sq).sqrt()
         scale = self.clip_norm / global_norm.clamp_min(self.clip_norm)
         return [(p, None if g is None else _grad_scale(g, scale))
                 for p, g in params_grads]

@@ -7,15 +7,18 @@ from .layers import Layer
 
 
 class Linear(Layer):
-    """y = xW + b with W: [in, out], as in the reference."""
+    """y = xW + b with W: [in, out], as in the reference (no b with
+    ``bias_attr=False``)."""
 
-    def __init__(self, in_features, out_features, device=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, device=None):
         super().__init__()
         self.weight = self.create_parameter(
             [in_features, out_features], device=device,
             default_initializer=I.XavierNormal())
-        self.bias = self.create_parameter([out_features], is_bias=True,
-                                          device=device)
+        # bias_attr=False: no bias, as in the reference
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [out_features], is_bias=True, device=device)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

@@ -416,17 +416,19 @@ class ZeroState:
         """Global norm over the shards: each parameter's sum of squares of
         the part this rank holds, all-reduced across the group and summed
         in parameter order, as the per-parameter control sums them."""
-        parts = []
+        parts, params = [], []
         for b, pr in zip(self.buckets, present):
-            for part, has in zip(b.local_parts(b.grad_shard), pr):
+            for p, part, has in zip(b.params, b.local_parts(b.grad_shard),
+                                    pr):
                 if has:
                     parts.append(part.square().sum() if part is not None
                                  else b.grad_shard.new_zeros(()))
+                    params.append(p)
         if not parts:
             return None
         sq = torch.stack(parts)
         collective.all_reduce(sq, group=self.group)
-        global_norm = sq.sum().sqrt()
+        global_norm = clip._total_sq(params, sq).sqrt()
         return clip.clip_norm / global_norm.clamp_min(clip.clip_norm)
 
     def _update(self, b, g, present, scale):

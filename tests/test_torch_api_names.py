@@ -36,7 +36,20 @@ PORTED_MODULES = {
     "paddle_tpu.incubate.auto_checkpoint", "paddle_tpu.monitor",
     "paddle_tpu.testing.faults", "paddle_tpu.observability.tracing",
     "paddle_tpu.observability.runlog",
-    "paddle_tpu.distributed.fleet.utils.fs"}
+    "paddle_tpu.distributed.fleet.utils.fs",
+    # hybrid parallelism
+    "paddle_tpu.distributed.parallel",
+    "paddle_tpu.distributed.fleet.base.topology",
+    "paddle_tpu.distributed.fleet.base.distributed_strategy",
+    "paddle_tpu.distributed.fleet.base.fleet_base",
+    "paddle_tpu.distributed.fleet.meta_parallel.mp_layers",
+    "paddle_tpu.distributed.fleet.meta_parallel.random",
+    "paddle_tpu.distributed.fleet.meta_parallel.tensor_parallel",
+    "paddle_tpu.distributed.fleet.meta_parallel.sharding_parallel",
+    "paddle_tpu.distributed.fleet.meta_parallel.pp_layers",
+    "paddle_tpu.distributed.fleet.meta_parallel.pipeline_parallel",
+    "paddle_tpu.parallel.pipeline", "paddle_tpu.parallel.ring_attention",
+    "paddle_tpu.parallel.moe", "paddle_tpu.incubate.moe"}
 PORTED_CLASSES = {
     "paddle_tpu.optimizer.optimizer": {"Optimizer", "Adam", "AdamW"},
     "paddle_tpu.optimizer.lr": {"LRScheduler", "LinearWarmup",
@@ -64,13 +77,12 @@ NOT_PORTED = {
     "paddle_tpu.jit.in_tracing", "paddle_tpu.jit.not_to_static",
     "paddle_tpu.recompute.remat_replay", "paddle_tpu.recompute.is_remat_replay",
     "paddle_tpu.amp.amp_guard",
-    # collectives beyond ZeRO's: ROADMAP item 13
-    "paddle_tpu.distributed.alltoall", "paddle_tpu.distributed.new_group",
-    "paddle_tpu.distributed.p2p_transfer", "paddle_tpu.distributed.recv",
-    "paddle_tpu.distributed.scatter", "paddle_tpu.distributed.send",
-    "paddle_tpu.distributed.split", "paddle_tpu.distributed.wait",
-    # GPT-1.3B and the pipeline stages: ROADMAP item 13
-    "paddle_tpu.models.build_pipeline_layer", "paddle_tpu.models.gpt3_1p3b",
+    # the reference's device hop between pipeline stages (jax.device_put);
+    # the port's stages exchange point to point
+    "paddle_tpu.distributed.p2p_transfer",
+    # the batch's GSPMD PartitionSpec; a port rank takes its slice instead
+    "paddle_tpu.DataParallel.batch_pspec",
+    "paddle_tpu.distributed.DataParallel.batch_pspec",
     # the RNG state as one tensor: ROADMAP item 2
     "paddle_tpu.get_rng_state", "paddle_tpu.set_rng_state",
 }

@@ -153,8 +153,8 @@ def test_flops_per_token_and_synthetic_batch_match_reference():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="use_mp"):
-        bert.BertConfig(use_mp=True)
+    # use_mp is ported (tests/test_torch_hybrid.py); an unknown activation
+    # still raises
     with pytest.raises(ValueError, match="hidden_act"):
         bert.BertForPretraining(bert.BertConfig(**TINY, hidden_act="swish"),
                                 device="cpu")

@@ -45,6 +45,26 @@ _CHECKPOINT = ("paddle_tpu_torch.checkpoint", "paddle_tpu_torch.checkpoint.core"
                "paddle_tpu_torch.observability.runlog",
                "paddle_tpu_torch.distributed.fleet.utils.fs")
 
+# hybrid parallelism: the fleet, its meta-parallel layers, the parallel
+# primitives and MoE
+_HYBRID = ("paddle_tpu_torch.distributed.parallel",
+           "paddle_tpu_torch.distributed.fleet",
+           "paddle_tpu_torch.distributed.fleet.base.topology",
+           "paddle_tpu_torch.distributed.fleet.base.distributed_strategy",
+           "paddle_tpu_torch.distributed.fleet.base.fleet_base",
+           "paddle_tpu_torch.distributed.fleet.meta_parallel",
+           "paddle_tpu_torch.distributed.fleet.meta_parallel.mp_layers",
+           "paddle_tpu_torch.distributed.fleet.meta_parallel.random",
+           "paddle_tpu_torch.distributed.fleet.meta_parallel.tensor_parallel",
+           "paddle_tpu_torch.distributed.fleet.meta_parallel"
+           ".sharding_parallel",
+           "paddle_tpu_torch.distributed.fleet.meta_parallel.pp_layers",
+           "paddle_tpu_torch.distributed.fleet.meta_parallel"
+           ".pipeline_parallel",
+           "paddle_tpu_torch.parallel", "paddle_tpu_torch.parallel.pipeline",
+           "paddle_tpu_torch.parallel.ring_attention",
+           "paddle_tpu_torch.parallel.moe", "paddle_tpu_torch.incubate.moe")
+
 
 def _forbidden(name):
     return name.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
@@ -60,7 +80,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert int(n_modules) >= 20 and bad == "[]"
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
-    for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT:
+    for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT + _HYBRID:
         assert f"'{name}'" in every, (name, every)
 
 
@@ -70,7 +90,7 @@ def test_package_import_brings_its_top_level_modules():
     probe = ("import sys, paddle_tpu_torch as pt\n"
              "print(all(hasattr(pt, n) for n in ('models', 'serving', "
              "'distributed', 'recompute', 'to_tensor', 'checkpoint', "
-             "'save', 'load', 'incubate')))\n"
+             "'save', 'load', 'incubate', 'parallel')))\n"
              "print(sorted(n for n in sys.modules if n.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
