@@ -132,7 +132,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time, tokens/s, MFU, working set, reserved memory and idle share beside
    the card's name and power limit. Phase 2 also checks and times the
    three kernels at GPT-3 1.3B's shape [8, 1024, 16, 128].
-11. One JSON line with every kernel of the paths, then the result line.
+11. Convolutional networks (no hand-written kernel runs on this path;
+   each flash kernel's launches are counted and must be 0): ResNet-50
+   (``vision.models.resnet50``, 1000 classes, 25.6 M parameters, seeded
+   random weights, images and labels) with ``benchmarks/run_all.py``'s
+   recipe (64 x 3 x 224 x 224, ``Momentum(lr=0.1, momentum=0.9)``, bf16
+   ``auto_cast``) and PaddleClas's ``L2Decay(1e-4)`` and ``PiecewiseDecay``:
+   (a1) a float32 step on the card against the CPU at batch 2: the loss,
+   the gradients' distance from the CPU's float64 gradients against the
+   CPU float32's, the Momentum step and the running statistics; (a2) the bf16
+   step's first loss against float32's; (a3) 2 warm-up and 10 timed eager
+   steps; (a4) ``to_static(one_step, scan_steps=4)`` against the same eager
+   steps over two calls with the rate stepped between them, bitwise
+   (losses, parameters, velocities, ``_mean``, ``_variance``; cuDNN
+   deterministic), then the program timed (cuDNN autotuned); (a5) one
+   profiled call. Step time, images/s, MFU from the multiply-adds of the
+   layer shapes (checked against the closed form), working set, reserved
+   memory, idle share and device time by kind. (b) LeNet, five float32
+   Momentum steps on the synthetic MNIST, card against CPU. (c) ResNet-50
+   in eval mode behind ``Engine.from_layer(..., bucket_ladder=(1, 16, 64),
+   passes=("bf16",))`` under concurrent requests: latency, device and
+   host-copy ms per bucket, the float32 engine against the CPU and bf16
+   against float32. Phases 10 and 11 start with a census of the memory
+   that earlier phases left allocated.
+12. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -731,30 +754,33 @@ def check_gpt3_shape(fa, failures, gen):
     return out
 
 
-def serve(model, serving, ids_by_req, failures):
-    """The main path: a bf16 engine at buckets (1, 4) fed a burst of
-    concurrent requests, then sequential requests per bucket for latency.
-    Returns the engine's stats, per-bucket latencies and the results."""
-    cfg = model.config
+def serve(model, serving, requests, spec, out_tail, buckets, failures,
+          batch_timeout_ms=50.0):
+    """A served path: a bf16 engine at ``buckets`` fed a burst of
+    concurrent requests, each result checked for shape (rows x
+    ``out_tail``), dtype and finiteness, then 3 sequential requests of
+    each bucket's size (the first request's first row repeated) for
+    latency. Returns the engine's stats after the burst and at the end,
+    per-bucket latencies and the burst's results."""
     engine = serving.Engine.from_layer(
-        model, [([None, SEQ], "int32")], bucket_ladder=(1, 4),
-        passes=("bf16",), batch_timeout_ms=50.0, device="cuda")
+        model, spec, bucket_ladder=buckets, passes=("bf16",),
+        batch_timeout_ms=batch_timeout_ms, device="cuda")
     try:
-        results = [None] * len(ids_by_req)
+        results = [None] * len(requests)
 
         def call(i):
-            results[i] = engine.predict(ids_by_req[i])[0]
+            results[i] = engine.predict(requests[i])[0]
 
         threads = [threading.Thread(target=call, args=(i,))
-                   for i in range(len(ids_by_req))]
+                   for i in range(len(requests))]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=300)
             if t.is_alive():
                 raise RuntimeError("a served request did not finish")
-        for ids, out in zip(ids_by_req, results):
-            want = (ids.shape[0], SEQ, cfg.vocab_size)
+        for req, out in zip(requests, results):
+            want = (req.shape[0], *out_tail)
             if out is None or out.shape != want or out.dtype != np.float32:
                 failures.append(f"served output shape/dtype "
                                 f"{None if out is None else out.shape} != {want}")
@@ -764,11 +790,11 @@ def serve(model, serving, ids_by_req, failures):
 
         latency = {}
         for bucket in engine.bucket_ladder:
-            ids = ids_by_req[0][:1].repeat(bucket, axis=0)
+            batch = requests[0][:1].repeat(bucket, axis=0)
             times = []
             for _ in range(3):
                 t0 = time.perf_counter()
-                engine.predict(ids)
+                engine.predict(batch)
                 times.append((time.perf_counter() - t0) * 1e3)
             latency[bucket] = times
         stats = engine.stats()
@@ -987,10 +1013,11 @@ def train(model, ids, fa, failures):
     return launches, bf16_launches, step_ms, tel["step_time_ms"]
 
 
-def report_profile(label, prof, failures):
+def report_profile(label, prof, failures, kinds=None):
     """Print a profiled run's wall, device busy time, idle share, device
-    time by kernel kind and largest kernels; returns them (with the
-    launches and device time by kernel name) or None."""
+    time by kernel kind (``kinds``, default ``KINDS``) and largest kernels;
+    returns them (with the launches and device time by kernel name and
+    kind) or None."""
     if prof is None:
         failures.append(f"the profiled {label} recorded no device activity "
                         f"in 3 attempts")
@@ -1001,8 +1028,8 @@ def report_profile(label, prof, failures):
         f"{busy_us / 1e3:.3f} ms, idle share {idle:.4f}")
     by_kind = {}
     for name, us in top:
-        kind = next((k for k, keys in KINDS if any(w in name for w in keys)),
-                    "other")
+        kind = next((k for k, keys in kinds or KINDS
+                     if any(w in name for w in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
     log("    device time by kind: " + ", ".join(
         f"{k} {us / 1e3:.3f} ms ({us / busy_us:.1%})"
@@ -1010,7 +1037,8 @@ def report_profile(label, prof, failures):
     for name, us in top[:12]:
         log(f"    {us / 1e3:9.3f} ms {us / busy_us:7.2%}  {name[:110]}")
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
-            "idle": idle, "counts": counts, "top": top}
+            "idle": idle, "counts": counts, "top": top,
+            "by_kind_ms": {k: us / 1e3 for k, us in by_kind.items()}}
 
 
 # Kernel kinds of a profiled run, by substrings of the CUDA function name
@@ -1034,19 +1062,32 @@ def profile_retry(fn):
 
 
 def compare_runs(label, want_losses, got_losses, want_model, got_model,
-                 failures):
-    """The k-step program's losses and final parameters against the eager
+                 failures, want_opt=None, got_opt=None):
+    """The k-step program's losses, final parameters and buffers (and, given
+    the two optimizers, every slot of their state) against the eager
     run's, within ``KSTEP_MAX_ABS_TOL``."""
     loss_diff = float((got_losses.float() - want_losses.float()).abs().max())
     worst = (0.0, "")
+
+    def diff(a, b):
+        return float((a.detach().float() - b.detach().float()).abs().max())
+
     for (n, p), q in zip(want_model.named_parameters(),
                          got_model.parameters()):
-        diff = (p.detach().float() - q.detach().float()).abs().max()
-        worst = max(worst, (float(diff), n))
+        worst = max(worst, (diff(p, q), n))
+        for slot in want_opt._slot_names() if want_opt is not None else ():
+            worst = max(worst, (diff(want_opt._get_accumulator(slot, p),
+                                     got_opt._get_accumulator(slot, q)),
+                                f"{n}.{slot}"))
+    for (n, b), c in zip(want_model.named_buffers(), got_model.buffers()):
+        worst = max(worst, (diff(b, c), n))
+    what = "parameters" + (", buffers" if list(want_model.buffers())
+                           else "") + (" and optimizer state"
+                                       if want_opt is not None else "")
     ok = loss_diff <= KSTEP_MAX_ABS_TOL and worst[0] <= KSTEP_MAX_ABS_TOL
     ok &= bool(torch.isfinite(got_losses).all())
     log(f"  {label}: k-step vs eager, {got_losses.numel()} losses max |diff| "
-        f"{loss_diff:.3e}, parameters max |diff| {worst[0]:.3e} ({worst[1]}) "
+        f"{loss_diff:.3e}, {what} max |diff| {worst[0]:.3e} ({worst[1]}) "
         f"(tol {KSTEP_MAX_ABS_TOL:g}: bitwise) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"{label}: the k-step program disagrees with the "
@@ -2097,6 +2138,53 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
+def memory_census(label):
+    """What the card holds at a phase boundary: the bytes allocated, and
+    the live CUDA tensors that Python's collector reaches, one a storage,
+    grouped by shape and dtype, largest first; then the same after
+    clearing cuBLAS's workspaces (one for each stream that ran a product:
+    every program's stream keeps its own; nothing replays an earlier
+    phase's graph after its boundary). Returns (allocated before, tensors
+    reached, allocated after), in bytes."""
+    import gc
+    import warnings
+    free_cuda()
+    before = torch.cuda.memory_allocated()
+    storages = {}
+    with warnings.catch_warnings():  # deprecated names the walk touches
+        warnings.simplefilter("ignore")
+        objects = [o for o in gc.get_objects()
+                   if isinstance(o, torch.Tensor) and o.is_cuda]
+    for obj in objects:
+        try:
+            storage = obj.untyped_storage()
+            key, nbytes = storage.data_ptr(), storage.nbytes()
+        except Exception:  # noqa: BLE001 -- a tensor without a storage
+            continue
+        if nbytes and key not in storages:
+            storages[key] = (nbytes, (tuple(obj.shape),
+                                      str(obj.dtype).replace("torch.", "")))
+    del objects
+    reached = sum(b for b, _ in storages.values())
+    log(f"  memory at {label}: {before / 1e9:.3f} GB allocated, "
+        f"{reached / 1e9:.3f} GB of it in {len(storages)} live tensors "
+        f"that Python reaches")
+    groups = {}
+    for nbytes, group in storages.values():
+        n, total = groups.get(group, (0, 0))
+        groups[group] = (n + 1, total + nbytes)
+    for (shape, dtype), (n, total) in sorted(
+            groups.items(), key=lambda kv: -kv[1][1])[:8]:
+        log(f"    {total / 1e9:.3f} GB in {n} x {list(shape)} {dtype}")
+    torch._C._cuda_clearCublasWorkspaces()
+    free_cuda()
+    after = torch.cuda.memory_allocated()
+    log(f"  memory at {label} after clearing cuBLAS's workspaces: "
+        f"{after / 1e9:.3f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    return before, reached, after
+
+
 class ckpt_io:
     """One save or restore: host seconds (the card synchronized at both
     ends), the bytes of the checkpoint, and the copies between the card and
@@ -3008,7 +3096,7 @@ def phase10(pt, fa, seed, failures):
     from paddle_tpu_torch.distributed import fleet
     log("phase 10: GPT-3 1.3B (vocab 50304, hidden 2048, 24 layers, 16 "
         "heads, seq 1024) under fleet hybrid parallelism at degree 1")
-    free_cuda()
+    census = memory_census("the start of phase 10")
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
                                "pp_degree": 1, "sharding_degree": 1}
@@ -3021,7 +3109,8 @@ def phase10(pt, fa, seed, failures):
     log(f"  {n} parameters, flops_per_token 6 N + 12 L h S = {fpt} "
         f"({fpt * GPT3_BATCH * SEQ:.4g} FLOP a step of {GPT3_BATCH} x "
         f"{SEQ} tokens); mesh {hcg.mesh}")
-    out = {"parameters": n, "flops_per_token": fpt}
+    out = {"parameters": n, "flops_per_token": fpt,
+           "memory_at_start_gb": [round(b / 1e9, 3) for b in census]}
     try:
         for key, fn in (
                 ("tensor_parallel", lambda: gpt3_tensor_parallel(
@@ -3047,6 +3136,561 @@ def phase10(pt, fa, seed, failures):
         topology.set_hybrid_communicate_group(None)
         parallel_env.set_mesh(None)
         torch.distributed.destroy_process_group()
+    log(f"  {card_line()}")
+    return out
+
+
+# ---- phase 11: convolutional networks ---------------------------------------
+#
+# ResNet-50 (BASELINE.md config 2) with benchmarks/run_all.py's accelerator
+# recipe (:45-85: batch 64 at 224 x 224, 1000 classes, Momentum(lr=0.1,
+# momentum=0.9), bf16 auto_cast) and PaddleClas ResNet50.yaml's L2Decay(1e-4)
+# and Piecewise rate (values 0.1, 0.01, 0.001, 0.0001 at decay_epochs 30, 60,
+# 90, the epochs cut to one k-step call each: boundaries [1, 2, 3]). Seeded
+# random images and labels; nothing else cut: full width and depth. NCHW
+# throughout (channels_last is a later question).
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 64, 224, 1000
+RESNET_MOMENTUM, RESNET_DECAY = 0.9, 1e-4
+RESNET_BOUNDARIES, RESNET_VALUES = [1, 2, 3], [0.1, 0.01, 0.001, 0.0001]
+RESNET_STAGES = [3, 4, 6, 3]     # ResNet-50's bottleneck blocks a stage
+RESNET_KSTEP = 4
+RESNET_F32_BATCH = 2             # (a1): the float32 card-vs-CPU step
+RESNET_BUCKETS = (1, 16, 64)
+LENET_BATCH, LENET_STEPS, LENET_LR = 64, 5, 0.01
+# Phase 11's tolerances, fixed before its first run.
+# cuDNN: the checks ((a1), (a4), (b) and the served float32 check) run with
+# torch.backends.cudnn.deterministic = True and benchmark = False: cuDNN's
+# heuristics pick deterministic algorithms (no atomics), the same for the
+# eager steps and the captured graph, so (a4) is held bitwise
+# (KSTEP_MAX_ABS_TOL). The timed runs ((a3), the timed k-step program,
+# serving) use benchmark = True and deterministic = False; the eager step
+# that every program runs before its capture autotunes each shape, so no
+# autotuning happens inside a capture.
+# (b) LeNet: float32 (TF32 off), card vs CPU, float32 summation order: each
+# loss within STEP_LOSS_REL_TOL, the first step's gradients together within
+# VISION_GRAD_REL_L2_TOL (relative L2), each gradient, each update over the
+# steps and each running statistic within VISION_TENSOR_REL_L2_TOL.
+VISION_GRAD_REL_L2_TOL = 1e-4
+VISION_TENSOR_REL_L2_TOL = 1e-3
+# (a1) ResNet-50, float32 card vs CPU at 2 x 224 x 224. ResNet-50's
+# gradients at its initialization are ill-conditioned in float32: on the
+# CPU, float32 against float64 from the same weights and images differs by
+# 3.0e-2 relative L2 over all gradients (worst tensor 3.7e-2, a BatchNorm
+# bias), so no float32 implementation meets the LeNet bound, and the first
+# run of this phase, which held ResNet-50 to it, failed at 2.6e-2 with the
+# loss within 1.4e-6. So the card is held to the CPU's own float32 error:
+# its gradients' distance from the CPU's float64 gradients (relative L2
+# over all of them) within VISION_F64_FACTOR x the CPU float32 gradients'
+# distance from the same. The loss within STEP_LOSS_REL_TOL; the running
+# statistics within VISION_TENSOR_REL_L2_TOL; the first Momentum step exact
+# to VISION_UPDATE_REL_MAX of each tensor's largest element against p -
+# lr * (g + decay * p) computed on the host from the card's own gradient
+# (separate kernels round as the host does).
+VISION_F64_FACTOR = 4.0
+VISION_UPDATE_REL_MAX = 2.0 ** -22
+# (a2): the bf16 AMP loss of the first step against float32's: bf16
+# products through 53 convolutions and BatchNorms (2e-2 as in the port's
+# CPU tests of ResNet under auto_cast).
+RESNET_AMP_LOSS_REL_TOL = 2e-2
+# Kernel kinds of a profiled convolutional step (first match wins).
+VISION_KINDS = [
+    ("attention kernels (hand-written)", ("flash_",)),
+    ("BatchNorm running statistics (var_mean)", ("Welford",)),
+    ("BatchNorm", ("batch_norm", "batchnorm", "BatchNorm", "bn_fw", "bn_bw",
+                   "bn_")),
+    ("convolution", ("fprop", "dgrad", "wgrad", "conv", "Conv", "implicit",
+                     "cudnn", "winograd", "nchwToNhwc", "nhwcToNchw")),
+    ("GEMM", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+    ("pooling", ("pool",)),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy",)),
+    ("elementwise", ("elementwise",))]
+
+
+class cudnn_mode:
+    """``deterministic`` (the checks) or autotuned (the timed runs)."""
+
+    def __init__(self, deterministic):
+        self.deterministic = deterministic
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = self.deterministic
+        torch.backends.cudnn.benchmark = not self.deterministic
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.saved
+        return False
+
+
+def resnet_closed_form_macs(stages, size, classes, width=64, expansion=4):
+    """Multiply-adds of one image's forward through a bottleneck ResNet
+    from its configuration alone: the 7 x 7 stem, the 3 x 3 max pool, each
+    block's 1 x 1, 3 x 3 (the stride, as the reference's BottleneckBlock)
+    and 1 x 1 convolutions and its first block's projection, the fc."""
+    s = (size + 2 * 3 - 7) // 2 + 1
+    macs = s * s * width * 3 * 7 * 7
+    s = (s + 2 - 3) // 2 + 1
+    cin = width
+    for i, (blocks, planes) in enumerate(zip(stages, (64, 128, 256, 512))):
+        for j in range(blocks):
+            so = (s - 1) // (2 if i and not j else 1) + 1
+            macs += s * s * cin * planes + so * so * planes * planes * 9
+            macs += so * so * planes * planes * expansion
+            if not j:
+                macs += so * so * cin * planes * expansion
+            cin, s = planes * expansion, so
+    return macs + cin * classes
+
+
+def layer_macs(model, size):
+    """Multiply-adds of one image's forward, from the shapes that the
+    model's convolutions and linear layers see (forward hooks, batch 1, on
+    the model's device)."""
+    from paddle_tpu_torch import nn
+    total = [0]
+
+    def hook(layer, inputs, out):
+        if isinstance(layer, nn.Linear):  # [in, out]
+            total[0] += layer.weight.numel()
+        else:  # each output element: in/groups x kh x kw products
+            total[0] += out[0].numel() * layer.weight[0].numel()
+
+    layers = [m for m in model.modules()
+              if isinstance(m, (nn.Conv2D, nn.Linear))]
+    handles = [m.register_forward_hook(hook) for m in layers]
+    was_training = model.training
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, 3, size, size,
+                                     device=next(model.parameters()).device))
+    finally:
+        model.train(was_training)
+        for h in handles:
+            h.remove()
+    return total[0], len(layers)
+
+
+def resnet_optimizer(model):
+    """PaddleClas's ResNet-50 optimizer: Momentum with L2Decay and the
+    Piecewise rate."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import optimizer
+    sched = optimizer.lr.PiecewiseDecay(RESNET_BOUNDARIES, RESNET_VALUES)
+    opt = optimizer.Momentum(learning_rate=sched, momentum=RESNET_MOMENTUM,
+                             parameters=model.parameters(),
+                             weight_decay=pt.L2Decay(RESNET_DECAY))
+    return opt, sched
+
+
+def vision_one_step(model, opt):
+    """run_all.py's train_step: forward and loss under bf16 auto_cast,
+    backward, the optimizer's step; returns the loss (a device tensor)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+
+    def one_step(x, y):
+        with amp.auto_cast(enable=True, dtype="bfloat16"):
+            loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return one_step
+
+
+def vision_f32_step(model, make_opt, x, y, steps=1):
+    """``steps`` float32 steps of ``model`` on its device: (losses,
+    gradients of the first step, parameters before and after, buffers
+    after), on the CPU."""
+    from paddle_tpu_torch.nn import functional as F
+    model.train()
+    dev = next(model.parameters()).device
+    before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    opt = make_opt(model)
+    losses, grads = [], None
+    for i in range(steps):
+        loss = F.cross_entropy(model(x[i].to(dev)), y[i].to(dev))
+        loss.backward()
+        if grads is None:
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in model.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    after = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    buffers = {n: b.detach().cpu().clone() for n, b in model.named_buffers()}
+    return losses, grads, before, after, buffers
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def flat(tensors, names):
+    return torch.cat([tensors[n].flatten().double() for n in names])
+
+
+def float64_grads(model, x, y):
+    """The first step's gradients in float64 on the CPU (torch's cross
+    entropy, no float32 anywhere)."""
+    m = copy.deepcopy(model).to("cpu").double().train()
+    torch.nn.functional.cross_entropy(m(x.cpu().double()), y.cpu()) \
+        .backward()
+    return {n: p.grad for n, p in m.named_parameters()}
+
+
+def check_vision_f32(model, make_opt, x, y, label, failures, steps=1,
+                     momentum_step=None):
+    """float32 steps on the card (cuDNN deterministic) against the same
+    steps on the CPU. With ``momentum_step=(lr, decay)`` (one step, (a1)):
+    the gradients against float64's, the step against the host's; else
+    (LeNet) the gradients and updates against the CPU's directly."""
+    t0 = time.perf_counter()
+    with cudnn_mode(deterministic=True):
+        card = vision_f32_step(copy.deepcopy(model), make_opt, x, y, steps)
+    t1 = time.perf_counter()
+    cpu = vision_f32_step(copy.deepcopy(model).to("cpu"), make_opt, x, y,
+                          steps)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    names = list(cpu[1])
+    ok = loss_rel <= STEP_LOSS_REL_TOL and all(np.isfinite(card[0]))
+    msg = (f"losses {[round(v, 6) for v in card[0]]} vs "
+           f"{[round(v, 6) for v in cpu[0]]} (worst rel {loss_rel:.3e}, tol "
+           f"{STEP_LOSS_REL_TOL:g})")
+    buf = max(((rel_l2(card[4][n], t), n) for n, t in cpu[4].items()),
+              default=(0.0, ""))
+    if momentum_step is None:
+        grad_all = rel_l2(flat(card[1], names), flat(cpu[1], names))
+        grad = max((rel_l2(card[1][n], cpu[1][n]), n) for n in names)
+        upd = max((rel_l2(card[3][n] - card[2][n], cpu[3][n] - cpu[2][n]),
+                   n) for n in names)
+        ok &= grad_all <= VISION_GRAD_REL_L2_TOL and max(
+            grad[0], upd[0], buf[0]) <= VISION_TENSOR_REL_L2_TOL
+        msg += (f"; all gradients rel L2 {grad_all:.3e} (tol "
+                f"{VISION_GRAD_REL_L2_TOL:g}); worst gradient {grad[0]:.3e} "
+                f"({grad[1]}), update {upd[0]:.3e} ({upd[1]}), buffer "
+                f"{buf[0]:.3e} ({buf[1]}) (tol {VISION_TENSOR_REL_L2_TOL:g})")
+    else:
+        lr, decay = momentum_step
+        g64 = flat(float64_grads(model, x[0], y[0]), names)
+        d_card = rel_l2(flat(card[1], names), g64)
+        d_cpu = rel_l2(flat(cpu[1], names), g64)
+        worst = 0.0
+        for n in names:
+            p0, g = card[2][n], card[1][n]
+            want = p0 - lr * (g + decay * p0)
+            worst = max(worst, float((card[3][n] - want).abs().max()
+                                     / p0.abs().max()))
+        ok &= d_card <= VISION_F64_FACTOR * d_cpu
+        ok &= buf[0] <= VISION_TENSOR_REL_L2_TOL
+        ok &= worst <= VISION_UPDATE_REL_MAX
+        between = rel_l2(flat(card[1], names), flat(cpu[1], names))
+        msg += (f"; all gradients rel L2 from float64: card {d_card:.3e}, "
+                f"CPU float32 {d_cpu:.3e} (tol {VISION_F64_FACTOR:g} x the "
+                f"CPU's), card vs CPU {between:.3e}; worst buffer {buf[0]:.3e} "
+                f"({buf[1]}, tol {VISION_TENSOR_REL_L2_TOL:g}); the Momentum "
+                f"step against p - lr (g + decay p) from the card's gradient:"
+                f" max |diff| / max |p| {worst:.3e} (tol "
+                f"{VISION_UPDATE_REL_MAX:.3g})")
+    log(f"  {label}: card {t1 - t0:.2f} s, CPU {time.perf_counter() - t1:.2f}"
+        f" s; {msg} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 11: {label}: card disagrees with CPU")
+    return card[0]
+
+
+def flash_launches(fa):
+    return {w.__name__: w.launches for w in (
+        fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+        fa.flash_attention_bwd_dkv)}
+
+
+def no_flash_in_trace(label, prof, failures):
+    seen = 0 if prof is None else sum(
+        c for name, c in prof["counts"].items()
+        if any(m["kernel"] in name or m["cuda_core"] in name
+               for m in KERNELS))
+    log(f"  {label}: flash kernels in the profiler's trace: {seen} (none "
+        f"expected) {'ok' if not seen else 'FAIL'}")
+    if seen:
+        failures.append(f"{label}: the trace shows {seen} flash kernels")
+
+
+def resnet_training(pt, fa, seed, failures):
+    """(a): ResNet-50 trained, float32 card vs CPU, bf16 eager and the
+    k-step program."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.vision.models import resnet50
+    pt.seed(seed + 600)
+    base = resnet50(num_classes=RESNET_CLASSES, device="cuda")
+    n = sum(p.numel() for p in base.parameters())
+    cpu_model = copy.deepcopy(base).to("cpu")
+    macs, n_layers = layer_macs(cpu_model, RESNET_SIZE)
+    closed = resnet_closed_form_macs(RESNET_STAGES, RESNET_SIZE,
+                                     RESNET_CLASSES)
+    fpi = 3 * 2 * macs  # FLOP an image of a training step
+    log(f"  model: {n} parameters in {len(list(base.parameters()))} tensors, "
+        f"{len(list(base.buffers()))} running statistics; {macs} "
+        f"multiply-adds an image forward from the shapes of its {n_layers} "
+        f"convolutions and fc (on the CPU; closed form {closed}: "
+        f"{'ok' if macs == closed else 'FAIL'}); a training step 3 x 2 x "
+        f"MACs = {fpi} FLOP an image")
+    if macs != closed:
+        failures.append(f"phase 11: layer MACs {macs} != closed form "
+                        f"{closed}")
+    del cpu_model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 601)
+
+    def images(b):
+        return (torch.rand(b, 3, RESNET_SIZE, RESNET_SIZE, generator=gen,
+                           device="cuda"),
+                torch.randint(0, RESNET_CLASSES, (b,), generator=gen,
+                              device="cuda"))
+
+    # (a1) float32 step, card vs CPU
+    x1, y1 = images(RESNET_F32_BATCH)
+    check_vision_f32(base, lambda m: resnet_optimizer(m)[0], [x1], [y1],
+                     f"(a1) float32 step at {RESNET_F32_BATCH} x 3 x "
+                     f"{RESNET_SIZE} x {RESNET_SIZE}", failures,
+                     momentum_step=(RESNET_VALUES[0], RESNET_DECAY))
+    start = copy.deepcopy(base)  # the state every run below starts from
+    x, y = images(RESNET_BATCH)
+    with cudnn_mode(deterministic=True), torch.no_grad():
+        loss32 = torch.nn.functional.cross_entropy(
+            copy.deepcopy(base)(x), y).item()
+
+    # (a3) eager: 2 warm-up and 10 timed steps, autotuned cuDNN
+    fa.reset_launch_counts()
+    opt, _ = resnet_optimizer(base)
+    step = vision_one_step(base, opt)
+    with cudnn_mode(deterministic=False):
+        losses, tel, peak = timed_eager(lambda: step(x, y), TRAIN_STEPS,
+                                        WARMUP_STEPS, RESNET_BATCH, fpi)
+        prof = report_profile("eager ResNet-50 step", profile_retry(
+            lambda: step(x, y).item()), failures, kinds=VISION_KINDS)
+    log(f"  (a3) eager losses: {[round(v, 4) for v in losses]}")
+    no_flash_in_trace("(a3) profiled eager step", prof, failures)
+    if not all(np.isfinite(losses)):
+        failures.append(f"phase 11: ResNet-50 eager losses not finite: "
+                        f"{losses}")
+    amp_rel = abs(losses[0] - loss32) / abs(loss32)
+    ok = amp_rel <= RESNET_AMP_LOSS_REL_TOL
+    log(f"  (a2) bf16 AMP loss of step 1 {losses[0]:.6f} vs float32 loss "
+        f"{loss32:.6f}: rel {amp_rel:.3e} (tol {RESNET_AMP_LOSS_REL_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 11: ResNet-50 bf16 AMP loss disagrees with "
+                        "the float32 loss")
+    log(f"  {card_line()}")
+    eager = log_rate("(a3) ResNet-50 eager (tokens = images)", tel, 1, fpi,
+                     peak, prof)
+    eager["by_kind_ms"] = None if prof is None else prof["by_kind_ms"]
+    eager["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    eager["losses"] = losses
+
+    # (a4) the k-step program against the same eager steps, bitwise, over
+    # two calls with the rate stepped between them
+    data = [images(RESNET_BATCH) for _ in range(2 * RESNET_KSTEP)]
+    stacked = [tuple(torch.stack(col) for col in zip(
+        *data[c * RESNET_KSTEP:(c + 1) * RESNET_KSTEP])) for c in range(2)]
+    twin_e, twin_k = copy.deepcopy(start), copy.deepcopy(start)
+    opt_e, sched_e = resnet_optimizer(twin_e)
+    opt_k, sched_k = resnet_optimizer(twin_k)
+    with cudnn_mode(deterministic=True):
+        step_e = vision_one_step(twin_e, opt_e)
+        want = []
+        for c in range(2):
+            want += [step_e(xs, ys).detach() for xs, ys in zip(*stacked[c])]
+            sched_e.step()
+        program = jit.to_static(vision_one_step(twin_k, opt_k),
+                                scan_steps=RESNET_KSTEP)
+        with inspect_capture():
+            got1, _ = first_kstep_call("(a4) ResNet-50 k-step, deterministic",
+                                       lambda: program(*stacked[0]))
+        sched_k.step()
+        counter = count_replays(program)
+        got2 = counter.run(lambda: program(*stacked[1]))
+        nodes, off = counter.launches()
+    compare_runs("(a4) ResNet-50", torch.stack(want),
+                 torch.cat([got1, got2]), twin_e, twin_k, failures, opt_e,
+                 opt_k)
+    log(f"  (a4) flash kernel nodes in the replayed call's graph: {nodes} "
+        f"(+{off} CUDA-core; none expected)")
+    if any(nodes.values()) or any(off.values()):
+        failures.append(f"phase 11: the ResNet-50 graph holds flash kernels "
+                        f"{nodes}")
+    del twin_e, twin_k, program, step_e, opt_e, opt_k
+
+    # the k-step program timed, autotuned cuDNN; (a5) one profiled call
+    timed = copy.deepcopy(start)
+    opt_t, _ = resnet_optimizer(timed)
+    with cudnn_mode(deterministic=False):
+        prog_t = jit.to_static(vision_one_step(timed, opt_t),
+                               scan_steps=RESNET_KSTEP)
+        _, kpeak = first_kstep_call("(a4) ResNet-50 k-step, timed program",
+                                    lambda: prog_t(*stacked[0]))
+        calls, ktel = timed_kstep(lambda: prog_t(*stacked[0]), RESNET_KSTEP,
+                                  KSTEP_TIMED_CALLS, RESNET_BATCH, fpi)
+        kprof = report_profile(f"(a5) k-step ResNet-50 call ({RESNET_KSTEP} "
+                               f"steps)", profile_retry(
+                                   lambda: prog_t(*stacked[0]).cpu()),
+                               failures, kinds=VISION_KINDS)
+    no_flash_in_trace("(a5) profiled k-step call", kprof, failures)
+    if kprof is not None:
+        for kind in ("GEMM", "convolution", "elementwise"):
+            names = [(us, n) for n, us in kprof["top"] if next(
+                (k for k, keys in VISION_KINDS
+                 if any(w in n for w in keys)), "other") == kind][:3]
+            log(f"    largest {kind} kernels: " + "; ".join(
+                f"{us / 1e3:.3f} ms {n[:90]}" for us, n in names))
+    if not all(bool(torch.isfinite(c).all()) for c in calls):
+        failures.append("phase 11: ResNet-50 k-step losses not finite")
+    kstep = log_rate(f"(a4) ResNet-50 k-step (scan_steps={RESNET_KSTEP}, "
+                     f"CUDA graph; tokens = images)", ktel, RESNET_KSTEP, fpi,
+                     kpeak, kprof)
+    kstep["by_kind_ms"] = None if kprof is None else kprof["by_kind_ms"]
+    kstep["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    log(f"  ResNet-50 step: eager {eager['step_ms']:.3f} ms, k-step "
+        f"{kstep['step_ms']:.3f} ms; images/s {eager['tokens_per_s']:.1f} / "
+        f"{kstep['tokens_per_s']:.1f}")
+    del prog_t, timed, opt_t, start
+    return base, {"parameters": n, "macs_per_image": macs,
+                  "flops_per_image_step": fpi, "eager": eager,
+                  "kstep": kstep}
+
+
+def resnet_serving(serving, model, seed, failures):
+    """(c): ResNet-50 in eval mode behind a bf16 engine at buckets (1, 16,
+    64) under concurrent requests, then sequential requests per bucket;
+    the float32 engine against the CPU, bf16 against float32."""
+    rng = np.random.RandomState(seed + 602)
+    spec = [([None, 3, RESNET_SIZE, RESNET_SIZE], "float32")]
+    rows = [1, 16, 64, 5, 9, 2]
+    requests = [rng.rand(r, 3, RESNET_SIZE, RESNET_SIZE).astype("float32")
+                for r in rows]
+    with cudnn_mode(deterministic=False):
+        burst, stats, latency, results = serve(
+            model, serving, requests, spec, (RESNET_CLASSES,),
+            RESNET_BUCKETS, failures, batch_timeout_ms=2.0)
+    log(f"  (c) engine stats after the burst: batches by bucket "
+        f"{burst['batches_by_bucket']}, multi-request batches "
+        f"{burst['multi_request_batches']}")
+    out = {}
+    for bucket in stats["bucket_ladder"]:
+        n = stats["batches_by_bucket"][bucket]
+        dev = stats["device_ms_by_bucket"][bucket] / max(n, 1)
+        cp = stats["copy_ms_by_bucket"][bucket] / max(n, 1)
+        best = min(latency[bucket])
+        log(f"  (c) bucket {bucket}: request latency ms "
+            f"{[round(t, 3) for t in latency[bucket]]}, {bucket / best * 1e3:.1f}"
+            f" images/s at best; mean device step {dev:.3f} ms, mean host copy "
+            f"of the [{bucket}, {RESNET_CLASSES}] logits {cp:.3f} ms over {n} "
+            f"batches")
+        out[bucket] = {"latency_ms": latency[bucket], "device_ms": dev,
+                       "copy_ms": cp, "batches": n}
+    with cudnn_mode(deterministic=True):
+        with serving.Engine.from_layer(model, spec, bucket_ladder=(1,),
+                                       device="cuda") as e32:
+            (got32,) = e32.predict(requests[0])
+    cpu = copy.deepcopy(model).to("cpu").eval()
+    with torch.inference_mode():
+        want = cpu(torch.from_numpy(requests[0])).numpy()
+    del cpu
+    rel_max = float(np.abs(got32 - want).max() / np.abs(want).max())
+    ok = rel_max <= FP32_REL_MAX_TOL
+    log(f"  (c) float32 engine (card) vs CPU eval forward: max|diff|/max|ref|"
+        f" = {rel_max:.3e} (tol {FP32_REL_MAX_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 11: the float32 ResNet-50 engine disagrees "
+                        "with the CPU")
+    rel = float(np.linalg.norm(results[0] - got32) / np.linalg.norm(got32))
+    ok = rel <= BF16_REL_L2_TOL
+    log(f"  (c) bf16 served vs float32 logits: rel L2 {rel:.3e} (tol "
+        f"{BF16_REL_L2_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 11: bf16 served ResNet-50 logits outside the "
+                        "bf16 bound")
+    return out
+
+
+def lenet_card_vs_cpu(pt, seed, failures):
+    """(b): LeNet on the synthetic MNIST, float32 steps card vs CPU."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.vision import datasets
+    from paddle_tpu_torch.vision.models import LeNet
+    data = datasets.MNIST(mode="train")
+    x = [torch.from_numpy(np.stack([data[i][0] for i in range(
+        s * LENET_BATCH, (s + 1) * LENET_BATCH)])) for s in range(LENET_STEPS)]
+    y = [torch.from_numpy(np.stack([data[i][1] for i in range(
+        s * LENET_BATCH, (s + 1) * LENET_BATCH)])) for s in range(LENET_STEPS)]
+    pt.seed(seed + 603)
+    model = LeNet(device="cuda")
+    losses = check_vision_f32(
+        model, lambda m: optimizer.Momentum(learning_rate=LENET_LR,
+                                            momentum=0.9,
+                                            parameters=m.parameters()),
+        x, y, f"(b) LeNet, {LENET_STEPS} float32 steps of {LENET_BATCH} "
+        f"synthetic MNIST images", failures, steps=LENET_STEPS)
+    return {"losses": losses}
+
+
+def phase11(pt, fa, seed, failures):
+    """Phase 11: convolutional networks. A part that raises is a failure
+    and the next one still runs."""
+    import traceback
+    from paddle_tpu_torch import serving
+    log(f"phase 11: ResNet-50 ({RESNET_CLASSES} classes, {RESNET_BATCH} x 3 "
+        f"x {RESNET_SIZE} x {RESNET_SIZE}, run_all.py's recipe with "
+        f"PaddleClas's L2Decay and Piecewise rate) trained and served, LeNet "
+        f"trained")
+    census = memory_census("the start of phase 11")
+    out = {"memory_at_start_gb": [round(b / 1e9, 3) for b in census]}
+    fa.reset_launch_counts()
+    model = None
+    t0 = time.perf_counter()
+    try:
+        model, out["resnet50"] = resnet_training(pt, fa, seed, failures)
+    except Exception as e:  # noqa: BLE001 -- reported as a failure
+        traceback.print_exc()
+        failures.append(f"phase 11 (training) raised {type(e).__name__}: {e}")
+    trained = flash_launches(fa)
+    log(f"  -- training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fa.reset_launch_counts()
+    try:
+        if model is not None:
+            out["serving"] = resnet_serving(serving, model, seed, failures)
+    except Exception as e:  # noqa: BLE001 -- reported as a failure
+        traceback.print_exc()
+        failures.append(f"phase 11 (serving) raised {type(e).__name__}: {e}")
+    served = flash_launches(fa)
+    del model
+    free_cuda()
+    log(f"  -- serving: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fa.reset_launch_counts()
+    try:
+        out["lenet"] = lenet_card_vs_cpu(pt, seed, failures)
+    except Exception as e:  # noqa: BLE001 -- reported as a failure
+        traceback.print_exc()
+        failures.append(f"phase 11 (LeNet) raised {type(e).__name__}: {e}")
+    lenet = flash_launches(fa)
+    log(f"  -- LeNet: {time.perf_counter() - t0:.1f} s")
+    for label, counts in (("ResNet-50 training", trained),
+                          ("ResNet-50 serving", served), ("LeNet", lenet)):
+        ok = not any(counts.values())
+        log(f"  flash kernel launches, {label}: {counts} (none expected) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 11: {label} launched flash kernels "
+                            f"{counts}")
+    out["flash_launches"] = {"resnet50_training": trained,
+                             "resnet50_serving": served, "lenet": lenet}
+    free_cuda()
     log(f"  {card_line()}")
     return out
 
@@ -3111,8 +3755,9 @@ def main():
     ids_by_req = [ids_all[a:b] for a, b in zip(offs[:-1], offs[1:])]
 
     fa.reset_launch_counts()
-    burst, stats, latency, results = serve(model, serving, ids_by_req,
-                                           failures)
+    burst, stats, latency, results = serve(
+        model, serving, ids_by_req, [([None, SEQ], "int32")],
+        (SEQ, cfg.vocab_size), (1, 4), failures)
     launches = served_launches = fa.flash_attention_fwd.launches
     served_bf16 = fa.flash_attention_fwd.variant_launches["bf16"]
     forwards = stats["warmup_runs"] + stats["batches"]
@@ -3147,6 +3792,7 @@ def main():
     with serving.Engine.from_layer(model, [([None, SEQ], "int32")],
                                    bucket_ladder=(1,), device="cuda") as e32:
         (got32,) = e32.predict(ids1)
+    del e32  # its float32 snapshot of the model would outlive every phase
     model_cpu = copy.deepcopy(model).to("cpu").eval()
     with torch.inference_mode():
         want = model_cpu(torch.from_numpy(ids1)).numpy()
@@ -3201,7 +3847,11 @@ def main():
     gpt3_tp, gpt3_tp_rate = gpt3.pop("tensor_parallel", ({}, None))
     gpt3_ks, gpt3_ks_rate = gpt3.pop("kstep", ({}, None))
 
-    # ---- 11. kernels line and result
+    # ---- 11. convolutional networks: ResNet-50 trained and served, LeNet
+    vision = phase11(pt, fa, args.seed, failures)
+    vision_launches = vision.pop("flash_launches", {})
+
+    # ---- 12. kernels line and result
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
     kernels = []
@@ -3220,7 +3870,9 @@ def main():
                 checkpoint_first_call=ck_counted.get(name),
                 checkpoint_restored_kstep_call=ck_launches.get(name),
                 gpt3_1p3b_tensor_parallel_eager=gpt3_tp.get(name),
-                gpt3_1p3b_kstep_call=gpt3_ks.get(name)),
+                gpt3_1p3b_kstep_call=gpt3_ks.get(name),
+                **{path: counts.get(name)
+                   for path, counts in vision_launches.items()}),
             gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,
@@ -3237,7 +3889,7 @@ def main():
                               "gpt3_1p3b_tensor_parallel_eager":
                                   gpt3_tp_rate,
                               "gpt3_1p3b_kstep": gpt3_ks_rate,
-                              "gpt3_1p3b": gpt3},
+                              "gpt3_1p3b": gpt3, "vision": vision},
                     "checkpoints": dict(ckpt, gpt_small_in_place=ck_gpt)}))
     log(json.dumps({"kernels": kernels}))
     if failures:

@@ -23,18 +23,23 @@ x sharding x mp process groups, tensor-parallel layers, ``PipelineLayer``
 with the 1F1B schedules), with ring and Ulysses attention and Switch MoE
 over their own groups (``parallel``). Causal attention at ``seq_len >= 1024``
 runs through the CUDA flash-attention kernels, forward and backward
-(``kernels.flash_attention``).
+(``kernels.flash_attention``). Convolutional networks (``vision.models``:
+LeNet, the ResNets) train with ``optimizer.Momentum`` and
+``optimizer.lr.PiecewiseDecay`` through ``nn.Conv2D``, ``nn.BatchNorm2D``
+and the pooling layers (torch's convolutions, cuDNN on the card), eagerly
+or as the k-step program, and are served behind ``Engine.from_layer``.
 """
 import numpy as np
 import torch
 
 from . import (amp, checkpoint, distributed, incubate, jit,  # noqa: F401
                models, monitor, nn, optimizer, parallel, recompute,
-               regularizer, serving)
+               regularizer, serving, vision)
 from .core.device import resolve_device
 from .distributed.parallel import DataParallel  # noqa: F401
 from .core.dtype import bfloat16, convert_dtype, float32, int32  # noqa: F401
 from .core.random import default_generator, seed  # noqa: F401
+from .ops import flatten, reshape, unstack  # noqa: F401
 from .regularizer import L1Decay, L2Decay  # noqa: F401
 from .serialization import load, save  # noqa: F401
 
@@ -57,8 +62,8 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
 
 
 __all__ = ["seed", "default_generator", "resolve_device", "convert_dtype",
-           "DataParallel",
-           "to_tensor", "float32", "bfloat16", "int32", "L1Decay", "L2Decay",
+           "DataParallel", "to_tensor", "flatten", "reshape", "unstack",
+           "float32", "bfloat16", "int32", "L1Decay", "L2Decay",
            "save", "load", "amp", "checkpoint", "distributed", "incubate",
            "jit", "models", "monitor", "nn", "optimizer", "parallel",
-           "recompute", "regularizer", "serving"]
+           "recompute", "regularizer", "serving", "vision"]

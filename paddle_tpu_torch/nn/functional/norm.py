@@ -1,7 +1,63 @@
-"""layer_norm (counterpart: ``paddle_tpu/nn/functional/norm.py``)."""
+"""batch_norm and layer_norm (counterpart:
+``paddle_tpu/nn/functional/norm.py``)."""
 import torch
 
 from ...amp.auto_cast import cast_inputs, downcast_dtype
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """Normalise each channel (axis 1 for ``NC*`` formats, else the last)
+    by its statistics: the batch's in training, the running buffers in eval
+    or with ``use_global_stats``. Training updates the buffers in place with
+    the reference's conventions, which are not torch's: ``momentum`` is the
+    weight of the old value (``running = momentum * running + (1 - momentum)
+    * batch``) and the variance is the biased one, both taken from ``x`` in
+    its own dtype, as the reference's ``jnp.mean``/``jnp.var`` take them.
+    So the buffers never reach torch's training-mode call, which would
+    update them its own way; the update is a no-grad ``var_mean`` and two
+    in-place ops, with no host read (it runs inside a captured program).
+
+    Under ``auto_cast`` the op is block-listed and in the downcast list:
+    it computes in float32 and a bf16 ``x`` gets a bf16 result. torch's
+    batch norm computes a bf16 input against float32 parameters in float32
+    and returns bf16, so that input is passed as it is (no float32 copy).
+    """
+    if use_global_stats is None:
+        use_global_stats = not training
+    channel = 1 if data_format.startswith("NC") else x.dim() - 1
+    v = x if channel == 1 else x.movedim(channel, 1)
+    stats = (running_mean, running_var)
+    if downcast_dtype("batch_norm", x, *stats, weight, bias) is None:
+        # no AMP downcast: compute in the widest dtype of what is used
+        used = [t for t in (v, weight, bias) + (stats if use_global_stats
+                                                else ()) if t is not None]
+        dtype = used[0].dtype
+        for t in used[1:]:
+            dtype = torch.promote_types(dtype, t.dtype)
+        v, weight, bias = (None if t is None else t.to(dtype)
+                           for t in (v, weight, bias))
+        if use_global_stats:
+            stats = tuple(t.to(dtype) for t in stats)
+    else:
+        weight, bias = cast_inputs("batch_norm", weight, bias)
+    if use_global_stats:
+        out = torch.nn.functional.batch_norm(v, *stats, weight, bias,
+                                             training=False, eps=epsilon)
+    else:
+        out = torch.nn.functional.batch_norm(v, None, None, weight, bias,
+                                             training=True, eps=epsilon)
+        if running_mean is not None:
+            with torch.no_grad():
+                dims = [d for d in range(x.dim()) if d != channel]
+                var, mean = torch.var_mean(x.detach(), dims, correction=0)
+                # 1 - momentum in the statistics' dtype first, as a weakly
+                # typed scalar meets a bf16 array in the reference
+                keep = float(torch.tensor(1.0 - momentum, dtype=mean.dtype))
+                for buf, batch in ((running_mean, mean), (running_var, var)):
+                    buf.mul_(momentum).add_((batch * keep).to(buf.dtype))
+    return out if channel == 1 else out.movedim(1, channel)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):

@@ -65,3 +65,21 @@ class XavierNormal(Initializer):
         fo = self.fan_out or fo
         std = self.gain * math.sqrt(2.0 / (fi + fo))
         return _normal(shape, dtype, device, 0.0, std)
+
+
+class KaimingUniform(Initializer):
+    """Uniform in +-gain * sqrt(3 / fan_in), gain sqrt(2 / (1 +
+    negative_slope^2)) (the convolutions' default)."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0, nonlinearity="relu"):
+        self.fan_in = fan_in
+        self.negative_slope = negative_slope
+
+    def __call__(self, shape, dtype="float32", device=None):
+        fi = self.fan_in or _fans(shape)[0]
+        limit = (math.sqrt(2.0 / (1 + self.negative_slope ** 2))
+                 * math.sqrt(3.0 / fi))
+        dev = resolve_device(device)
+        u = torch.rand(tuple(shape), generator=default_generator(dev),
+                       device=dev, dtype=torch.float32)
+        return (u * (2 * limit) - limit).to(convert_dtype(dtype))

@@ -1,0 +1,11 @@
+"""ReLU (counterpart: ``paddle_tpu/nn/layer/activation.py``)."""
+from .. import functional as F
+from .layers import Layer
+
+
+class ReLU(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.relu(x)

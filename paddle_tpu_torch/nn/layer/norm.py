@@ -1,4 +1,8 @@
-"""LayerNorm (counterpart: ``paddle_tpu/nn/layer/norm.py``)."""
+"""LayerNorm and the BatchNorm layers (counterpart:
+``paddle_tpu/nn/layer/norm.py``)."""
+import torch
+
+from ...core.device import resolve_device
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
@@ -23,3 +27,62 @@ class LayerNorm(Layer):
 
     def extra_repr(self):
         return f"normalized_shape={self._normalized_shape}"
+
+
+class _BatchNormBase(Layer):
+    """Scale (ones) and shift (zeros) unless ``weight_attr``/``bias_attr``
+    is False; the running statistics are the float32 buffers ``_mean``
+    (zeros) and ``_variance`` (ones), the reference's ``state_dict``
+    names. ``momentum`` is the reference's (the old value's weight)."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None, device=None):
+        super().__init__()
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        self.weight = None if weight_attr is False else self.create_parameter(
+            [num_features], device=device, default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [num_features], is_bias=True, device=device)
+        dev = resolve_device(device)
+        self.register_buffer("_mean", torch.zeros(num_features, device=dev))
+        self.register_buffer("_variance",
+                             torch.ones(num_features, device=dev))
+
+    def forward(self, x):
+        return F.batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=self.training, momentum=self._momentum,
+            epsilon=self._epsilon, data_format=self._data_format,
+            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return f"num_features={self._num_features}, momentum={self._momentum}"
+
+
+class BatchNorm(_BatchNormBase):
+    """The fluid-style name of the same layer."""
+
+
+class BatchNorm1D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 name=None, device=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, name=name, device=device)
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class BatchNorm3D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 name=None, device=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, name=name, device=device)

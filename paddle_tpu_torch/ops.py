@@ -1,5 +1,5 @@
-"""Tensor ops on the served path (counterparts: ``paddle_tpu/ops/
-manipulation.py`` reshape/unstack, ``paddle_tpu/ops/math.py``
+"""Tensor ops of the ported paths (counterparts: ``paddle_tpu/ops/
+manipulation.py`` reshape/unstack/flatten, ``paddle_tpu/ops/math.py``
 arange/matmul/cast). Plain functions on tensors; ``matmul`` consults
 ``amp.auto_cast``."""
 import torch
@@ -11,6 +11,10 @@ from .core.dtype import convert_dtype
 
 def reshape(x, shape):
     return x.reshape([int(s) for s in shape])
+
+
+def flatten(x, start_axis=0, stop_axis=-1):
+    return torch.flatten(x, start_axis, stop_axis)
 
 
 def unstack(x, axis=0, num=None):

@@ -1,5 +1,5 @@
 """Optimizers and LR schedulers (counterpart: ``paddle_tpu/optimizer``)."""
 from . import lr  # noqa: F401
-from .optimizer import Adam, AdamW, Optimizer  # noqa: F401
+from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer  # noqa: F401
 
-__all__ = ["Optimizer", "Adam", "AdamW", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr"]

@@ -78,3 +78,19 @@ class CosineAnnealingDecay(LRScheduler):
     def get_lr(self):
         return (self.eta_min + (self.base_lr - self.eta_min)
                 * (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2)
+
+
+class PiecewiseDecay(LRScheduler):
+    """``values[i]`` while ``last_epoch < boundaries[i]``, then the last
+    value."""
+
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = boundaries
+        self.values = values
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]

@@ -1,4 +1,4 @@
-"""Optimizer, Adam and AdamW (counterpart:
+"""Optimizer, SGD, Momentum, Adam and AdamW (counterpart:
 ``paddle_tpu/optimizer/optimizer.py``).
 
 The reference's ``step`` order: clip the (param, grad) pairs, count the
@@ -319,6 +319,59 @@ class Optimizer:
             elif k in by_name:
                 with torch.no_grad():
                     by_name[k].copy_(torch.as_tensor(np.array(v)))
+
+
+def _no_zero(optimizer):
+    raise NotImplementedError(
+        f"ZeRO for {type(optimizer).__name__} is not ported: ResNet under "
+        f"data parallelism (ZeRO, SyncBatchNorm) waits in ROADMAP item 19")
+
+
+class SGD(Optimizer):
+    """``p -= lr * g``, the L2/L1 decay folded into ``g``."""
+
+    def _prepare_step(self, lr):
+        self._lr_t = lr
+
+    def _apply_one(self, p, value, g):
+        value.sub_(self._lr_t * self._decayed_grad(value, g))
+
+    def _zero_enable(self, *args, **kwargs):
+        _no_zero(self)
+
+
+class Momentum(Optimizer):
+    """``v = momentum * v + g``, then ``p -= lr * v`` (with
+    ``use_nesterov``, ``p -= lr * (g + momentum * v)``), the L2/L1 decay
+    folded into ``g``; the float32 ``velocity`` slot, and a float32 master
+    of each low-precision parameter with ``multi_precision``."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+        self._multi_precision = multi_precision
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _create_accumulators(self, param):
+        self._add_accumulator("velocity", param)
+        self._maybe_master(param)
+
+    def _prepare_step(self, lr):
+        self._lr_t = lr
+
+    def _apply_one(self, p, value, g):
+        g = self._decayed_grad(value, g)
+        v = self._get_accumulator("velocity", p)
+        v.mul_(self._momentum).add_(g)
+        if self._nesterov:
+            value.sub_(self._lr_t * (g + self._momentum * v))
+        else:
+            value.sub_(self._lr_t * v)
+
+    def _zero_enable(self, *args, **kwargs):
+        _no_zero(self)
 
 
 class Adam(Optimizer):

@@ -63,10 +63,16 @@ class Request:
 
 
 class DynamicBatcher:
+    """``on_start``, if given, runs on the worker thread before it serves
+    anything; ``started`` is a future that resolves when it has (or holds
+    its exception, and the worker exits)."""
+
     def __init__(self, run_batch, max_batch_size, batch_timeout_ms,
                  name="paddle-tpu-torch-serving", max_pending=None,
-                 on_expired=None):
+                 on_expired=None, on_start=None):
         self._run_batch = run_batch
+        self._on_start = on_start
+        self.started = Future()
         self.max_batch_size = int(max_batch_size)
         self.batch_timeout_s = float(batch_timeout_ms) / 1e3
         self.max_pending = None if max_pending is None else int(max_pending)
@@ -191,6 +197,15 @@ class DynamicBatcher:
                 self._on_expired(r)
 
     def _loop(self):
+        try:
+            if self._on_start is not None:
+                self._on_start()
+        except BaseException as e:  # noqa: BLE001 -- the starter re-raises
+            with self._cond:
+                self._running = False
+            self.started.set_exception(e)
+            return
+        self.started.set_result(None)
         while True:
             expired = []
             batch = None

@@ -8,6 +8,10 @@ What the reference does, and what the port keeps:
   executable per bucket at load; the port runs eagerly, so load runs one
   warm-up forward per bucket on the device instead (kernels built, memory
   pools and library handles set up), and the first request builds nothing.
+  The warm-up runs on the thread that serves the requests: torch keeps
+  cuDNN's handles, execution plans and autotuning results per thread, so
+  a warm-up on another thread would leave each bucket's first served
+  batch to build (and with ``cudnn.benchmark``, autotune) them again.
 - **Concurrent dynamic batching** (``batching.py``): in-flight requests
   coalesce into one bucketed batch per device step; callers hold futures.
 - **Load-time passes** (``passes.py``): the ``bf16`` pass.
@@ -132,6 +136,15 @@ class Engine:
                        "copy_ms_by_bucket": {b: 0.0
                                              for b in self.bucket_ladder},
                        "warmup_ms": {}}
+        self._batcher = DynamicBatcher(self._run_batch, self.max_batch_size,
+                                       batch_timeout_ms,
+                                       max_pending=max_pending,
+                                       on_expired=self._on_expired,
+                                       on_start=self._warm_up)
+        self._batcher.started.result()  # the warm-up's error, if any
+
+    def _warm_up(self):
+        """One forward per bucket, on the serving thread."""
         for b in self.bucket_ladder:
             t0 = _time.perf_counter()
             outs, _, _ = self._forward([np.zeros((b,) + shape[1:],
@@ -145,11 +158,6 @@ class Engine:
                     "size); the engine cannot slice per-request results")
             self._stats["warmup_runs"] += 1
             self._stats["warmup_ms"][b] = (_time.perf_counter() - t0) * 1e3
-
-        self._batcher = DynamicBatcher(self._run_batch, self.max_batch_size,
-                                       batch_timeout_ms,
-                                       max_pending=max_pending,
-                                       on_expired=self._on_expired)
 
     @classmethod
     def from_layer(cls, layer, input_specs, **kwargs):

@@ -1,0 +1,156 @@
+"""ResNet (counterpart: ``paddle_tpu/vision/models/resnet.py``):
+``BasicBlock``, ``BottleneckBlock``, ``ResNet`` and ``resnet18/34/50/101/152``
+with the reference's layers and ``state_dict`` names. Convolutions carry
+no bias; each is followed by ``BatchNorm2D``. ``device`` places every
+parameter and buffer (the card unless ``"cpu"``)."""
+from ... import nn, ops
+
+
+class BasicBlock(nn.Layer):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 groups=1, base_width=64, dilation=1, norm_layer=None,
+                 device=None):
+        super().__init__()
+        norm_layer = norm_layer or nn.BatchNorm2D
+        self.conv1 = nn.Conv2D(inplanes, planes, 3, padding=1, stride=stride,
+                               bias_attr=False, device=device)
+        self.bn1 = norm_layer(planes, device=device)
+        self.relu = nn.ReLU()
+        self.conv2 = nn.Conv2D(planes, planes, 3, padding=1, bias_attr=False,
+                               device=device)
+        self.bn2 = norm_layer(planes, device=device)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class BottleneckBlock(nn.Layer):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, device=None):
+        super().__init__()
+        norm_layer = norm_layer or nn.BatchNorm2D
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = nn.Conv2D(inplanes, width, 1, bias_attr=False,
+                               device=device)
+        self.bn1 = norm_layer(width, device=device)
+        self.conv2 = nn.Conv2D(width, width, 3, padding=dilation,
+                               stride=stride, groups=groups,
+                               dilation=dilation, bias_attr=False,
+                               device=device)
+        self.bn2 = norm_layer(width, device=device)
+        self.conv3 = nn.Conv2D(width, planes * self.expansion, 1,
+                               bias_attr=False, device=device)
+        self.bn3 = norm_layer(planes * self.expansion, device=device)
+        self.relu = nn.ReLU()
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class ResNet(nn.Layer):
+    def __init__(self, block, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1, device=None):
+        super().__init__()
+        layer_cfg = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+                     101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+        layers = layer_cfg[depth]
+        self.groups = groups
+        self.base_width = width
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self._norm_layer = nn.BatchNorm2D
+        self._device = device
+        self.inplanes = 64
+        self.dilation = 1
+
+        self.conv1 = nn.Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                               bias_attr=False, device=device)
+        self.bn1 = self._norm_layer(self.inplanes, device=device)
+        self.relu = nn.ReLU()
+        self.maxpool = nn.MaxPool2D(3, stride=2, padding=1)
+        self.layer1 = self._make_layer(block, 64, layers[0])
+        self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
+        self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
+        self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
+        if with_pool:
+            self.avgpool = nn.AdaptiveAvgPool2D((1, 1))
+        if num_classes > 0:
+            self.fc = nn.Linear(512 * block.expansion, num_classes,
+                                device=device)
+
+    def _make_layer(self, block, planes, blocks, stride=1):
+        norm_layer, device = self._norm_layer, self._device
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = nn.Sequential(
+                nn.Conv2D(self.inplanes, planes * block.expansion, 1,
+                          stride=stride, bias_attr=False, device=device),
+                norm_layer(planes * block.expansion, device=device),
+            )
+        layers = [block(self.inplanes, planes, stride, downsample,
+                        self.groups, self.base_width, 1, norm_layer,
+                        device=device)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes, groups=self.groups,
+                                base_width=self.base_width,
+                                norm_layer=norm_layer, device=device))
+        return nn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.relu(self.bn1(self.conv1(x)))
+        x = self.maxpool(x)
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            x = self.fc(ops.flatten(x, 1))
+        return x
+
+
+def _resnet(block, depth, pretrained, **kwargs):
+    if pretrained:
+        raise ValueError("pretrained weights are not available: nothing is "
+                         "downloaded; load a state_dict instead")
+    return ResNet(block, depth, **kwargs)
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 18, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 34, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, **kwargs)

@@ -49,12 +49,34 @@ PORTED_MODULES = {
     "paddle_tpu.distributed.fleet.meta_parallel.pp_layers",
     "paddle_tpu.distributed.fleet.meta_parallel.pipeline_parallel",
     "paddle_tpu.parallel.pipeline", "paddle_tpu.parallel.ring_attention",
-    "paddle_tpu.parallel.moe", "paddle_tpu.incubate.moe"}
+    "paddle_tpu.parallel.moe", "paddle_tpu.incubate.moe",
+    # the convolutional path
+    "paddle_tpu.vision.models.lenet", "paddle_tpu.vision.models.resnet"}
 PORTED_CLASSES = {
-    "paddle_tpu.optimizer.optimizer": {"Optimizer", "Adam", "AdamW"},
+    "paddle_tpu.optimizer.optimizer": {"Optimizer", "Adam", "AdamW", "SGD",
+                                       "Momentum"},
     "paddle_tpu.optimizer.lr": {"LRScheduler", "LinearWarmup",
-                                "CosineAnnealingDecay"},
-    "paddle_tpu.nn.layer.layers": {"Layer"}}
+                                "CosineAnnealingDecay", "PiecewiseDecay"},
+    "paddle_tpu.nn.layer.layers": {"Layer"},
+    "paddle_tpu.nn.layer.conv": {"Conv1D", "Conv2D", "Conv3D"},
+    "paddle_tpu.nn.layer.norm": {"BatchNorm", "BatchNorm1D", "BatchNorm2D",
+                                 "BatchNorm3D", "LayerNorm"},
+    "paddle_tpu.nn.layer.pooling": {
+        "MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
+        "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
+        "AdaptiveMaxPool2D"},
+    "paddle_tpu.nn.layer.activation": {"ReLU"},
+    "paddle_tpu.nn.layer.container": {"Sequential", "LayerList"},
+    "paddle_tpu.nn.functional.norm": {"batch_norm", "layer_norm"},
+    # the transposed convolutions, max_pool2d_with_index and max_unpool2d
+    # wait in ROADMAP item 19
+    "paddle_tpu.nn.functional.conv": {"conv1d", "conv2d", "conv3d"},
+    "paddle_tpu.nn.functional.pooling": {
+        "max_pool1d", "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
+        "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
+        "adaptive_max_pool2d"},
+    "paddle_tpu.ops.manipulation": {"flatten", "reshape", "unstack"},
+    "paddle_tpu.vision.datasets": {"MNIST"}}
 
 NOT_PORTED = {
     # the reference's compiled-program introspection (XLA HLO, memory and
@@ -146,7 +168,7 @@ def test_bench_model_import_works_against_the_port():
 
 def test_top_level_modules():
     for name in ("models", "serving", "distributed", "recompute", "jit",
-                 "optimizer", "amp", "nn"):
+                 "optimizer", "amp", "nn", "vision"):
         assert isinstance(getattr(paddle_tpu_torch, name), type(importlib))
 
 

@@ -14,6 +14,13 @@ the port) with the reference's weights moved over by the bridge.
 Tolerances: float32 1e-4 (the same math in another order; logits are
 O(10)); bf16 engines: relative L2 error <= 5e-2 against the float32
 reference (bf16 keeps ~3 significant digits through 2 layers).
+
+A documented deviation (ROADMAP queue 3, F3): on the CPU the reference
+never takes its flash branch (its kernel is TPU-only) and writes attention
+out with -1e9 masking, while the port takes its flash branch's plain
+version (64 x 64 tiles, float32 inside). These tests compare two algorithms
+(and, with the bf16 pass, two precisions), not the same branch: never
+tighten a tolerance here on the premise that both sides run the same math.
 """
 import numpy as np
 import pytest

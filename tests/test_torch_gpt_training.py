@@ -6,7 +6,9 @@ Function) with the reference's weights moved over by the bridge.
 - float32: the loss and every parameter's gradient against the
   reference's (relative 1e-5: the same float32 math in another order; the
   reference on the CPU writes attention out with -1e9 masking, the port
-  runs the plain flash forward and backward);
+  runs the plain flash forward and backward: two algorithms, ROADMAP queue
+  3's documented deviation F3, so no tolerance here rests on the two sides
+  running the same branch);
 - the training recipe for 3 steps on both packages: bf16 parameters,
   ``AdamW(multi_precision=True)`` with a decay function, a global-norm
   clip, a linear warm-up and ``auto_cast`` in bf16. bf16 rounds in other
