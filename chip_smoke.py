@@ -155,7 +155,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    host-copy ms per bucket, the float32 engine against the CPU and bf16
    against float32. Phases 10 and 11 start with a census of the memory
    that earlier phases left allocated.
-12. One JSON line with every kernel of the paths, then the result line.
+12. Serving from saved artifacts: each model saved with ``jit.save(...,
+   input_spec=[InputSpec([None, ...])])`` (a ``torch.export`` program,
+   the flash forward as the operator ``paddle_tpu_torch::flash_attention_fwd``)
+   and served by ``serving.Engine(path)``, one CUDA graph a bucket
+   captured at load. A bf16 input off a 16-byte base runs on the kernel
+   after one copy (counted). (a) GPT-small cast to bf16 at buckets 1 and 4
+   under concurrent requests: exactly 12 forward launches a forward from
+   the graphs' kernel nodes x replays, all bf16; logits against phase 3's
+   ``from_layer`` engine on the same weights within the bf16 bound (bitwise
+   or not printed); each bucket's replay bitwise against the same engine's
+   eager forward in the order 4, 1, 4; a fresh process that imports the
+   inference API only serves the artifact to the parent's digest. (b) The
+   float32 artifact on the CUDA-core forward (12 a forward) against the
+   CPU, and served on the CPU from the card's save. (c) BERT-base (vocab
+   30720, seq 512) at bucket 16 with all outputs and with
+   ``outputs=["output_1"]`` (NSP: the MLM head leaves the graph), NSP rows
+   bitwise. (d) ResNet-50 at 224, bf16, buckets 1, 16, 64, against
+   phase 11's ``from_layer`` engine; no flash launch. Each arm: request
+   latency, device and host-copy ms per bucket, capture ms,
+   ``memory_stats()``, bucket-1 latency with the graph and eagerly, and
+   ``health()`` before and after ``close()``. Phases 3 and 11c serve through
+   captured graphs too, their launches counted from the graphs.
+13. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -756,29 +778,29 @@ def check_gpt3_shape(fa, failures, gen):
 
 def serve(model, serving, requests, spec, out_tail, buckets, failures,
           batch_timeout_ms=50.0):
-    """A served path: a bf16 engine at ``buckets`` fed a burst of
-    concurrent requests, each result checked for shape (rows x
-    ``out_tail``), dtype and finiteness, then 3 sequential requests of
-    each bucket's size (the first request's first row repeated) for
-    latency. Returns the engine's stats after the burst and at the end,
-    per-bucket latencies and the burst's results."""
-    engine = serving.Engine.from_layer(
-        model, spec, bucket_ladder=buckets, passes=("bf16",),
-        batch_timeout_ms=batch_timeout_ms, device="cuda")
+    """A served path: a bf16 engine at ``buckets`` (one CUDA graph a
+    bucket) fed a burst of concurrent requests, each result checked for
+    shape (rows x ``out_tail``), dtype and finiteness, then 3 sequential
+    requests of each bucket's size (the first request's first row
+    repeated) for latency. Returns the engine's stats after the burst and
+    at the end, per-bucket latencies, the burst's results and the kernel
+    launches of the graph replays (``count_replays.launches``)."""
+    with inspect_capture():  # the engine captures its graphs at load
+        engine = serving.Engine.from_layer(
+            model, spec, bucket_ladder=buckets, passes=("bf16",),
+            batch_timeout_ms=batch_timeout_ms, device="cuda")
+    counter = count_replays(engine)
+    burst, latency = {}, {}
+
+    def traffic():
+        results = concurrent_requests(engine, requests)
+        burst.update(engine.stats())
+        latency.update((bucket, sequential_ms(engine, requests[0][:1].repeat(
+            bucket, axis=0))) for bucket in engine.bucket_ladder)
+        return [o[0] for o in results]
+
     try:
-        results = [None] * len(requests)
-
-        def call(i):
-            results[i] = engine.predict(requests[i])[0]
-
-        threads = [threading.Thread(target=call, args=(i,))
-                   for i in range(len(requests))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-            if t.is_alive():
-                raise RuntimeError("a served request did not finish")
+        results = counter.run(traffic)  # one run: it counts every replay
         for req, out in zip(requests, results):
             want = (req.shape[0], *out_tail)
             if out is None or out.shape != want or out.dtype != np.float32:
@@ -786,21 +808,38 @@ def serve(model, serving, requests, spec, out_tail, buckets, failures,
                                 f"{None if out is None else out.shape} != {want}")
             elif not np.isfinite(out).all():
                 failures.append("served output has non-finite values")
-        burst = engine.stats()
-
-        latency = {}
-        for bucket in engine.bucket_ladder:
-            batch = requests[0][:1].repeat(bucket, axis=0)
-            times = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                engine.predict(batch)
-                times.append((time.perf_counter() - t0) * 1e3)
-            latency[bucket] = times
         stats = engine.stats()
     finally:
         engine.close()
-    return burst, stats, latency, results
+    return burst, stats, latency, results, counter.launches()
+
+
+def concurrent_requests(engine, requests):
+    """Each request from its own thread at once; their results in order."""
+    results = [None] * len(requests)
+
+    def call(i):
+        results[i] = engine.predict(requests[i])
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            raise RuntimeError("a served request did not finish")
+    return results
+
+
+def sequential_ms(engine, batch, n=3):
+    """Latency in ms of ``n`` requests of ``batch`` one after another."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        engine.predict(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 def make_optimizer(model, peak_lr=PEAK_LR, start_lr=START_LR):
@@ -3573,9 +3612,16 @@ def resnet_serving(serving, model, seed, failures):
     requests = [rng.rand(r, 3, RESNET_SIZE, RESNET_SIZE).astype("float32")
                 for r in rows]
     with cudnn_mode(deterministic=False):
-        burst, stats, latency, results = serve(
+        burst, stats, latency, results, (graph, off) = serve(
             model, serving, requests, spec, (RESNET_CLASSES,),
             RESNET_BUCKETS, failures, batch_timeout_ms=2.0)
+    replayed = {name: graph[name] + off[name] for name in graph}
+    ok = not any(replayed.values())
+    log(f"  (c) flash kernel nodes x replays of the captured graphs: "
+        f"{replayed} (none expected) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 11: ResNet-50's served graphs launch flash "
+                        f"kernels {replayed}")
     log(f"  (c) engine stats after the burst: batches by bucket "
         f"{burst['batches_by_bucket']}, multi-request batches "
         f"{burst['multi_request_batches']}")
@@ -3695,6 +3741,479 @@ def phase11(pt, fa, seed, failures):
     return out
 
 
+# ---- phase 12: serving from saved artifacts ----------------------------------
+#
+# Tolerances, fixed before the phase's first run. (a) GPT-small's bf16
+# artifact against the from_layer engine (the bf16 pass) on the same
+# weights: both bf16 through 12 layers, the exported program's aten ops
+# possibly decomposed otherwise, so within BF16_REL_L2_TOL (whether they
+# are bitwise is printed); a bucket's graph replay against the same
+# engine's eager forward of the same batch: the same kernels on the same
+# inputs, bitwise; the fresh process's digest: the same program replayed
+# at the same bucket on the same card, equal. (b) The float32 artifact
+# against the CPU forward: FP32_REL_MAX_TOL, as phase 3. (c) BERT-base's
+# NSP rows, all outputs against outputs=["output_1"]: the pruned graph
+# runs the NSP head's kernels on the same inputs, bitwise. (d) ResNet-50's
+# bf16 artifact against phase 11's from_layer engine (the bf16 pass) on the
+# same weights: BF16_REL_L2_TOL.
+ART_DIR = ".chip_smoke_artifacts"   # git-ignored, removed at the end
+
+# A fresh process that serves an artifact with nothing of the model: it
+# imports the inference API only and prints its logits' digest.
+ART_CHILD = r"""
+import hashlib, json, sys
+import numpy as np
+from paddle_tpu_torch import inference
+prefix, ids_path = sys.argv[1], sys.argv[2]
+cfg = inference.Config(prefix + ".pdmodel", prefix + ".pdiparams")
+cfg.enable_use_gpu(100, 0)
+cfg.enable_serving_engine(bucket_ladder=(1, 4))
+with inference.create_predictor(cfg) as pred:
+    pred.get_input_handle(pred.get_input_names()[0]).copy_from_cpu(
+        np.load(ids_path))
+    (out,) = pred.run()
+print(json.dumps({
+    "digest": hashlib.sha256(out.tobytes()).hexdigest(),
+    "shape": list(out.shape), "dtype": str(out.dtype),
+    "model_modules": sorted(n for n in sys.modules
+                            if n.startswith("paddle_tpu_torch.models"))}))
+"""
+
+
+def art_path(name):
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), ART_DIR,
+                        name)
+
+
+def save_artifact(jit, layer, name, spec):
+    """``jit.save`` of ``layer`` under ART_DIR: (prefix, seconds, bytes of
+    the .pdmodel and the .pdiparams)."""
+    import os
+    prefix = art_path(name)
+    t0 = time.perf_counter()
+    jit.save(layer, prefix, input_spec=spec)
+    secs = time.perf_counter() - t0
+    sizes = [os.path.getsize(prefix + s) for s in (".pdmodel", ".pdiparams")]
+    log(f"  saved {name}: {secs:.2f} s, .pdmodel {sizes[0]} bytes, "
+        f".pdiparams {sizes[1]} bytes")
+    return prefix, secs, sizes
+
+
+def load_engine(serving, prefix, **kw):
+    """``Engine(prefix, ...)`` with its graphs kept (inspect_capture):
+    (engine, seconds to load)."""
+    t0 = time.perf_counter()
+    with inspect_capture():
+        engine = serving.Engine(prefix, device="cuda", **kw)
+    return engine, time.perf_counter() - t0
+
+
+def per_bucket(engine, batches, n=3):
+    """``n`` sequential requests of each bucket's batch: latency ms and the
+    mean device and host-copy ms of those batches (engine stats)."""
+    out = {}
+    for bucket, batch in batches.items():
+        s0 = engine.stats()
+        lat = sequential_ms(engine, batch, n)
+        s1 = engine.stats()
+        nb = s1["batches_by_bucket"][bucket] - s0["batches_by_bucket"][bucket]
+        out[bucket] = {"latency_ms": lat, "device_ms": (
+            s1["device_ms_by_bucket"][bucket]
+            - s0["device_ms_by_bucket"][bucket]) / max(nb, 1),
+            "copy_ms": (s1["copy_ms_by_bucket"][bucket]
+                        - s0["copy_ms_by_bucket"][bucket]) / max(nb, 1)}
+        log(f"    bucket {bucket}: request latency ms "
+            f"{[round(t, 3) for t in lat]}, device {out[bucket]['device_ms']:.3f}"
+            f" ms, host copy {out[bucket]['copy_ms']:.3f} ms")
+    return out
+
+
+def graph_vs_eager(engine, batches, order, label, failures):
+    """Each bucket in ``order``: the graph's replay against the same
+    engine's eager forward of the same batch (its measuring seam), bitwise;
+    then the bucket-1 latency both ways. Returns the latencies."""
+    for bucket in order:
+        engine._graphs_on = True
+        replayed = engine.predict(batches[bucket])
+        engine._graphs_on = False
+        eager = engine.predict(batches[bucket])
+        engine._graphs_on = True
+        same = all(np.array_equal(a, b) for a, b in zip(replayed, eager))
+        log(f"  {label}: bucket {bucket} graph replay vs eager forward: "
+            f"{'bitwise' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"phase 12 {label}: bucket {bucket}'s graph "
+                            "replay is not bitwise the eager forward")
+    one = batches[min(batches)]
+    graph_ms = sequential_ms(engine, one, 5)
+    engine._graphs_on = False
+    eager_ms = sequential_ms(engine, one, 5)
+    engine._graphs_on = True
+    log(f"  {label}: bucket-1 request latency ms, graph "
+        f"{[round(t, 3) for t in graph_ms]} vs eager "
+        f"{[round(t, 3) for t in eager_ms]} (median {np.median(graph_ms):.3f} "
+        f"vs {np.median(eager_ms):.3f})")
+    return {"graph_ms": graph_ms, "eager_ms": eager_ms}
+
+
+def engine_report(engine, label):
+    """Capture time, memory_stats() and health() of a loaded engine."""
+    stats = engine.stats()
+    mem = engine.memory_stats()
+    log(f"  {label}: capture ms by bucket "
+        f"{ {b: round(v, 1) for b, v in stats['capture_ms'].items()} }, "
+        f"warm-up ms { {b: round(v, 1) for b, v in stats['warmup_ms'].items()} }")
+    for b, m in mem.items():
+        log(f"    memory_stats bucket {b}: {m}")
+    return {"capture_ms": stats["capture_ms"], "warmup_ms": stats["warmup_ms"],
+            "memory_stats": mem}
+
+
+def close_with_health(engine, label, failures):
+    before = engine.health()
+    engine.close()
+    after = engine.health()
+    log(f"  {label}: health before close {before['status']} "
+        f"(ready {before['ready']}), after {after['status']}")
+    if before["status"] != "ok" or after["status"] != "closed":
+        failures.append(f"phase 12 {label}: health {before['status']} -> "
+                        f"{after['status']}, want ok -> closed")
+    return {"before": before["status"], "after": after["status"]}
+
+
+def rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def art_gpt(pt, fa, serving, seed, failures):
+    """(a) and (b): GPT-small's bf16 and float32 artifacts."""
+    import hashlib
+    import os
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_small,
+                                             synthetic_lm_batch)
+    out = {}
+    cfg = gpt_small(hidden_dropout=0.0, attention_dropout=0.0)
+    pt.seed(seed + 1200)
+    model = GPTForCausalLM(cfg, device="cuda").eval()
+    spec = [jit.InputSpec([None, SEQ], "int32", "ids")]
+    rows = [1, 3, 2, 2, 1]
+    ids = synthetic_lm_batch(sum(rows), SEQ, cfg.vocab_size, seed=seed + 1201)
+    offs = np.cumsum([0] + rows)
+    requests = [ids[a:b] for a, b in zip(offs[:-1], offs[1:])]
+    f32_prefix, out["f32_save_s"], _ = save_artifact(jit, model, "gpt_f32",
+                                                     spec)
+    cpu = copy.deepcopy(model).to("cpu")
+    with torch.inference_mode():
+        want32 = cpu(torch.from_numpy(ids[:1])).numpy()
+    del cpu
+    # phase 3's served path on the same weights: the bf16 pass
+    with serving.Engine.from_layer(model, spec, bucket_ladder=(1, 4),
+                                   passes=("bf16",), device="cuda") as ref:
+        want16 = [o[0] for o in concurrent_requests(ref, requests)]
+    model.to(torch.bfloat16)
+    prefix, out["bf16_save_s"], out["bf16_bytes"] = save_artifact(
+        jit, model, "gpt_bf16", spec)
+    del model
+    free_cuda()
+
+    # (a) the bf16 artifact behind the engine
+    fa.reset_launch_counts()
+    engine, out["bf16_load_s"] = load_engine(serving, prefix,
+                                             bucket_ladder=(1, 4),
+                                             batch_timeout_ms=50.0)
+    warm = flash_launches(fa)
+    warm_bf16 = fa.flash_attention_fwd.variant_launches["bf16"]
+    counter = count_replays(engine)
+    batches = {1: ids[:1], 4: ids[:4]}
+    # one run: it counts every replay of the burst and the timed requests
+    got, timed = counter.run(lambda: (
+        [o[0] for o in concurrent_requests(engine, requests)],
+        per_bucket(engine, batches)))
+    stats = engine.stats()
+    graph, off = counter.launches()
+    out["bf16_graph_launches"] = graph
+    log(f"  (a) GPT-small bf16 artifact: loaded in {out['bf16_load_s']:.2f} s;"
+        f" burst batches by bucket {stats['batches_by_bucket']}")
+    want = {"flash_attention_fwd": cfg.num_layers * stats["batches"],
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+    ok = (graph == want and not any(off.values())
+          and warm["flash_attention_fwd"] == cfg.num_layers * 2 == warm_bf16
+          and not warm["flash_attention_bwd_dq"]
+          and not warm["flash_attention_bwd_dkv"])
+    log(f"  (a) flash launches: {graph} from the graphs' kernel nodes x "
+        f"replays over {stats['batches']} batches (want {want}), {off} on "
+        f"the CUDA-core variant; eager warm-up {warm} ({warm_bf16} bf16) = "
+        f"{graph['flash_attention_fwd'] / max(stats['batches'], 1):g} a "
+        f"forward {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 12 (a): flash launches {graph} ({off} off "
+                        f"the bf16 variant), warm-up {warm}; want {want}")
+    rels = [rel_l2(g, w) for g, w in zip(got, want16)]
+    bitwise = all(np.array_equal(g, w) for g, w in zip(got, want16))
+    finite = all(np.isfinite(g).all() and g.shape == (r, SEQ, cfg.vocab_size)
+                 for g, r in zip(got, rows))
+    ok = finite and max(rels) <= BF16_REL_L2_TOL
+    log(f"  (a) artifact logits vs the from_layer engine (bf16 pass, same "
+        f"weights): rel L2 max {max(rels):.3e} (tol {BF16_REL_L2_TOL:g}), "
+        f"bitwise {bitwise}, shapes and finiteness {'ok' if finite else 'FAIL'}"
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 12 (a): GPT-small's artifact disagrees with "
+                        "the from_layer engine")
+    out["vs_from_layer"] = {"rel_l2_max": max(rels), "bitwise": bitwise}
+    out["bf16_buckets"] = timed
+    out["bf16_graph_vs_eager"] = graph_vs_eager(engine, batches, (4, 1, 4),
+                                                "(a)", failures)
+    out["bf16_engine"] = engine_report(engine, "(a)")
+    # a fresh process serves the same artifact at bucket 4
+    ids_path = art_path("gpt_ids4.npy")
+    np.save(ids_path, ids[:4])
+    (parent,) = engine.predict(ids[:4])
+    digest = hashlib.sha256(parent.tobytes()).hexdigest()
+    out["bf16_health"] = close_with_health(engine, "(a)", failures)
+    del engine
+    free_cuda()
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", ART_CHILD, prefix, ids_path],
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__))), capture_output=True, text=True,
+        timeout=600)
+    child_s = time.perf_counter() - t0
+    child = None
+    if res.returncode == 0:
+        child = json.loads(res.stdout.strip().splitlines()[-1])
+    ok = child is not None and child["digest"] == digest \
+        and not child["model_modules"]
+    log(f"  (a) fresh process ({child_s:.1f} s): digest "
+        f"{None if child is None else child['digest'][:16]} vs parent "
+        f"{digest[:16]}, model modules imported "
+        f"{None if child is None else child['model_modules']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 12 (a): the fresh process's logits differ "
+                        f"(rc {res.returncode}: {res.stderr[-800:]})")
+    out["fresh_process"] = {"seconds": child_s, "equal": ok}
+
+    # (b) the float32 artifact: the CUDA-core forward
+    fa.reset_launch_counts()
+    engine, load_s = load_engine(serving, f32_prefix, bucket_ladder=(1,))
+    counter = count_replays(engine)
+    (got32,) = counter.run(lambda: engine.predict(ids[:1]))
+    graph, off = counter.launches()
+    n = engine.stats()["batches"]
+    rel_max = float(np.abs(got32 - want32).max() / np.abs(want32).max())
+    ok = (rel_max <= FP32_REL_MAX_TOL and not any(graph.values())
+          and off == {"flash_attention_fwd": cfg.num_layers * n,
+                      "flash_attention_bwd_dq": 0,
+                      "flash_attention_bwd_dkv": 0})
+    log(f"  (b) float32 artifact (loaded in {load_s:.2f} s) vs the CPU "
+        f"forward: max|diff|/max|ref| {rel_max:.3e} (tol "
+        f"{FP32_REL_MAX_TOL:g}); CUDA-core forward launches {off} over {n} "
+        f"batches from the graph, bf16 {graph} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 12 (b): the float32 artifact disagrees with "
+                        "the CPU or left the CUDA-core forward")
+    out["f32_launches"] = off
+    out["f32_rel_max"] = rel_max
+    engine.close()
+    del engine
+    free_cuda()
+    # the same artifact, saved from the card, served on the CPU: the
+    # devices baked into the program move with it
+    on_cpu = jit.load(f32_prefix, device="cpu")(ids[:1]).numpy()
+    rel_cpu = float(np.abs(on_cpu - want32).max() / np.abs(want32).max())
+    ok = rel_cpu <= FP32_REL_MAX_TOL
+    log(f"  (b) the float32 artifact saved on the card, served on the CPU "
+        f"(jit.load(device='cpu')) vs the CPU forward: max|diff|/max|ref| "
+        f"{rel_cpu:.3e}, bitwise {bool(np.array_equal(on_cpu, want32))} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 12 (b): the float32 artifact served on the "
+                        "CPU disagrees with the CPU forward")
+    out["f32_on_cpu_rel_max"] = rel_cpu
+    return out
+
+
+def art_bert(pt, serving, seed, failures):
+    """(c): BERT-base's bf16 artifact at bucket 16, all outputs and
+    ``outputs=["output_1"]`` (NSP)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.bert import BertForPretraining, bert_base
+    pt.seed(seed + 1210)
+    cfg = bert_base(vocab_size=BERT_VOCAB, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    model = BertForPretraining(cfg, device="cuda").eval().to(torch.bfloat16)
+    prefix, _, _ = save_artifact(
+        jit, model, "bert_bf16",
+        [jit.InputSpec([None, BERT_SEQ], "int32", "input_ids")])
+    del model
+    free_cuda()
+    ids = np.random.RandomState(seed + 1211).randint(
+        0, BERT_VOCAB, (BERT_BATCH, BERT_SEQ)).astype("int32")
+    out, results = {}, {}
+    for arm, kw in (("all outputs", {}),
+                    ("NSP only", {"outputs": ["output_1"]})):
+        engine, load_s = load_engine(serving, prefix,
+                                     bucket_ladder=(BERT_BATCH,), **kw)
+        nodes = len(graph_dot(engine._programs[BERT_BATCH].graph))
+        log(f"  (c) BERT-base {arm}: outputs {engine.output_names}, loaded "
+            f"in {load_s:.2f} s, {nodes} nodes in the bucket's graph")
+        results[arm] = engine.predict(ids)
+        out[arm] = {"outputs": engine.output_names, "graph_nodes": nodes,
+                    "buckets": per_bucket(engine, {BERT_BATCH: ids}),
+                    **engine_report(engine, f"(c) {arm}")}
+        engine.close()
+        del engine
+        free_cuda()
+    nsp_all, nsp_only = results["all outputs"][1], results["NSP only"][0]
+    ok = (np.array_equal(nsp_all, nsp_only) and nsp_only.shape == (
+        BERT_BATCH, 2) and results["all outputs"][0].shape == (
+        BERT_BATCH, BERT_SEQ, BERT_VOCAB))
+    log(f"  (c) NSP rows, all outputs vs NSP only: "
+        f"{'bitwise' if ok else 'DIFFER'}")
+    if not ok:
+        failures.append("phase 12 (c): BERT-base's NSP-only rows differ from "
+                        "the full-output engine's")
+    return out
+
+
+def art_resnet(pt, fa, serving, seed, failures):
+    """(d): ResNet-50's bf16 artifact at buckets 1, 16, 64 against phase
+    11's from_layer engine on the same weights."""
+    from paddle_tpu_torch import jit, nn
+    from paddle_tpu_torch.vision.models import resnet50
+
+    class Bf16Input(nn.Layer):
+        """The bf16 network behind a float32 feed (numpy has no bf16)."""
+
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x):
+            return self.inner(x.to(torch.bfloat16))
+
+    pt.seed(seed + 1220)
+    model = resnet50(num_classes=RESNET_CLASSES, device="cuda").eval()
+    rng = np.random.RandomState(seed + 1221)
+    rows = [1, 16, 64, 5]
+    requests = [rng.rand(r, 3, RESNET_SIZE, RESNET_SIZE).astype("float32")
+                for r in rows]
+    spec = [jit.InputSpec([None, 3, RESNET_SIZE, RESNET_SIZE], "float32",
+                          "image")]
+    out = {}
+    with cudnn_mode(deterministic=False):
+        with serving.Engine.from_layer(model, spec,
+                                       bucket_ladder=RESNET_BUCKETS,
+                                       passes=("bf16",), device="cuda",
+                                       batch_timeout_ms=2.0) as ref:
+            want = [o[0] for o in concurrent_requests(ref, requests)]
+        prefix, _, _ = save_artifact(jit, Bf16Input(model.to(torch.bfloat16)),
+                                     "resnet50_bf16", spec)
+        del model
+        free_cuda()
+        fa.reset_launch_counts()
+        engine, load_s = load_engine(serving, prefix,
+                                     bucket_ladder=RESNET_BUCKETS,
+                                     batch_timeout_ms=2.0)
+        counter = count_replays(engine)
+        batches = {b: requests[2][:b] for b in RESNET_BUCKETS}
+        got, out["buckets"] = counter.run(lambda: (
+            [o[0] for o in concurrent_requests(engine, requests)],
+            per_bucket(engine, batches)))
+        graph, off = counter.launches()
+        out["graph_vs_eager"] = graph_vs_eager(engine, batches, (16, 1, 64),
+                                               "(d)", failures)
+        out.update(engine_report(engine, "(d)"))
+        out["health"] = close_with_health(engine, "(d)", failures)
+        del engine
+    rels = [rel_l2(g, w) for g, w in zip(got, want)]
+    wrappers = flash_launches(fa)
+    ok = (max(rels) <= BF16_REL_L2_TOL and not any(graph.values())
+          and not any(off.values()) and not any(wrappers.values()))
+    log(f"  (d) ResNet-50 bf16 artifact (loaded in {load_s:.2f} s) vs the "
+        f"from_layer engine (bf16 pass): rel L2 max {max(rels):.3e} (tol "
+        f"{BF16_REL_L2_TOL:g}); flash launches {wrappers} (wrappers) and "
+        f"{graph}, {off} (graphs), none expected {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 12 (d): ResNet-50's artifact disagrees with "
+                        "the from_layer engine or launched flash kernels")
+    out["rel_l2_max"] = max(rels)
+    free_cuda()
+    return out
+
+
+def check_realigned(fa, failures, gen):
+    """The forward operator on bf16 q/k/v whose base is 2 bytes off 16
+    (TMA cannot load them; the exported program cannot re-route): each is
+    copied to fresh storage, counted in ``realigned``, and the kernel runs,
+    within TOL[bf16] of the plain version on the same values."""
+    b, h, d = 2, 12, 64
+    n = b * SEQ * h * d
+    flat = torch.randn(3 * n + 8, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(b, SEQ, h, d)
+               for i in range(3))
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    counts = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_fwd.variant_launches["bf16"],
+              fa.flash_attention_fwd.realigned)
+    ro, rl = fa.flash_attention_fwd_reference(q, k, v, True)
+    tol = TOL[torch.bfloat16]
+    err = float((o.float() - ro.float()).abs().max())
+    ok = (counts == (1, 1, 3) and torch.allclose(
+        o.float(), ro.float(), atol=tol["o_atol"], rtol=tol["o_rtol"])
+        and float((lse - rl).abs().max()) <= tol["lse_atol"])
+    log(f"  misaligned bf16 q/k/v: launches, bf16 launches, inputs copied "
+        f"{counts} (want (1, 1, 3)); max |O - plain| {err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 12: the misaligned forward {counts}, "
+                        f"max |O - plain| {err:.3e}")
+
+
+def phase12(pt, fa, seed, failures):
+    """Phase 12: serving from saved artifacts (``jit.save`` ->
+    ``serving.Engine(path)``, one CUDA graph a bucket). A part that raises
+    is a failure and the next one still runs. Returns the numbers and the
+    flash launches of the artifact paths."""
+    import shutil
+    import traceback
+    from paddle_tpu_torch import serving
+    log("phase 12: serving from saved artifacts (jit.save -> Engine(path), "
+        "one CUDA graph a bucket)")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1230)
+    check_realigned(fa, failures, gen)
+    out = {}
+    for key, part in (("gpt_small", lambda: art_gpt(pt, fa, serving, seed,
+                                                    failures)),
+                      ("bert_base", lambda: art_bert(pt, serving, seed,
+                                                     failures)),
+                      ("resnet50", lambda: art_resnet(pt, fa, serving, seed,
+                                                      failures))):
+        t0 = time.perf_counter()
+        try:
+            out[key] = part()
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            traceback.print_exc()
+            failures.append(f"phase 12 ({key}) raised {type(e).__name__}: "
+                            f"{e}")
+        log(f"  -- {key}: {time.perf_counter() - t0:.1f} s")
+        free_cuda()
+    shutil.rmtree(art_path(""), ignore_errors=True)
+    gpt = out.get("gpt_small", {})
+    launches = {
+        "artifact_gpt_small_bf16_graphs": gpt.get("bf16_graph_launches"),
+        "artifact_gpt_small_float32_graphs": gpt.get("f32_launches")}
+    log(f"  {card_line()}")
+    return out, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3755,26 +4274,35 @@ def main():
     ids_by_req = [ids_all[a:b] for a, b in zip(offs[:-1], offs[1:])]
 
     fa.reset_launch_counts()
-    burst, stats, latency, results = serve(
+    burst, stats, latency, results, (graph, off) = serve(
         model, serving, ids_by_req, [([None, SEQ], "int32")],
         (SEQ, cfg.vocab_size), (1, 4), failures)
-    launches = served_launches = fa.flash_attention_fwd.launches
-    served_bf16 = fa.flash_attention_fwd.variant_launches["bf16"]
-    forwards = stats["warmup_runs"] + stats["batches"]
+    # the warm-up forwards run eagerly (the wrappers count them); the
+    # served batches replay the captured graphs (their kernel nodes x
+    # replays)
+    warm = fa.flash_attention_fwd.launches
+    warm_bf16 = fa.flash_attention_fwd.variant_launches["bf16"]
+    replayed = graph["flash_attention_fwd"]
+    served_launches = warm + replayed
     log(f"  engine stats after the burst: {burst}")
     log(f"  engine stats at the end: {stats}")
     if burst["batches_by_bucket"].get(4, 0) < 1:
         failures.append("no batch of the burst coalesced into bucket 4")
-    if launches != cfg.num_layers * forwards or launches == 0:
-        failures.append(f"flash launches {launches} != {cfg.num_layers} x "
-                        f"{forwards} forwards")
-    if served_bf16 != launches:
-        failures.append(f"{launches - served_bf16} served flash launches "
-                        f"off the bf16 variant")
-    log(f"  flash launches: {launches} over {forwards} forwards "
-        f"({stats['warmup_runs']} warm-up + {stats['batches']} served "
-        f"batches) = {launches / max(forwards, 1):g} per forward, "
-        f"{served_bf16} on the bf16 variant")
+    if warm != cfg.num_layers * stats["warmup_runs"] or warm != warm_bf16:
+        failures.append(f"warm-up flash launches {warm} ({warm_bf16} bf16) "
+                        f"!= {cfg.num_layers} x {stats['warmup_runs']}")
+    if replayed != cfg.num_layers * stats["batches"] or replayed == 0 \
+            or any(off.values()) or graph["flash_attention_bwd_dq"] \
+            or graph["flash_attention_bwd_dkv"]:
+        failures.append(f"served flash launches from the graphs {graph} "
+                        f"({off} off the bf16 variant) != {cfg.num_layers} "
+                        f"x {stats['batches']} batches of the forward")
+    log(f"  flash launches: {warm} in {stats['warmup_runs']} eager warm-up "
+        f"forwards (wrappers, {warm_bf16} bf16) + {replayed} in "
+        f"{stats['batches']} served batches (kernel nodes x replays of the "
+        f"captured graphs, {off['flash_attention_fwd']} on the CUDA-core "
+        f"variant) = {served_launches / max(stats['warmup_runs'] + stats['batches'], 1):g}"
+        f" per forward; graph capture ms by bucket {stats['capture_ms']}")
     for bucket, times in latency.items():
         best = min(times)
         log(f"  bucket {bucket}: request latency ms {[round(t, 3) for t in times]}"
@@ -3851,9 +4379,15 @@ def main():
     vision = phase11(pt, fa, args.seed, failures)
     vision_launches = vision.pop("flash_launches", {})
 
-    # ---- 12. kernels line and result
+    # ---- 12. serving from saved artifacts
+    artifacts, art_launches = phase12(pt, fa, args.seed, failures)
+
+    # ---- kernels line and result
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
+    for paths, meta in zip(by_path, KERNELS):
+        paths.update({path: (counts or {}).get(meta["name"])
+                      for path, counts in art_launches.items()})
     kernels = []
     for meta, timing, paths in zip(KERNELS, timings, by_path):
         name = meta["name"]
@@ -3890,6 +4424,7 @@ def main():
                                   gpt3_tp_rate,
                               "gpt3_1p3b_kstep": gpt3_ks_rate,
                               "gpt3_1p3b": gpt3, "vision": vision},
+                    "artifacts": artifacts,
                     "checkpoints": dict(ckpt, gpt_small_in_place=ck_gpt)}))
     log(json.dumps({"kernels": kernels}))
     if failures:

@@ -17,7 +17,9 @@ accumulation windows (``accumulate_steps``) and activation recompute
 checkpoints of the whole training state that resume bit for bit, at
 another dp degree too, and move between this package and the reference
 (``checkpoint``, ``save``/``load``); GPT also served behind
-``serving.Engine.from_layer``. GPT-3 1.3B (``models.gpt3_1p3b``) and BERT
+``serving.Engine.from_layer``, and from the artifact that ``jit.save``
+writes (``jit.load``, ``inference.Predictor``, ``serving.Engine(path)``,
+one CUDA graph per bucket on the card). GPT-3 1.3B (``models.gpt3_1p3b``) and BERT
 train under the fleet's hybrid parallelism (``distributed.fleet``: dp x pp
 x sharding x mp process groups, tensor-parallel layers, ``PipelineLayer``
 with the 1F1B schedules), with ring and Ulysses attention and Switch MoE
@@ -32,9 +34,9 @@ or as the k-step program, and are served behind ``Engine.from_layer``.
 import numpy as np
 import torch
 
-from . import (amp, checkpoint, distributed, incubate, jit,  # noqa: F401
-               models, monitor, nn, optimizer, parallel, recompute,
-               regularizer, serving, vision)
+from . import (amp, checkpoint, distributed, incubate,  # noqa: F401
+               inference, jit, monitor, nn, optimizer, parallel, recompute,
+               regularizer, serving)
 from .core.device import resolve_device
 from .distributed.parallel import DataParallel  # noqa: F401
 from .core.dtype import bfloat16, convert_dtype, float32, int32  # noqa: F401
@@ -42,6 +44,18 @@ from .core.random import default_generator, seed  # noqa: F401
 from .ops import flatten, reshape, unstack  # noqa: F401
 from .regularizer import L1Decay, L2Decay  # noqa: F401
 from .serialization import load, save  # noqa: F401
+
+
+# The model zoos load on first use (``paddle_tpu_torch.models``), so a
+# process that serves an exported artifact imports no model's module.
+_LAZY = ("models", "vision")
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True):
@@ -65,5 +79,5 @@ __all__ = ["seed", "default_generator", "resolve_device", "convert_dtype",
            "DataParallel", "to_tensor", "flatten", "reshape", "unstack",
            "float32", "bfloat16", "int32", "L1Decay", "L2Decay",
            "save", "load", "amp", "checkpoint", "distributed", "incubate",
-           "jit", "models", "monitor", "nn", "optimizer", "parallel",
+           "inference", "jit", "models", "monitor", "nn", "optimizer", "parallel",
            "recompute", "regularizer", "serving", "vision"]

@@ -456,3 +456,16 @@ def to_static(function=None, input_spec=None, build_strategy=None,
                           scan_steps=scan_steps, dp_axis=dp_axis,
                           accumulate_steps=accumulate_steps,
                           xla_flags=xla_flags, **kwargs)
+
+
+class InputSpec:
+    """Shape/dtype declaration (reference: ``paddle.static.InputSpec``):
+    ``None`` (or -1) marks a dynamic dim, axis 0 the batch."""
+
+    def __init__(self, shape, dtype="float32", name=None):
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.name = name
+
+    def __repr__(self):
+        return f"InputSpec(shape={self.shape}, dtype={self.dtype})"

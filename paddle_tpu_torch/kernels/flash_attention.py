@@ -35,6 +35,17 @@ with the same 64 x 64 tiles and masks. CUDA tensors launch the kernels or
 raise; there is no other path. Each kernel wrapper counts its launches in
 its ``launches`` attribute and, by dtype variant (``"bf16"``,
 ``"float32"``), in ``variant_launches``.
+
+The forward is the torch operator ``paddle_tpu_torch::flash_attention_fwd``
+(:data:`flash_attention_fwd_op`): its CPU implementation is the plain
+version, its CUDA implementation the kernel launch, and its fake
+implementation gives the output shapes, so ``torch.export`` records it as
+one node and an exported program runs it in a process that imports this
+module. Eager calls, captured CUDA graphs and exported programs all go
+through it. An exported program cannot re-route at run time, so the
+gate (:func:`supports`) reads only shapes, dtypes and strides; a bfloat16
+input whose base address is off 16 bytes (which TMA cannot load) is copied
+into fresh storage at launch and counted in ``flash_attention_fwd.realigned``.
 """
 import ctypes
 import functools
@@ -183,12 +194,15 @@ def _check_tma(tensors):
 
 
 def supports(q, k, v):
-    """True when the CUDA kernels take q/k/v ``[B, S, H, D]`` as they are:
-    one dtype, float32 or bfloat16; head dim in :data:`HEAD_DIMS`; a
-    contiguous head dim; B*H within the grid limit; for bfloat16 (TMA
-    loads) 16-byte aligned bases and batch/seq/head strides. Reads shapes,
-    dtypes, strides and addresses only: the attention gate consults it and
-    writes the attention out where it is false."""
+    """True when the CUDA kernels take q/k/v ``[B, S, H, D]``: one dtype,
+    float32 or bfloat16; head dim in :data:`HEAD_DIMS`; a contiguous head
+    dim; B*H within the grid limit; for bfloat16 (TMA loads) batch/seq/head
+    strides that are multiples of 16 bytes. Reads shapes, dtypes and
+    strides only, never an address, so it holds under ``torch.export``'s
+    fake tensors (a symbolic batch needs an upper bound for the grid
+    check): the attention gate consults it and writes the attention out
+    where it is false. The base address is the launch's business
+    (:func:`_aligned`)."""
     tensors = (q, k, v)
     if any(t.dim() != 4 for t in tensors):
         return False
@@ -200,10 +214,21 @@ def supports(q, k, v):
     if any(t.stride(3) != 1 for t in tensors):
         return False
     if q.dtype == torch.bfloat16:
-        return all(t.data_ptr() % 16 == 0
-                   and all(s * t.element_size() % 16 == 0
-                           for s in t.stride()[:3]) for t in tensors)
+        return all(s * t.element_size() % 16 == 0
+                   for t in tensors for s in t.stride()[:3])
     return True
+
+
+def _aligned(t):
+    """``t`` itself if its base address is 16-byte aligned, else a
+    contiguous copy (the allocator aligns fresh storage), counted in
+    ``flash_attention_fwd.realigned``. Only the tensor-core forward calls
+    it: an exported program cannot take another branch at run time."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    if not torch.cuda.is_current_stream_capturing():
+        flash_attention_fwd.realigned += 1
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _device_of(t):
@@ -235,30 +260,52 @@ def _count(wrapper, dtype):
 
 
 def reset_launch_counts():
-    """Zero every kernel wrapper's ``launches`` and ``variant_launches``."""
+    """Zero every kernel wrapper's ``launches`` and ``variant_launches``,
+    and the forward's ``realigned`` (inputs copied to an aligned base)."""
     for wrapper in (flash_attention_fwd, flash_attention_bwd_dq,
                     flash_attention_bwd_dkv):
         wrapper.launches = 0  # kernel launches since the last reset
         wrapper.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
+    flash_attention_fwd.realigned = 0
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """q/k/v ``[B, S, H, D]`` -> (O ``[B, S_q, H, D]`` in q's dtype,
     lse ``[B, H, S_q]`` float32). ``scale`` defaults to ``1/sqrt(D)``.
     No autograd: differentiable callers go through :class:`FlashAttention`
-    (:func:`flash_attention_bshd`)."""
+    (:func:`flash_attention_bshd`). Calls :data:`flash_attention_fwd_op`."""
     _check(q, k, v, causal)
-    b, s_q, h, d = q.shape
-    s_k = k.shape[1]
-    scale = _scale(scale, d)
-    if _device_of(q) == "cpu":
-        return flash_attention_fwd_reference(q, k, v, causal, scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    _device_of(q)
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
         raise RuntimeError(
             "flash_attention_fwd launches the kernel outside autograd; "
             "call flash_attention_bshd (the FlashAttention Function) for "
             "a differentiable result")
+    return flash_attention_fwd_op(q, k, v, bool(causal),
+                                  _scale(scale, q.shape[3]))
+
+
+# The forward as a torch operator. It is defined through ``Library``, not
+# the ``custom_op`` decorator, whose Python wrapper adds host time to every
+# call, which the eager call of a short kernel pays (PERF.md, section 6).
+_LIBRARY = torch.library.Library("paddle_tpu_torch", "DEF")
+_LIBRARY.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
+                "bool causal, float scale) -> (Tensor, Tensor)")
+
+
+def _flash_attention_fwd_cpu(q, k, v, causal, scale):
+    """The operator on the CPU: the plain version."""
+    return flash_attention_fwd_reference(q, k, v, causal, scale)
+
+
+def _flash_attention_fwd_cuda(q, k, v, causal, scale):
+    """The kernel launch: the bf16 (tensor-core) or float32 (CUDA-core)
+    forward by dtype; raises on anything neither takes."""
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    if q.dtype == torch.bfloat16:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     variant = _check_cuda({"q": q, "k": k, "v": v}, b, h, d, q.dtype)
     fn, err_str = _kernel("flash_attention_fwd", variant)
     o = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
@@ -269,6 +316,19 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
              *_strides(q, k, v), scale, int(bool(causal))])
     _count(flash_attention_fwd, q.dtype)
     return o, lse
+
+
+@torch.library.register_fake("paddle_tpu_torch::flash_attention_fwd")
+def _flash_attention_fwd_fake(q, k, v, causal, scale):
+    """The output shapes, for tracing (``torch.export``'s fake tensors)."""
+    b, s_q, h, d = q.shape
+    return (q.new_empty((b, s_q, h, d)),
+            q.new_empty((b, h, s_q), dtype=torch.float32))
+
+
+_LIBRARY.impl("flash_attention_fwd", _flash_attention_fwd_cpu, "CPU")
+_LIBRARY.impl("flash_attention_fwd", _flash_attention_fwd_cuda, "CUDA")
+flash_attention_fwd_op = torch.ops.paddle_tpu_torch.flash_attention_fwd.default
 
 
 def _check_o(o, q):

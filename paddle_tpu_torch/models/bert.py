@@ -184,7 +184,8 @@ class BertPretrainingHeads(nn.Layer):
     """The MLM head (transform, LayerNorm, the decoder tied to
     ``embedding_weight`` plus ``decoder_bias``) and the NSP head."""
 
-    def __init__(self, cfg, embedding_weight=None, device=None):
+    def __init__(self, cfg, embedding_weight=None, device=None,
+                 embedding_layer=None):
         super().__init__()
         h = cfg.hidden_size
         self.transform = nn.Linear(h, h, device=device)
@@ -203,10 +204,21 @@ class BertPretrainingHeads(nn.Layer):
             self.decoder_bias = self.create_parameter(
                 [cfg.vocab_size], is_bias=True, device=device)
         # the tie is held, not registered: a registered parameter would add
-        # a ``cls._tied`` entry to the state_dict, which the reference lacks
-        object.__setattr__(self, "_tied", embedding_weight)
+        # a ``cls._tied`` entry to the state_dict, which the reference lacks.
+        # Given the embedding layer, it is read through that layer at each
+        # call, so a forward with the layer's parameter swapped
+        # (torch.func.functional_call, as jit.save's export runs it) reads
+        # the swapped one.
+        self.__dict__["_tied_weight"] = embedding_weight
+        self.__dict__["_tied_layer"] = embedding_layer
         self.seq_relationship = nn.Linear(h, 2, device=device)
         self.act = _act_fn(cfg)
+
+    @property
+    def _tied(self):
+        layer = self.__dict__["_tied_layer"]
+        return self.__dict__["_tied_weight"] if layer is None \
+            else layer.weight
 
     def forward(self, sequence_output, pooled_output):
         x = self.layer_norm(self.act(self.transform(sequence_output)))
@@ -228,9 +240,9 @@ class BertForPretraining(nn.Layer):
         cfg = cfg or BertConfig(**kwargs)
         self.config = cfg
         self.bert = BertModel(cfg, device=device)
-        self.cls = BertPretrainingHeads(
-            cfg, embedding_weight=self.bert.embeddings.word_embeddings.weight,
-            device=self.bert.embeddings.word_embeddings.weight.device)
+        words = self.bert.embeddings.word_embeddings
+        self.cls = BertPretrainingHeads(cfg, device=words.weight.device,
+                                        embedding_layer=words)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)

@@ -10,7 +10,10 @@ from .core.dtype import convert_dtype
 
 
 def reshape(x, shape):
-    return x.reshape([int(s) for s in shape])
+    # a symbolic size (torch.export's batch) stays symbolic: int() would
+    # specialize it to the example's value
+    return x.reshape([s if isinstance(s, torch.SymInt) else int(s)
+                      for s in shape])
 
 
 def flatten(x, start_axis=0, stop_axis=-1):

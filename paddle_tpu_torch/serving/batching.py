@@ -50,9 +50,12 @@ class DeadlineExceeded(TimeoutError):
 class Request:
     """One enqueued inference request: per-input arrays (batch-major),
     row count, the caller's future, and an optional absolute deadline
-    (``time.perf_counter()`` seconds)."""
+    (``time.perf_counter()`` seconds). ``ctx``/``t0_ns`` are the tracing
+    identity (``tracing.mint_context()``) and start of the request's span,
+    set by the engine when serving tracing is on."""
 
-    __slots__ = ("inputs", "rows", "future", "t_enqueue", "deadline")
+    __slots__ = ("inputs", "rows", "future", "t_enqueue", "deadline",
+                 "ctx", "t0_ns")
 
     def __init__(self, inputs, rows, deadline=None):
         self.inputs = inputs
@@ -60,6 +63,8 @@ class Request:
         self.future = Future()
         self.t_enqueue = time.perf_counter()
         self.deadline = deadline
+        self.ctx = None
+        self.t0_ns = 0
 
 
 class DynamicBatcher:

@@ -1,7 +1,7 @@
 """Load-time serving passes (counterpart: ``paddle_tpu/serving/passes.py``).
 
-The reference rewrites a recorded program; the port runs the module
-eagerly, so its passes act on the module the engine serves:
+On a live layer (``Engine.from_layer``) the passes act on the module the
+engine serves:
 
 - ``"bf16"``: the served module is a bfloat16 copy of the engine's
   snapshot of the live model (the live model is left untouched), float32
@@ -9,13 +9,21 @@ eagerly, so its passes act on the module the engine serves:
   pass through, and floating outputs are cast back to the declared dtype
   at the engine boundary.
 - ``"donate"``: accepted for parity with the reference, where it donates
-  input buffers to XLA. Here it is a no-op: each batch's feeds are fresh
-  device tensors that nothing else holds, and they are freed after the
-  step anyway.
+  input buffers to XLA. Here it is a no-op: each batch's feeds are copied
+  into buffers that the engine owns.
+
+On an exported artifact (``Engine(path)``) the program's dtypes are
+frozen, so only structural passes apply: :func:`prune_outputs` (the
+engine's ``outputs=``) drops the unfetched outputs from the exported graph
+and eliminates the code that only they needed, as XLA's dead-code
+elimination does for the reference; ``"bf16"`` raises with the
+reference's guidance (:func:`check_artifact_passes`).
 """
 import torch
+import torch.utils._pytree as pytree
 
-__all__ = ["SERVING_PASSES", "validate_passes", "apply_passes", "cast_feed"]
+__all__ = ["SERVING_PASSES", "validate_passes", "apply_passes", "cast_feed",
+           "check_artifact_passes", "prune_outputs"]
 
 SERVING_PASSES = ("bf16", "donate")
 
@@ -41,3 +49,33 @@ def cast_feed(x, passes):
     if "bf16" in passes and x.dtype == torch.float32:
         return x.to(torch.bfloat16)
     return x
+
+
+def check_artifact_passes(passes):
+    """The passes an exported artifact takes: the mixed-precision rewrite
+    runs on the model before export (as in the reference), never on the
+    serialized program."""
+    if "bf16" in passes:
+        raise ValueError(
+            "the bf16 pass cannot rewrite a serialized torch.export "
+            "artifact (dtypes are baked into the exported program); serve "
+            "via Engine.from_layer, or re-export the model with bf16 "
+            "weights")
+
+
+def prune_outputs(module, keep):
+    """Keep only the outputs at indices ``keep`` of ``module`` (an
+    exported program's ``module()``, whose graph returns a flat tuple) and
+    drop every node that no kept output needs. Rewrites ``module`` in
+    place; returns its node counts (before, after)."""
+    graph = module.graph
+    before = len(graph.nodes)
+    out = next(n for n in reversed(graph.nodes) if n.op == "output")
+    flat = out.args[0]
+    out.args = (tuple(flat[i] for i in keep),)
+    codegen = graph._codegen
+    codegen.pytree_info = codegen.pytree_info._replace(
+        out_spec=pytree.tree_structure(tuple(range(len(keep)))))
+    graph.eliminate_dead_code()
+    module.recompile()
+    return before, len(graph.nodes)

@@ -1,6 +1,8 @@
-"""The served slice on the CPU: a tiny GPT (vocab 256, hidden 64, 2
-layers, 4 heads, max_seq_len 1024, so attention takes the flash branch in
-the port) with the reference's weights moved over by the bridge.
+"""The served slice on the CPU: a tiny GPT (vocab 256, hidden 128, 2
+layers, 4 heads of 32, max_seq_len 1024, so attention takes the flash
+branch in the port: the gate's head dims are 32, 64 and 128) with the
+reference's weights moved over by the bridge. A spy on the flash branch
+holds each forward to one call a layer.
 
 - port eager forward vs ``paddle_tpu`` eager forward (float32);
 - port ``Engine.from_layer`` at buckets (1, 4) vs the reference eager
@@ -32,13 +34,14 @@ from paddle_tpu.models.gpt import GPTConfig as RefConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as RefGPT
 from paddle_tpu_torch import serving
 from paddle_tpu_torch.bridge import load_reference_state
+from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
                                          synthetic_lm_batch)
 
 SEQ = 1024
 F32_TOL = 1e-4
 BF16_REL_L2 = 5e-2
-TINY = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+TINY = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=4,
             max_seq_len=SEQ, hidden_dropout=0.0, attention_dropout=0.0)
 SPEC = [([None, SEQ], "int32")]
 
@@ -46,6 +49,17 @@ SPEC = [([None, SEQ], "int32")]
 @pytest.fixture(autouse=True)
 def _threads():
     torch.set_num_threads(2)
+
+
+@pytest.fixture
+def flash_calls(monkeypatch):
+    """Every call of the flash branch (the attention gate's kernels)."""
+    calls = []
+    real = fa.flash_attention_bshd
+    monkeypatch.setattr(fa, "flash_attention_bshd",
+                        lambda *a, **k: calls.append(a[0].shape) or
+                        real(*a, **k))
+    return calls
 
 
 @pytest.fixture(scope="module")
@@ -67,15 +81,16 @@ def _rel_l2(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def test_eager_forward_matches_reference(models):
+def test_eager_forward_matches_reference(models, flash_calls):
     _ref, _state, port, ids, want = models
     with torch.no_grad():
         got = port(torch.from_numpy(ids)).numpy()
+    assert flash_calls == [(6, SEQ, 4, 32)] * TINY["num_layers"]
     assert got.shape == (6, SEQ, TINY["vocab_size"])
     np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
 
 
-def test_engine_buckets_match_reference_eager(models):
+def test_engine_buckets_match_reference_eager(models, flash_calls):
     _ref, _state, port, ids, want = models
     with serving.Engine.from_layer(port, SPEC, bucket_ladder=(1, 4),
                                    device="cpu") as eng:
@@ -83,6 +98,8 @@ def test_engine_buckets_match_reference_eager(models):
         (chunked,) = eng.predict(ids)      # 6 rows -> chunks of 4 and 2
         (single,) = eng.predict(ids[5:6])  # bucket 1
         stats = eng.stats()
+    # 2 warm-up forwards and 4 batches, each through the flash branch
+    assert len(flash_calls) == TINY["num_layers"] * (2 + 4)
     np.testing.assert_allclose(padded, want[:3], rtol=F32_TOL, atol=F32_TOL)
     np.testing.assert_allclose(chunked, want, rtol=F32_TOL, atol=F32_TOL)
     np.testing.assert_allclose(single, want[5:6], rtol=F32_TOL, atol=F32_TOL)

@@ -65,6 +65,13 @@ _HYBRID = ("paddle_tpu_torch.distributed.parallel",
            "paddle_tpu_torch.parallel.ring_attention",
            "paddle_tpu_torch.parallel.moe", "paddle_tpu_torch.incubate.moe")
 
+# serving from a saved artifact
+_ARTIFACT = ("paddle_tpu_torch.jit.io", "paddle_tpu_torch.jit.export",
+             "paddle_tpu_torch.inference", "paddle_tpu_torch.serving.engine",
+             "paddle_tpu_torch.serving.passes",
+             "paddle_tpu_torch.core.op_version",
+             "paddle_tpu_torch.observability.export")
+
 
 def _forbidden(name):
     return name.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
@@ -80,7 +87,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert int(n_modules) >= 20 and bad == "[]"
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
-    for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT + _HYBRID:
+    for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT + _HYBRID \
+            + _ARTIFACT:
         assert f"'{name}'" in every, (name, every)
 
 
@@ -90,7 +98,7 @@ def test_package_import_brings_its_top_level_modules():
     probe = ("import sys, paddle_tpu_torch as pt\n"
              "print(all(hasattr(pt, n) for n in ('models', 'serving', "
              "'distributed', 'recompute', 'to_tensor', 'checkpoint', "
-             "'save', 'load', 'incubate', 'parallel')))\n"
+             "'save', 'load', 'incubate', 'parallel', 'inference')))\n"
              "print(sorted(n for n in sys.modules if n.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
