@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``paddle_tpu_torch``) on one GPU and check it.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases 1,2,13]
+
+``--phases`` runs the listed phases only (phase 1, the build, always
+runs; phases 5 and 6 run together); the default runs every phase. A
+skipped phase is logged as skipped and its entries in the ``steps`` and
+``kernels`` lines are null; the last line is the same.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -177,7 +182,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``memory_stats()``, bucket-1 latency with the graph and eagerly, and
    ``health()`` before and after ``close()``. Phases 3 and 11c serve through
    captured graphs too, their launches counted from the graphs.
-13. One JSON line with every kernel of the paths, then the result line.
+13. YOLOv3 detection, ``BASELINE.md`` config 5, at
+   ``benchmarks/run_all.py:255-330``'s recipe (a ResNet-18 trunk and a
+   ``Conv2D(512, 255, 1)`` head, batch 8 at 320, 416 and 512, 50 boxes, 80
+   classes, bf16 ``auto_cast``, ``Momentum`` over ``backbone.parameters() +
+   head.parameters()``): (a) ``yolov3_loss`` in float32 at [8, 255, 13, 13]
+   card against CPU (the loss and its gradient), a bf16 input under
+   ``auto_cast`` against float32, ``yolo_box`` and ``box_coder`` card
+   against CPU; (b) one warm-up a size, then 4 x (320, 416, 512) through
+   ``to_static(train_step)``: exactly one CUDA graph a size, the losses,
+   parameters, statistics and velocities bitwise against the same eager
+   steps under deterministic algorithms, then eager and captured steps
+   timed over the mixed traffic (images/s, ms a size, first call a size,
+   MFU from the layer shapes, working set, one profiled step's idle share
+   and device time by kind); (c) the trained trunk, head and ``yolo_box``
+   served in eval through ``Engine.from_layer`` at 416, buckets 1 and 8,
+   float32, with the host's ``multiclass_nms`` on each result: the
+   decoded boxes and scores against the CPU, latency per bucket split
+   into the device step and the NMS. No flash kernel may launch.
+14. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -873,7 +896,7 @@ def f32_step(model, make_opt, run_loss):
     model.train()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     opt = make_opt(model)
-    loss = run_loss(model, next(model.parameters()).device)
+    loss = run_loss(model, model.parameters()[0].device)
     loss.backward()
     grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
     opt.step()
@@ -959,7 +982,7 @@ def train(model, ids, fa, failures):
 
     check_f32_step(model, lambda m: make_optimizer(m)[0], gpt_loss,
                    START_LR, "GPT-small batch 1", failures)
-    ids_t = torch.from_numpy(ids).to(next(model.parameters()).device)
+    ids_t = torch.from_numpy(ids).to(model.parameters()[0].device)
     model.train()
     with torch.no_grad():
         loss32 = model.loss(model(ids_t), ids_t).item()
@@ -1447,8 +1470,10 @@ def gpt_kstep(pt, fa, seed, eager_step_ms, failures):
                    failures)
     rate = log_rate(f"GPT-small k-step (scan_steps={k}, CUDA graph)", tel, k,
                     twin.flops_per_token(SEQ), peak, prof)
-    log(f"  GPT-small step: eager (phase 4) {eager_step_ms:.3f} ms, k-step "
-        f"{rate['step_ms']:.3f} ms ({eager_step_ms / rate['step_ms']:.2f}x)")
+    if eager_step_ms is not None:  # phase 4 ran
+        log(f"  GPT-small step: eager (phase 4) {eager_step_ms:.3f} ms, "
+            f"k-step {rate['step_ms']:.3f} ms "
+            f"({eager_step_ms / rate['step_ms']:.2f}x)")
     return launches, rate
 
 
@@ -3304,7 +3329,7 @@ def layer_macs(model, size):
     try:
         with torch.no_grad():
             model.eval()(torch.zeros(1, 3, size, size,
-                                     device=next(model.parameters()).device))
+                                     device=model.parameters()[0].device))
     finally:
         model.train(was_training)
         for h in handles:
@@ -3346,7 +3371,7 @@ def vision_f32_step(model, make_opt, x, y, steps=1):
     after), on the CPU."""
     from paddle_tpu_torch.nn import functional as F
     model.train()
-    dev = next(model.parameters()).device
+    dev = model.parameters()[0].device
     before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
     opt = make_opt(model)
     losses, grads = [], None
@@ -4214,62 +4239,501 @@ def phase12(pt, fa, seed, failures):
     return out, launches
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+# ---- phase 13: YOLOv3 detection (BASELINE.md config 5) ----------------------
+#
+# benchmarks/run_all.py:255-330's accelerator recipe, nothing cut: a
+# resnet18(num_classes=0, with_pool=False) trunk and a Conv2D(512, 3 x 85, 1)
+# head, Momentum(0.01, 0.9) over backbone.parameters() + head.parameters(),
+# bf16 auto_cast, yolov3_loss(ignore_thresh=0.7, downsample_ratio=32).mean(),
+# batch 8 at 320, 416 and 512 (one warm-up a size, then 4 x (320, 416, 512)
+# in that order), 80 classes, ragged boxes padded to 50, images and boxes
+# made from the seed as bench_detection makes them. Served: the trained
+# trunk and head with yolo_box (conf_thresh 0.01) at 416, buckets 1 and 8,
+# then the host's multiclass_nms with PaddleDetection YOLOv3's eval settings.
+DET_SIZES, DET_BATCH, DET_ITERS = (320, 416, 512), 8, 4
+DET_CLASSES, DET_BOXES = 80, 50
+DET_ANCHORS, DET_MASK = [116, 90, 156, 198, 373, 326], [0, 1, 2]
+DET_IGNORE, DET_DOWNSAMPLE, DET_LR, DET_MOMENTUM = 0.7, 32, 0.01, 0.9
+DET_SERVE_SIZE, DET_BUCKETS, DET_CONF = 416, (1, 8), 0.01
+DET_NMS = dict(score_threshold=0.01, nms_top_k=1000, keep_top_k=100,
+               nms_threshold=0.45, background_label=-1)
+# Phase 13's tolerances, fixed before its first run.
+# (a) yolov3_loss in float32 at [8, 255, 13, 13], card against CPU: the
+# same ops, float32 sums in another order (a per-image loss sums ~5e4
+# terms): the loss within DET_LOSS_REL_TOL (max over images, relative), the
+# gradient with respect to x within DET_GRAD_REL_L2_TOL (relative L2).
+# bf16 under auto_cast against float32 from the same input: the
+# predictions rounded to bf16 (2^-8): DET_AMP_LOSS_REL_TOL. yolo_box's
+# boxes and scores and box_coder's decode, card against CPU: float32
+# elementwise math (exp, sigmoid to a few ulp): DET_OP_REL_MAX_TOL of the
+# largest value.
+DET_LOSS_REL_TOL = 1e-5
+DET_GRAD_REL_L2_TOL = 1e-4
+DET_AMP_LOSS_REL_TOL = 2e-2
+DET_OP_REL_MAX_TOL = 1e-5
+# (b) the captured steps against the same eager steps from the same
+# weights: the same kernels on the same inputs under deterministic cuDNN
+# and torch.use_deterministic_algorithms (the loss gather's backward, an
+# accumulating index_put, sorts instead of adding atomically: boxes that
+# share a cell would otherwise sum in any order): KSTEP_MAX_ABS_TOL (0).
+# (c) the float32 engine's decoded boxes and scores against the same layer
+# on the CPU (TF32 off): FP32_REL_MAX_TOL of the largest value, as phase 3.
+DET_KINDS = VISION_KINDS[:-1] + [
+    ("gather, scatter, index (the loss)", ("index", "scatter", "gather")),
+    VISION_KINDS[-1]]
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
+
+def det_batches(seed):
+    """{size: (images, boxes, labels)} on the card, drawn as
+    bench_detection draws them (one RandomState in size order)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for size in DET_SIZES:
+        img = rng.rand(DET_BATCH, 3, size, size).astype("float32")
+        gtb = np.zeros((DET_BATCH, DET_BOXES, 4), np.float32)
+        for i in range(DET_BATCH):
+            k = rng.randint(1, 20)
+            cxy = rng.rand(k, 2) * 0.8 + 0.1
+            wh = rng.rand(k, 2) * 0.2 + 0.05
+            gtb[i, :k] = np.concatenate([cxy, wh], 1)
+        gtl = rng.randint(0, DET_CLASSES, (DET_BATCH, DET_BOXES))
+        out[size] = tuple(torch.from_numpy(a).to("cuda") for a in
+                          (img, gtb, gtl.astype("int64")))
+    return out
+
+
+def det_order():
+    """The warm-ups (one a size), then 4 x (320, 416, 512)."""
+    return list(DET_SIZES) + [DET_SIZES[i % len(DET_SIZES)]
+                              for i in range(DET_ITERS * len(DET_SIZES))]
+
+
+def det_model(pt, seed):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision.models import resnet18
+    pt.seed(seed)
+    backbone = resnet18(num_classes=0, with_pool=False, device="cuda")
+    head = nn.Conv2D(512, len(DET_MASK) * (5 + DET_CLASSES), 1,
+                     device="cuda")
+    return backbone, head
+
+
+def det_step(backbone, head):
+    """run_all.py's train_step and its optimizer: Momentum over
+    ``backbone.parameters() + head.parameters()`` (the lists of the
+    reference's Layer)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.vision.ops import yolov3_loss
+    params = backbone.parameters() + head.parameters()
+    opt = optimizer.Momentum(parameters=params, learning_rate=DET_LR,
+                             momentum=DET_MOMENTUM)
+
+    def train_step(img, gtb, gtl):
+        with amp.auto_cast(enable=True, dtype="bfloat16"):
+            pred = head(backbone(img))
+            loss = yolov3_loss(pred, gtb, gtl, DET_ANCHORS, DET_MASK,
+                               DET_CLASSES, ignore_thresh=DET_IGNORE,
+                               downsample_ratio=DET_DOWNSAMPLE).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return train_step, opt
+
+
+class deterministic_algorithms:
+    """``torch.use_deterministic_algorithms`` (and cuDNN's deterministic
+    mode) within the block."""
+
+    def __enter__(self):
+        import os
+        self.saved = (torch.are_deterministic_algorithms_enabled(),
+                      os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        self.cudnn = cudnn_mode(deterministic=True)
+        self.cudnn.__enter__()
+
+    def __exit__(self, *exc):
+        import os
+        self.cudnn.__exit__(*exc)
+        torch.use_deterministic_algorithms(self.saved[0])
+        if self.saved[1] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self.saved[1]
+        return False
+
+
+def det_ops(failures, seed):
+    """(a): the detection ops, card against CPU."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.vision import ops
+    rng = np.random.RandomState(seed + 1300)
+    hw = DET_SERVE_SIZE // DET_DOWNSAMPLE
+    x = rng.randn(DET_BATCH, len(DET_MASK) * (5 + DET_CLASSES), hw,
+                  hw).astype(np.float32)
+    gtb, gtl = (t.cpu() for t in det_batches(seed)[DET_SERVE_SIZE][1:])
+    args = (DET_ANCHORS, DET_MASK, DET_CLASSES, DET_IGNORE, DET_DOWNSAMPLE)
+    out = {}
+
+    def loss_and_grad(device, dtype=torch.float32, autocast=False):
+        xt = torch.from_numpy(x).to(device, dtype).requires_grad_(True)
+        with amp.auto_cast(enable=autocast, dtype="bfloat16"):
+            loss = ops.yolov3_loss(xt, gtb.to(device), gtl.to(device), *args)
+        loss.sum().backward()
+        return loss.detach().float().cpu().numpy(), xt.grad.float().cpu()
+
+    card, card_g = loss_and_grad("cuda")
+    cpu, cpu_g = loss_and_grad("cpu")
+    rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    grel = rel_l2(card_g, cpu_g)
+    ok = rel <= DET_LOSS_REL_TOL and grel <= DET_GRAD_REL_L2_TOL
+    log(f"  (a) yolov3_loss float32 [{DET_BATCH}, {x.shape[1]}, {hw}, {hw}],"
+        f" {DET_BOXES} boxes, {DET_CLASSES} classes, card vs CPU: loss rel "
+        f"{rel:.3e} (tol {DET_LOSS_REL_TOL:g}), d/dx rel L2 {grel:.3e} (tol "
+        f"{DET_GRAD_REL_L2_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 13: yolov3_loss on the card disagrees with "
+                        "the CPU")
+    # a bf16 head's output under auto_cast, as config 5 feeds the loss
+    bf16, _ = loss_and_grad("cuda", torch.bfloat16, autocast=True)
+    arel = float(np.max(np.abs(bf16 - card) / np.abs(card)))
+    ok = arel <= DET_AMP_LOSS_REL_TOL
+    log(f"  (a) yolov3_loss of a bf16 input under bf16 auto_cast vs "
+        f"float32: rel {arel:.3e} (tol {DET_AMP_LOSS_REL_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 13: bf16 yolov3_loss outside its bound")
+    xc = torch.from_numpy(x).cuda()
+    ms = cuda_time_ms(lambda: ops.yolov3_loss(
+        xc.requires_grad_(True), gtb.cuda(), gtl.cuda(), *args).sum()
+        .backward(), 20)
+    log(f"  (a) yolov3_loss forward + backward on the card: {ms:.4f} ms "
+        f"(CUDA events)")
+    out.update(loss_rel=rel, grad_rel_l2=grel, amp_rel=arel,
+               fwd_bwd_ms=ms)
+
+    img = torch.tensor([[416, 416], [320, 480]] * (DET_BATCH // 2),
+                       dtype=torch.int32)
+    (cb, cs), (hb, hs) = (ops.yolo_box(torch.from_numpy(x).to(d),
+                                       img.to(d), DET_ANCHORS, DET_CLASSES,
+                                       DET_CONF, DET_DOWNSAMPLE)
+                          for d in ("cuda", "cpu"))
+    prior = torch.from_numpy(np.sort(rng.rand(64, 4).astype(np.float32),
+                                     axis=1))
+    deltas = torch.from_numpy(rng.randn(16, 64, 4).astype(np.float32) * 0.5)
+    var = torch.full((64, 4), 0.1)
+    cd, hd = (ops.box_coder(prior.to(d), var.to(d), deltas.to(d),
+                            "decode_center_size") for d in ("cuda", "cpu"))
+    for label, got, want in (("yolo_box boxes", cb, hb),
+                             ("yolo_box scores", cs, hs),
+                             ("box_coder decode", cd, hd)):
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        ok = err <= DET_OP_REL_MAX_TOL
+        log(f"  (a) {label} card vs CPU: max|diff|/max|ref| {err:.3e} (tol "
+            f"{DET_OP_REL_MAX_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 13: {label} disagrees with the CPU")
+        out[label.replace(" ", "_") + "_rel"] = err
+    return out
+
+
+def det_macs(backbone, head, size):
+    """Multiply-adds of one image's forward at ``size`` from the layer
+    shapes (phase 11's ``layer_macs`` on a CPU copy)."""
+    from paddle_tpu_torch import nn
+    model = nn.Sequential(copy.deepcopy(backbone).to("cpu"),
+                          copy.deepcopy(head).to("cpu"))
+    return layer_macs(model, size)[0]
+
+
+def det_training(pt, fa, seed, failures):
+    """(b): config 5 trained eagerly and through one CUDA graph a size."""
+    from paddle_tpu_torch import jit
+    base_bb, base_head = det_model(pt, seed + 1310)
+    n = sum(p.numel() for p in base_bb.parameters() + base_head.parameters())
+    macs = {s: det_macs(base_bb, base_head, s) for s in DET_SIZES}
+    fpi = {s: 3 * 2 * m for s, m in macs.items()}
+    log(f"  (b) model: {n} parameters; multiply-adds an image forward "
+        f"{macs}; a training step 3 x 2 x MACs an image")
+    data = det_batches(seed)
+    order = det_order()
+    out = {"parameters": n, "macs_per_image": macs}
+
+    def twin():
+        return copy.deepcopy(base_bb), copy.deepcopy(base_head)
+
+    # the captured steps against the same eager steps, bitwise
+    (bb_e, hd_e), (bb_g, hd_g) = twin(), twin()
+    fa.reset_launch_counts()
+    with deterministic_algorithms():
+        step_e, opt_e = det_step(bb_e, hd_e)
+        want = [step_e(*data[s]).detach() for s in order]
+        step_g, opt_g = det_step(bb_g, hd_g)
+        prog = jit.to_static(step_g)
+        with inspect_capture():
+            got = [prog(*data[s]) for s in order[:len(DET_SIZES)]]
+        counter = count_replays(prog)
+        got += counter.run(lambda: [prog(*data[s])
+                                    for s in order[len(DET_SIZES):]])
+    eager_launches = flash_launches(fa)
+    nodes, off = counter.launches()
+    compiles = len(prog._programs)
+    ok = compiles == len(DET_SIZES)
+    log(f"  (b) captured programs (compiles): {compiles}, one a size (want "
+        f"{len(DET_SIZES)}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 13: {compiles} captured programs, want "
+                        f"{len(DET_SIZES)}")
+    want_l, got_l = torch.stack(want), torch.stack(got)
+    compare_runs("(b) config 5, graphs vs eager", want_l, got_l,
+                 torch.nn.ModuleList([bb_e, hd_e]),
+                 torch.nn.ModuleList([bb_g, hd_g]), failures, opt_e, opt_g)
+    losses = [float(v) for v in want_l]
+    log(f"  (b) losses in order {order}: {[round(v, 4) for v in losses]}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"phase 13: losses not finite: {losses}")
+    out.update(compiles=compiles, losses=losses)
+    del bb_e, hd_e, bb_g, hd_g, prog, step_e, step_g, opt_e, opt_g, counter
+
+    # timed: eager and graphs over the mixed traffic, autotuned cuDNN
+    with cudnn_mode(deterministic=False):
+        for arm in ("eager", "graphs"):
+            bb, hd = twin()
+            step, _ = det_step(bb, hd)
+            run = step if arm == "eager" else jit.to_static(step)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            first_ms = {}
+            for s in DET_SIZES:  # warm-up: autotune, capture
+                t0 = time.perf_counter()
+                run(*data[s]).item()
+                first_ms[s] = (time.perf_counter() - t0) * 1e3
+            peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+            timed = order[len(DET_SIZES):]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for s in timed:
+                loss = run(*data[s])
+            loss.item()
+            wall = time.perf_counter() - t0
+            images = DET_BATCH * len(timed)
+            flop = sum(fpi[s] * DET_BATCH for s in timed)
+            per_size = {}
+            for s in DET_SIZES:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    loss = run(*data[s])
+                loss.item()
+                per_size[s] = (time.perf_counter() - t0) / 3 * 1e3
+            prof = report_profile(
+                f"(b) config 5 {arm} step at {DET_SERVE_SIZE}", profile_retry(
+                    lambda: run(*data[DET_SERVE_SIZE]).item()), failures,
+                kinds=DET_KINDS)
+            no_flash_in_trace(f"(b) profiled {arm} step", prof, failures)
+            rate = {"images_per_s": images / wall,
+                    "mfu": flop / wall / PEAK_FLOPS[torch.bfloat16],
+                    "ms_by_size": per_size, "first_call_ms": first_ms,
+                    "working_set_gb": peak,
+                    "idle_share": None if prof is None else prof["idle"],
+                    "by_kind_ms": None if prof is None else
+                    prof["by_kind_ms"]}
+            if arm == "graphs":
+                rate["compiles"] = len(run._programs)
+            log(f"  (b) {arm}: {rate['images_per_s']:.1f} images/s over "
+                f"{len(timed)} steps of mixed sizes, MFU {rate['mfu']:.4f} "
+                f"(3 x 2 x layer MACs, {PEAK_FLOPS[torch.bfloat16]:g} FLOP/s"
+                f"); ms a step by size {{"
+                + ", ".join(f"{s}: {ms:.3f}" for s, ms in per_size.items())
+                + f"}}; first call by size (autotune"
+                f"{', capture' if arm == 'graphs' else ''}) {{"
+                + ", ".join(f"{s}: {ms:.1f}" for s, ms in first_ms.items())
+                + f"}} ms; working set {peak:.3f} GB; {card_line()}")
+            out[arm] = rate
+            del bb, hd, step, run
+    graphs_launches = flash_launches(fa)
+    out["flash"] = {"eager_wrappers": eager_launches,
+                    "graph_nodes_x_replays": nodes, "off_variant": off,
+                    "timed_wrappers": graphs_launches}
+    return base_bb, base_head, out
+
+
+def detector(backbone, head):
+    """The served detector in eval mode: the trunk, the head and
+    yolo_box, returning the boxes [N, M, 4] and the scores [N, M,
+    classes]."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision.ops import yolo_box
+
+    class Detector(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.backbone, self.head = backbone, head
+
+        def forward(self, img, im_size):
+            return yolo_box(self.head(self.backbone(img)), im_size,
+                            DET_ANCHORS, DET_CLASSES, DET_CONF,
+                            DET_DOWNSAMPLE)
+
+    return Detector().eval()
+
+
+def det_serving(serving, backbone, head, seed, failures):
+    """(c): the trained detector served at 416, buckets 1 and 8, float32,
+    NMS on the host; the engine's boxes and scores against the CPU."""
+    from paddle_tpu_torch.vision.ops import multiclass_nms
+    det = detector(backbone, head)
+    rng = np.random.RandomState(seed + 1320)
+    s = DET_SERVE_SIZE
+    spec = [([None, 3, s, s], "float32"), ([None, 2], "int32")]
+    with cudnn_mode(deterministic=True), inspect_capture():
+        engine = serving.Engine.from_layer(det, spec,
+                                           bucket_ladder=DET_BUCKETS,
+                                           device="cuda")
+    counter = count_replays(engine)
+    out = {}
     try:
-        import paddle_tpu_torch as pt
-        from paddle_tpu_torch import serving
-        from paddle_tpu_torch.kernels import _build
-        from paddle_tpu_torch.kernels import flash_attention as fa
-        from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_small,
-                                                 synthetic_lm_batch)
-    except ImportError as e:
-        print(f"chip_smoke: the paddle_tpu_torch package is missing ({e})",
-              file=sys.stderr)
-        return 2
-    # float32 products in full float32 on both sides of every comparison
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    failures = []
+        def request(rows):
+            return (rng.rand(rows, 3, s, s).astype("float32"),
+                    np.tile(np.array([[s, s]], np.int32), (rows, 1)))
 
-    # ---- 1. device and build
-    log(card_line())
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
-        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    _build.build(list(SOURCES))  # one nvcc per source, all at once
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    for name in SOURCES:
-        for line in ptxas_report(_build.build_log(name)):
-            log(f"  ptxas {line}")
+        first = request(1)
 
-    # ---- 2. kernels vs their plain versions
-    log("phase 2: kernels vs plain versions on the card")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(args.seed)
-    flash = check_flash(fa, failures, gen)
-    flash_bwd = check_flash_bwd(fa, failures, gen)
-    f32_times = time_f32_variants(fa, gen)
-    gpt3_shape = check_gpt3_shape(fa, failures, gen)
+        def traffic():
+            res = {}
+            for bucket in DET_BUCKETS:
+                lat, nms_ms, kept = [], [], []
+                for i in range(4):
+                    req = first if (bucket == 1 and i == 0) else \
+                        request(bucket)
+                    t0 = time.perf_counter()
+                    boxes, scores = engine.predict(*req)
+                    t1 = time.perf_counter()
+                    dets, counts = multiclass_nms(
+                        torch.from_numpy(boxes),
+                        torch.from_numpy(scores).transpose(1, 2), **DET_NMS)
+                    t2 = time.perf_counter()
+                    lat.append((t2 - t0) * 1e3)
+                    nms_ms.append((t2 - t1) * 1e3)
+                    kept.append(counts.tolist())
+                    if bucket == 1 and i == 0:
+                        res["first"] = (boxes, scores)
+                res[bucket] = (lat, nms_ms, kept)
+            return res
 
-    # ---- 3. the served path
-    log("phase 3: GPT-small served through the engine (bf16, buckets 1, 4)")
-    pt.seed(args.seed)
+        with cudnn_mode(deterministic=True):
+            res = counter.run(traffic)
+        stats = engine.stats()
+        for bucket in DET_BUCKETS:
+            lat, nms_ms, kept = res[bucket]
+            n = stats["batches_by_bucket"][bucket]
+            dev = stats["device_ms_by_bucket"][bucket] / max(n, 1)
+            cp = stats["copy_ms_by_bucket"][bucket] / max(n, 1)
+            log(f"  (c) bucket {bucket}: request latency ms (engine + host "
+                f"NMS) {[round(t, 3) for t in lat]}; host multiclass_nms ms "
+                f"{[round(t, 3) for t in nms_ms]}; mean device step "
+                f"{dev:.3f} ms, host copy {cp:.3f} ms over {n} batches; "
+                f"detections kept per image {kept[0][:8]}")
+            out[bucket] = {"latency_ms": lat, "nms_ms": nms_ms,
+                           "device_ms": dev, "copy_ms": cp, "batches": n}
+        out["capture_ms"] = stats["capture_ms"]
+    finally:
+        engine.close()
+    nodes, off = counter.launches()
+    cpu = detector(copy.deepcopy(backbone).to("cpu"),
+                   copy.deepcopy(head).to("cpu"))
+    with torch.inference_mode():
+        want = [t.numpy() for t in cpu(*(torch.from_numpy(a)
+                                          for a in first))]
+    for label, got, ref in zip(("boxes", "scores"), res["first"], want):
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        ok = err <= FP32_REL_MAX_TOL
+        log(f"  (c) float32 engine {label} vs the CPU layer: max|diff|/"
+            f"max|ref| {err:.3e} (tol {FP32_REL_MAX_TOL:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 13: served {label} disagree with the CPU")
+        out[f"{label}_rel_max"] = err
+    out["flash_graph_nodes_x_replays"] = {k: nodes[k] + off[k] for k in nodes}
+    return out
+
+
+def phase13(pt, fa, seed, failures):
+    """Phase 13: YOLOv3 detection, BASELINE.md config 5. A part that raises
+    is a failure and the next one still runs."""
+    import traceback
+    from paddle_tpu_torch import serving
+    log(f"phase 13: YOLOv3 detection (config 5): resnet18 trunk + "
+        f"Conv2D(512, {len(DET_MASK) * (5 + DET_CLASSES)}, 1), batch "
+        f"{DET_BATCH} at {DET_SIZES}, {DET_BOXES} boxes, {DET_CLASSES} "
+        f"classes, bf16 AMP, Momentum; served at {DET_SERVE_SIZE}")
+    t_phase = time.perf_counter()
+    census = memory_census("the start of phase 13")
+    out = {"memory_at_start_gb": [round(b / 1e9, 3) for b in census]}
+    fa.reset_launch_counts()
+    bb = hd = None
+    for key, part in (("ops", lambda: det_ops(failures, seed)),
+                      ("training", lambda: det_training(pt, fa, seed,
+                                                        failures)),
+                      ("serving", lambda: det_serving(serving, bb, hd, seed,
+                                                      failures))):
+        if key == "serving" and bb is None:
+            continue
+        t0 = time.perf_counter()
+        try:
+            res = part()
+            if key == "training":
+                bb, hd, res = res
+            out[key] = res
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            traceback.print_exc()
+            failures.append(f"phase 13 ({key}) raised {type(e).__name__}: "
+                            f"{e}")
+        log(f"  -- {key}: {time.perf_counter() - t0:.1f} s")
+    counts = flash_launches(fa)
+    flash = out.get("training", {}).get("flash", {})
+    graphs = flash.get("graph_nodes_x_replays", {})
+    served = out.get("serving", {}).get("flash_graph_nodes_x_replays", {})
+    total = {k: counts[k] + graphs.get(k, 0) + served.get(k, 0)
+             for k in counts}
+    ok = not any(total.values())
+    log(f"  flash kernel launches on the detection path: wrappers {counts}, "
+        f"graph nodes x replays {graphs} (training) {served} (serving): "
+        f"{total} (none expected) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 13: the detection path launched flash "
+                        f"kernels {total}")
+    out["flash_launches"] = {"detection": total}
+    del bb, hd
+    free_cuda()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {out['seconds']:.1f} s; {card_line()}")
+    return out
+
+
+def gpt_small_model(pt, seed):
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
+    pt.seed(seed)
     cfg = gpt_small(hidden_dropout=0.0, attention_dropout=0.0)
-    model = GPTForCausalLM(cfg, device="cuda")
+    return cfg, GPTForCausalLM(cfg, device="cuda")
+
+
+def phase3(pt, fa, serving, seed, failures):
+    """Phase 3: GPT-small served; returns the config, the model (phase 4
+    trains it) and the forward's launches on the served path."""
+    from paddle_tpu_torch.models.gpt import synthetic_lm_batch
+    log("phase 3: GPT-small served through the engine (bf16, buckets 1, 4)")
+    cfg, model = gpt_small_model(pt, seed)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  model: vocab {cfg.vocab_size} hidden {cfg.hidden_size} layers "
         f"{cfg.num_layers} heads {cfg.num_heads} seq {SEQ}, "
         f"{n_params} parameters")
     rows = [1, 3, 2, 2, 1]
     ids_all = synthetic_lm_batch(sum(rows), SEQ, cfg.vocab_size,
-                                 seed=args.seed)
+                                 seed=seed)
     offs = np.cumsum([0] + rows)
     ids_by_req = [ids_all[a:b] for a, b in zip(offs[:-1], offs[1:])]
 
@@ -4341,48 +4805,162 @@ def main():
     if not ok:
         failures.append("bf16 served logits outside the bf16 bound")
 
+    return cfg, model, served_launches
+
+
+def parse_phases(text):
+    """``--phases``: a comma-separated list of phase numbers (1 always
+    runs); None (every phase) when not given."""
+    if text is None:
+        return set(range(1, LAST_PHASE + 1))
+    try:
+        phases = {int(v) for v in text.split(",") if v.strip()}
+    except ValueError:
+        raise SystemExit(f"--phases: not a list of numbers: {text!r}")
+    bad = sorted(n for n in phases if not 1 <= n <= LAST_PHASE)
+    if bad:
+        raise SystemExit(f"--phases: no phase {bad} (1-{LAST_PHASE})")
+    return phases | {1}
+
+
+LAST_PHASE = 13
+TIMING_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "max_abs_err")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase numbers to run (default: "
+                    "all; phase 1 always runs)")
+    args = ap.parse_args()
+    phases = parse_phases(args.phases)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch import serving
+        from paddle_tpu_torch.kernels import _build
+        from paddle_tpu_torch.kernels import flash_attention as fa
+        from paddle_tpu_torch.models.gpt import synthetic_lm_batch
+    except ImportError as e:
+        print(f"chip_smoke: the paddle_tpu_torch package is missing ({e})",
+              file=sys.stderr)
+        return 2
+    # float32 products in full float32 on both sides of every comparison
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures = []
+
+    def on(n, what):
+        if n in phases:
+            return True
+        log(f"phase {n}: skipped ({what}; --phases {args.phases})")
+        return False
+
+    # ---- 1. device and build
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    _build.build(list(SOURCES))  # one nvcc per source, all at once
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
+        for line in ptxas_report(_build.build_log(name)):
+            log(f"  ptxas {line}")
+    names = [meta["name"] for meta in KERNELS]
+    none = dict.fromkeys(names)
+
+    # ---- 2. kernels vs their plain versions
+    blank = dict.fromkeys(TIMING_KEYS)
+    flash, flash_bwd = blank, {"dq": blank, "dkv": blank}
+    f32_times, gpt3_shape = {n: {} for n in names}, none
+    if on(2, "kernels vs plain versions"):
+        log("phase 2: kernels vs plain versions on the card")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(args.seed)
+        flash = check_flash(fa, failures, gen)
+        flash_bwd = check_flash_bwd(fa, failures, gen)
+        f32_times = time_f32_variants(fa, gen)
+        gpt3_shape = check_gpt3_shape(fa, failures, gen)
+
+    # ---- 3. the served path
+    model, served_launches = None, None
+    if on(3, "GPT-small served"):
+        cfg, model, served_launches = phase3(pt, fa, serving, args.seed,
+                                             failures)
+
     # ---- 4. the trained path
-    log(f"phase 4: GPT-small trained, {TRAIN_STEPS} steps ({WARMUP_STEPS} "
-        f"warm-up) of {TRAIN_BATCH} x {SEQ} tokens, bf16 AMP, AdamW with "
-        f"float32 masters")
-    train_ids = synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size,
-                                   seed=args.seed + 1)
-    trained, trained_bf16, step_ms, eager_ms = train(model, train_ids, fa,
-                                                     failures)
+    trained, trained_bf16, step_ms, eager_ms = none, none, {}, None
+    if on(4, "GPT-small trained eagerly"):
+        if model is None:
+            cfg, model = gpt_small_model(pt, args.seed)
+        log(f"phase 4: GPT-small trained, {TRAIN_STEPS} steps "
+            f"({WARMUP_STEPS} warm-up) of {TRAIN_BATCH} x {SEQ} tokens, bf16 "
+            f"AMP, AdamW with float32 masters")
+        train_ids = synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size,
+                                       seed=args.seed + 1)
+        trained, trained_bf16, step_ms, eager_ms = train(model, train_ids,
+                                                         fa, failures)
     del model
 
     # ---- 5 and 6. BERT-base, float32 card vs CPU, then eager and k-step
-    bert_rates = bert(pt, fa, args.seed, failures)
+    bert_rates = None
+    if on(5, "BERT-base float32 card vs CPU, with phase 6") | on(
+            6, "BERT-base bench recipe, with phase 5"):
+        bert_rates = bert(pt, fa, args.seed, failures)
 
     # ---- 7. GPT-small through the k-step program
-    log(f"phase 7: GPT-small trained through to_static(one_step, "
-        f"scan_steps={GPT_KSTEP}), {TRAIN_BATCH} x {SEQ} tokens a step, "
-        f"phase 4's recipe")
-    kstep_launches, gpt_rate = gpt_kstep(pt, fa, args.seed, eager_ms,
-                                         failures)
+    kstep_launches, gpt_rate = none, None
+    if on(7, "GPT-small k-step"):
+        log(f"phase 7: GPT-small trained through to_static(one_step, "
+            f"scan_steps={GPT_KSTEP}), {TRAIN_BATCH} x {SEQ} tokens a step, "
+            f"phase 4's recipe")
+        kstep_launches, gpt_rate = gpt_kstep(pt, fa, args.seed, eager_ms,
+                                             failures)
 
     # ---- 8. data parallelism (ZeRO) and recompute, one-rank NCCL mesh
-    zero_rates, zr_counted, zr_launches, zr_rate = phase8(pt, fa, args.seed,
-                                                          failures)
+    zero_rates, zr_counted, zr_launches, zr_rate = None, none, none, None
+    if on(8, "ZeRO and recompute"):
+        zero_rates, zr_counted, zr_launches, zr_rate = phase8(
+            pt, fa, args.seed, failures)
 
     # ---- 9. step checkpoints around the k-step programs
-    ckpt = phase9(pt, fa, args.seed, failures)
-    ck_counted, ck_launches, ck_gpt = ckpt.pop("gpt_in_place",
-                                               ({}, {}, {}))
+    ckpt, ck_counted, ck_launches, ck_gpt = None, {}, {}, None
+    if on(9, "step checkpoints"):
+        ckpt = phase9(pt, fa, args.seed, failures)
+        ck_counted, ck_launches, ck_gpt = ckpt.pop("gpt_in_place",
+                                                   ({}, {}, {}))
 
     # ---- 10. GPT-3 1.3B under the fleet's hybrid parallelism
-    gpt3 = phase10(pt, fa, args.seed, failures)
-    gpt3_tp, gpt3_tp_rate = gpt3.pop("tensor_parallel", ({}, None))
-    gpt3_ks, gpt3_ks_rate = gpt3.pop("kstep", ({}, None))
+    gpt3, gpt3_tp, gpt3_tp_rate, gpt3_ks, gpt3_ks_rate = (None, {}, None,
+                                                          {}, None)
+    if on(10, "GPT-3 1.3B hybrid"):
+        gpt3 = phase10(pt, fa, args.seed, failures)
+        gpt3_tp, gpt3_tp_rate = gpt3.pop("tensor_parallel", ({}, None))
+        gpt3_ks, gpt3_ks_rate = gpt3.pop("kstep", ({}, None))
 
     # ---- 11. convolutional networks: ResNet-50 trained and served, LeNet
-    vision = phase11(pt, fa, args.seed, failures)
-    vision_launches = vision.pop("flash_launches", {})
+    vision, vision_launches = None, {}
+    if on(11, "convolutional networks"):
+        vision = phase11(pt, fa, args.seed, failures)
+        vision_launches = vision.pop("flash_launches", {})
 
     # ---- 12. serving from saved artifacts
-    artifacts, art_launches = phase12(pt, fa, args.seed, failures)
+    artifacts, art_launches = None, {}
+    if on(12, "serving from saved artifacts"):
+        artifacts, art_launches = phase12(pt, fa, args.seed, failures)
 
-    # ---- kernels line and result
+    # ---- 13. YOLOv3 detection, BASELINE.md config 5
+    detection, det_launches = None, {}
+    if on(13, "YOLOv3 detection"):
+        detection = phase13(pt, fa, args.seed, failures)
+        det_launches = detection.pop("flash_launches", {})
+
+    # ---- kernels line and result (a skipped phase's entries are null)
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
     for paths, meta in zip(by_path, KERNELS):
@@ -4406,12 +4984,15 @@ def main():
                 gpt3_1p3b_tensor_parallel_eager=gpt3_tp.get(name),
                 gpt3_1p3b_kstep_call=gpt3_ks.get(name),
                 **{path: counts.get(name)
-                   for path, counts in vision_launches.items()}),
+                   for path, counts in vision_launches.items()},
+                **{path: counts.get(name)
+                   for path, counts in det_launches.items()}),
             gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,
-                training_launches=(trained_bf16[name] if dt == "bf16"
-                                   else n - trained_bf16[name]),
+                training_launches=(
+                    None if n is None else trained_bf16[name] if dt == "bf16"
+                    else n - trained_bf16[name]),
                 **({} if dt == "bf16" else f32))
                       for dt, src in meta["variants"].items()},
             shape=[TRAIN_BATCH, SEQ, 12, 64], dtype="bf16"))
@@ -4423,9 +5004,11 @@ def main():
                               "gpt3_1p3b_tensor_parallel_eager":
                                   gpt3_tp_rate,
                               "gpt3_1p3b_kstep": gpt3_ks_rate,
-                              "gpt3_1p3b": gpt3, "vision": vision},
+                              "gpt3_1p3b": gpt3, "vision": vision,
+                              "detection": detection},
                     "artifacts": artifacts,
-                    "checkpoints": dict(ckpt, gpt_small_in_place=ck_gpt)}))
+                    "checkpoints": None if ckpt is None else dict(
+                        ckpt, gpt_small_in_place=ck_gpt)}))
     log(json.dumps({"kernels": kernels}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

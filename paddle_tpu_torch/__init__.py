@@ -39,6 +39,7 @@ from . import (amp, checkpoint, distributed, incubate,  # noqa: F401
                regularizer, serving)
 from .core.device import resolve_device
 from .distributed.parallel import DataParallel  # noqa: F401
+from .nn.layer.layers import ParamAttr  # noqa: F401
 from .core.dtype import bfloat16, convert_dtype, float32, int32  # noqa: F401
 from .core.random import default_generator, seed  # noqa: F401
 from .ops import flatten, reshape, unstack  # noqa: F401
@@ -76,7 +77,7 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
 
 
 __all__ = ["seed", "default_generator", "resolve_device", "convert_dtype",
-           "DataParallel", "to_tensor", "flatten", "reshape", "unstack",
+           "DataParallel", "ParamAttr", "to_tensor", "flatten", "reshape", "unstack",
            "float32", "bfloat16", "int32", "L1Decay", "L2Decay",
            "save", "load", "amp", "checkpoint", "distributed", "incubate",
            "inference", "jit", "models", "monitor", "nn", "optimizer", "parallel",

@@ -11,8 +11,9 @@ rank's slice of the full array: a fused QKV's columns are ordered (q|k|v,
 heads, head_dim), so each rank takes whole heads of each of q, k and v (a
 re-layout, not the reference's contiguous thirds of the columns);
 ``full_state_dict`` gathers the slices back into the reference's full
-layout. A ``PipelineLayer`` takes the names of the stage it holds and
-skips the other stages'. Wrappers (``DataParallel``, ``TensorParallel``,
+layout (``gather_full``: one tensor, in its own dtype, which step
+checkpoints save). A ``PipelineLayer`` takes the names of the stage it
+holds and skips the other stages'. Wrappers (``DataParallel``, ``TensorParallel``,
 ...) load into the layer they wrap.
 
 ``load_reference_optimizer_state(optimizer, state, names)`` does the same
@@ -92,33 +93,43 @@ def load_reference_state(module, state):
     return module
 
 
-def full_state_dict(module, group=None):
-    """``module``'s state in the reference's full layout ({name: numpy
-    array}): each sliced parameter gathered from the mp group (``group``,
-    default the fleet topology's) and laid back. Every rank of the group
-    calls it."""
+def gather_full(t, like=None, group=None):
+    """The full layout of ``t``, this rank's slice of the sliced parameter
+    ``like`` (default ``t``; an optimizer slot passes its parameter),
+    gathered from the mp group (``group``, default the fleet topology's)
+    and laid back, in ``t``'s dtype, bit for bit (a 16-bit float is
+    gathered widened to float32, exact both ways). ``t`` itself where
+    ``like`` is not split. Every rank of the group calls it."""
     from .distributed import collective
     from .distributed.fleet.meta_parallel.mp_layers import \
         model_parallel_group
-    module = _inner(module)
+    like = t if like is None else like
+    if not _sliced(like) or like.split_degree == 1:
+        return t
+    x = t.detach()
+    wide = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    parts = []
+    collective.all_gather(parts, wide.contiguous(),
+                          group=group or model_parallel_group())
+    # [n, *local] -> the split dim as (groups, n, chunk) -> full
+    ax, g, n = like.split_axis, like.split_groups, like.split_degree
+    shape = list(x.shape)
+    v = torch.stack(parts).reshape(n, *shape[:ax], g, shape[ax] // g,
+                                   *shape[ax + 1:])
+    return v.movedim(0, ax + 1).reshape(_full_shape(like)).to(x.dtype)
+
+
+def full_state_dict(module, group=None):
+    """``module``'s state in the reference's full layout ({name: numpy
+    array}, bfloat16 widened to float32): each sliced parameter gathered
+    from the mp group (``group``, default the fleet topology's) and laid
+    back. Every rank of the group calls it."""
     out = {}
-    for name, p in module.state_dict(keep_vars=True).items():
-        t = p.detach()
+    for name, p in _inner(module).state_dict(keep_vars=True).items():
+        t = gather_full(p.detach(), p, group)
         if t.dtype == torch.bfloat16:
             t = t.float()  # numpy has no bfloat16
-        if not _sliced(p) or p.split_degree == 1:
-            out[name] = t.cpu().numpy().copy()
-            continue
-        parts = []
-        collective.all_gather(parts, t.contiguous(),
-                              group=group or model_parallel_group())
-        # [n, *local] -> the split dim as (groups, n, chunk) -> full
-        ax, g, n = p.split_axis, p.split_groups, p.split_degree
-        shape = list(t.shape)
-        v = torch.stack(parts).reshape(n, *shape[:ax], g, shape[ax] // g,
-                                       *shape[ax + 1:])
-        out[name] = v.movedim(0, ax + 1).reshape(_full_shape(p)).cpu() \
-            .numpy().copy()
+        out[name] = t.cpu().numpy().copy()
     return out
 
 

@@ -31,9 +31,18 @@ Typical use::
         if step % 100 == 99:
             mgr.save(step)
 
-In a data-parallel job every rank calls ``save`` and ``restore``: the ZeRO
-stores are gathered from the ranks of their group and that group's rank 0
-writes (global rank 0 without ZeRO); every rank restores its own rows.
+In a distributed job every rank of the active mesh calls ``save`` and
+``restore``, and the mesh's first rank alone writes: the ZeRO stores are
+gathered from the ranks of their group, and every rank restores its own
+rows. Under tensor parallelism the split parameters (and their moments
+and masters) are gathered from the mp group into the reference's full
+layout, and every rank restores its own slice (``state``). A pipelined model (``PipelineLayer`` over more than one
+stage) writes one payload a stage, ``model_<name>.stage<s>.pkl`` (and its
+optimizer's, ``optimizer_<name>.stage<s>.pkl``), sent to the writer; each
+rank restores its stage's. Combinations not covered raise at ``save``,
+before anything is written: ZeRO-2/3 with tensor parallelism, a pipeline
+with ZeRO or with tensor parallelism. The random state saved is rank 0's
+generators (not the tensor-parallel tracker's per-rank states).
 """
 import os
 import time
@@ -41,6 +50,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from ..distributed import parallel_env
 from ..observability import tracing as _obs
 from . import core, multihost, state  # noqa: F401
 from .core import (CheckpointCorruptError, CheckpointError,  # noqa: F401
@@ -87,14 +97,74 @@ class CheckpointManager:
 
     # -- the writer --------------------------------------------------------
     def _group(self):
-        """The process group the save spans: the first ZeRO optimizer's,
-        else the default group; None without a process group."""
+        """The process group the save spans (its rank 0 writes): the
+        active mesh's (a hybrid mesh spans the default group; a mesh over a
+        subgroup, that subgroup), else the default group; None without a
+        process group."""
         if not (dist.is_available() and dist.is_initialized()):
             return None
-        for o in self._optimizers.values():
-            if o._zero is not None:
-                return o._zero.group
+        mesh = parallel_env.current_mesh()
+        if mesh is not None and mesh.group is not None:
+            return mesh.group
         return dist.group.WORLD
+
+    def _pipeline(self):
+        """(this rank's stage, the number of stages) of the registered
+        pipelined models, else None; raises for the combinations a
+        checkpoint does not cover."""
+        stages = {state.pipeline_stage(m) for m in self._models.values()}
+        stages.discard(None)
+        split = [n for n, o in self._optimizers.items()
+                 if state.splits_parameters(o)]
+        for name, o in self._optimizers.items():
+            if o._zero is not None and o._zero.stage > 1 and split:
+                raise NotImplementedError(
+                    f"a checkpoint of ZeRO-{o._zero.stage} (optimizer "
+                    f"{name!r}) with tensor-parallel (mp-split) parameters "
+                    "is not covered; ZeRO-1 is")
+        if not stages:
+            return None
+        if len(stages) > 1:
+            raise NotImplementedError(
+                f"registered models disagree on their pipeline stage: "
+                f"{sorted(stages)}")
+        zero = [n for n, o in self._optimizers.items() if o._zero is not None]
+        if zero or split:
+            raise NotImplementedError(
+                "a checkpoint of a pipelined model with "
+                + (f"ZeRO (optimizer(s) {zero})" if zero else
+                   "tensor-parallel (mp-split) parameters")
+                + " is not covered; a pipeline over replicated or dp "
+                "optimizers is")
+        return stages.pop()
+
+    @staticmethod
+    def _payload(kind, name, stage):
+        if stage is None:
+            return f"{kind}_{name}.pkl"
+        return f"{kind}_{name}.stage{stage[0]}.pkl"
+
+    @staticmethod
+    def _collect(payloads, group):
+        """Every stage's payloads at the writer: each stage's first data-
+        and model-parallel rank sends its own (the others hold copies)."""
+        from ..distributed.fleet.base.topology import \
+            get_hybrid_communicate_group
+        hcg = get_hybrid_communicate_group()
+        sends = hcg is None or (hcg.get_data_parallel_rank() == 0
+                                and hcg.get_model_parallel_rank() == 0)
+        mine = payloads if sends else {}
+        gathered = ([None] * dist.get_world_size(group)
+                    if dist.get_rank(group) == 0 else None)
+        dist.gather_object(mine, gathered,
+                           dst=dist.get_global_rank(group, 0), group=group)
+        if gathered is None:
+            return payloads
+        out = {}
+        for part in gathered:
+            for k, v in part.items():
+                out.setdefault(k, v)
+        return out
 
     def _agree(self, group, ok):
         """Whether every rank of ``group`` is ``ok`` (the writer: it
@@ -110,18 +180,20 @@ class CheckpointManager:
     def save(self, step, extra_meta=None):
         """Capture every registered component and atomically publish
         checkpoint ``step``. Returns the published directory. Every rank
-        of a data-parallel job calls it."""
+        of a distributed job calls it."""
         group = self._group()
+        stage = self._pipeline()
         payloads = {}
         zero_meta = {}
         with _obs.trace_span("checkpoint/capture", cat="checkpoint",
                              step=step):
             for name, m in self._models.items():
-                payloads[f"model_{name}.pkl"] = state.dumps(
+                payloads[self._payload("model", name, stage)] = state.dumps(
                     state.capture_model(m))
             for name, o in self._optimizers.items():
                 rec = state.capture_optimizer(o)
-                payloads[f"optimizer_{name}.pkl"] = state.dumps(rec)
+                payloads[self._payload("optimizer", name, stage)] = \
+                    state.dumps(rec)
                 if "zero" in rec:
                     z = rec["zero"]
                     zero_meta[name] = {"stage": z["stage"], "axis": z["axis"],
@@ -131,8 +203,12 @@ class CheckpointManager:
                     state.capture_scaler(s))
             if self._include_rng:
                 payloads["rng.pkl"] = state.dumps(state.capture_rng())
+            if stage is not None and group is not None:
+                payloads = self._collect(payloads, group)
         meta = {"step": int(step), "time": time.time(),
                 "components": sorted(payloads), "zero": zero_meta}
+        if stage is not None:
+            meta["pipeline_stages"] = stage[1]
         if extra_meta:
             meta.update(extra_meta)
         final = os.path.join(self.root, core.step_dirname(step))
@@ -160,6 +236,13 @@ class CheckpointManager:
         if found is None:
             return None
         got_step, payloads, meta = found
+        stage = self._pipeline()
+        saved_stages = meta.get("pipeline_stages")
+        if (stage[1] if stage else None) != saved_stages:
+            raise StateMismatchError(
+                f"checkpoint step {got_step} was written by "
+                f"{saved_stages or 'no'} pipeline stages, the live model has "
+                f"{stage[1] if stage else 'none'}")
 
         def _load(fname, what):
             data = payloads.get(fname)
@@ -173,13 +256,15 @@ class CheckpointManager:
 
         zero3_by_model = {}
         for name, m in self._models.items():
-            rec = _load(f"model_{name}.pkl", f"model {name!r}")
+            rec = _load(self._payload("model", name, stage),
+                        f"model {name!r}")
             if rec is not None:
                 state.restore_model(m, rec, strict=strict)
                 zero3_by_model[name] = rec.get("zero3_params", [])
         covered = set()
         for name, o in self._optimizers.items():
-            rec = _load(f"optimizer_{name}.pkl", f"optimizer {name!r}")
+            rec = _load(self._payload("optimizer", name, stage),
+                        f"optimizer {name!r}")
             if rec is not None:
                 state.restore_optimizer(o, rec, strict=strict)
                 if "zero" in rec and o._zero.stage == 3:

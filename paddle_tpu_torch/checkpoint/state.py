@@ -22,6 +22,17 @@ arrays are ``ml_dtypes.bfloat16`` where that package is installed, as the
 reference writes them, else widened to float32 (exact; a restore casts to
 the live tensor's dtype).
 
+Under tensor parallelism (parameters split over the mp group, ``split_axis``
+set) the checkpoint holds the reference's full layout, so it crosses to
+the reference's single-process model: each split parameter is gathered
+from the mp group in its own dtype (``bridge.gather_full``) and a restore
+takes this rank's slice again (``bridge.local_slice``). The optimizer's
+record is then the per-parameter one (``"full_layout": True``): every
+moment and master gathered the same way, a ZeRO-1 store first gathered
+over its group and cut into its parameters; a restore cuts this rank's
+slice and, under ZeRO, writes this rank's rows of the stores. ZeRO-2/3
+over a mesh with tensor parallelism is not covered and raises.
+
 The one deliberate difference is the random state: a JAX threefry key and
 torch's Philox generators cannot be carried across, so the port writes its
 generators' states under a key the reference's record lacks, and restoring
@@ -47,6 +58,7 @@ import torch
 from ..observability import tracing as _obs
 
 __all__ = ["capture_model", "restore_model", "capture_optimizer",
+           "pipeline_stage", "splits_parameters",
            "restore_optimizer", "capture_scaler", "restore_scaler",
            "capture_rng", "restore_rng", "dumps", "loads", "to_numpy",
            "from_numpy", "StateMismatchError"]
@@ -138,19 +150,39 @@ def _zero3_param(t):
     return owner is not None and owner.stage == 3
 
 
+def _split(t):
+    """Whether ``t`` is a parameter split over more than one mp rank."""
+    from ..bridge import _sliced
+    return _sliced(t) and t.split_degree > 1
+
+
+def _full(t, param):
+    """``t`` (the parameter ``param`` or one of its slots) in the full
+    layout: gathered from the mp group where ``param`` is split."""
+    from ..bridge import gather_full
+    return gather_full(t, param) if _split(param) else t
+
+
+def _local(arr, param):
+    """This rank's slice of a full-layout array for ``param``."""
+    from ..bridge import local_slice
+    return local_slice(arr, param) if _split(param) else arr
+
+
 # -- model -----------------------------------------------------------------
 
 def capture_model(model):
     """Host copies of the model's ``state_dict`` entries by structural
-    name. Stage 3's parameters are views of buffers that its optimizer's
-    ``param`` stores fill, so they are recorded by name only (a restore
-    checks that a restored optimizer covers them)."""
+    name, each split parameter in the full layout (every rank of its mp
+    group calls this). Stage 3's parameters are views of buffers that its
+    optimizer's ``param`` stores fill, so they are recorded by name only (a
+    restore checks that a restored optimizer covers them)."""
     state, zero3 = {}, []
     for name, t in model.state_dict(keep_vars=True).items():
         if _zero3_param(t):
             zero3.append(name)
             continue
-        state[name] = to_numpy(t)
+        state[name] = to_numpy(_full(t, t))
     return {"state": state, "zero3_params": zero3}
 
 
@@ -160,7 +192,7 @@ def restore_model(model, data, strict=True):
     missing = []
     for name, t in own.items():
         if name in saved:
-            _copy_into(t, saved[name], f"model entry {name!r}")
+            _copy_into(t, _local(saved[name], t), f"model entry {name!r}")
         elif not _zero3_param(t):  # stage 3: restored from its stores
             missing.append(name)
     if strict and missing:
@@ -177,18 +209,38 @@ def _indexed_params(opt):
             for pi, p in enumerate(group["params"])]
 
 
+def pipeline_stage(model):
+    """(this rank's stage, the number of stages) of a pipelined model
+    (``PipelineLayer`` over more than one stage, wrapped or not), else
+    None."""
+    from ..bridge import _inner
+    from ..distributed.fleet.meta_parallel.pp_layers import PipelineLayer
+    inner = _inner(model)
+    if isinstance(inner, PipelineLayer) and inner.num_stages > 1:
+        return inner.stage_id, inner.num_stages
+    return None
+
+
+def splits_parameters(opt):
+    """Whether any parameter of ``opt`` is split over an mp group."""
+    return any(_split(p) for p in opt._parameters())
+
+
 def capture_optimizer(opt, local=False):
     """The optimizer's state as the reference records it. Under ZeRO each
     store is gathered from every rank of its group (each rank calls this)
     into the per-rank shards list; ``local=True`` keeps only this rank's
     shard, with its first row as ``lo`` (a multi-process checkpoint's
-    partition, ``multihost.partition_optimizer``)."""
+    partition, ``multihost.partition_optimizer``). Over split parameters
+    the record is the per-parameter full layout (:func:`_capture_full`)."""
     out = {"step_count": to_numpy(opt._step_count),
            "lr": to_numpy(opt._lr.tensor)}
     if opt._lr.scheduler is not None:
         out["lr_scheduler"] = opt._lr.scheduler.state_dict()
     params = _indexed_params(opt)
     key_of = {id(p): k for k, p in params}
+    if splits_parameters(opt):
+        return _capture_full(opt, params, out)
     # the accumulation window's phase: gradients that survived the last
     # step, which the window's next micro steps add to
     out["grads"] = {key: to_numpy(p.grad) for key, p in params
@@ -219,6 +271,71 @@ def capture_optimizer(opt, local=False):
                    "degree": zero.degree,
                    "comm_buffer_mb": zero.comm_buffer_mb, "buckets": buckets}
     return out
+
+
+def _capture_full(opt, params, out):
+    """The per-parameter record in the reference's full layout: each
+    gradient, moment and master gathered from the mp group where its
+    parameter is split; a ZeRO-1 store gathered over its group first and
+    cut into its parameters' segments."""
+    zero = opt._zero
+    if zero is not None and zero.stage > 1:
+        raise NotImplementedError(
+            f"a checkpoint of ZeRO-{zero.stage} over the {zero.axis!r} axis "
+            "with tensor-parallel (mp-split) parameters is not covered; "
+            "ZeRO-1 is")
+    out["full_layout"] = True
+    out["grads"] = {key: to_numpy(_full(p.grad, p)) for key, p in params
+                    if p.grad is not None and not p.grad.is_sparse}
+    key_of = {id(p): k for k, p in params}
+    by_id = {id(p): p for _, p in params}
+    acc = {}
+    for (slot, pid), t in opt._accumulators.items():
+        if pid in key_of:
+            acc[f"{key_of[pid]}.{slot}"] = to_numpy(_full(t, by_id[pid]))
+    for b in zero.buckets if zero is not None else ():
+        for slot, store in b.stores.items():
+            full = torch.cat(zero.gather_shards(store))
+            for p, seg in zip(b.params, b.segments(full)):
+                acc[f"{key_of[id(p)]}.{slot}"] = to_numpy(_full(seg, p))
+    out["accumulators"] = acc
+    out["flat_stores"] = {}
+    return out
+
+
+def _restore_full(opt, params, data, strict):
+    """Restore a :func:`_capture_full` record: this rank's slice of each
+    slot, into the accumulators or this rank's rows of the ZeRO stores."""
+    acc = data.get("accumulators", {})
+    zero = opt._zero
+    live = {f"{k}.{slot}" for k, p in params.items()
+            for (slot, pid) in opt._accumulators if pid == id(p)}
+    if zero is not None:
+        key_of = {id(p): k for k, p in params.items()}
+        for b in zero.buckets:
+            for slot, store in b.stores.items():
+                keys = [f"{key_of[id(p)]}.{slot}" for p in b.params]
+                live.update(keys)
+                gone = [k for k in keys if k not in acc]
+                if gone:
+                    raise StateMismatchError(
+                        f"the checkpoint has no {slot!r} for {gone}")
+                vals = [from_numpy(_local(acc[k], p)).to(store.device)
+                        for k, p in zip(keys, b.params)]
+                with torch.no_grad(), _transfer("h2d", store):
+                    store.copy_(b.local(b.flatten(vals, store.dtype,
+                                                  store.device)))
+    unknown = sorted(set(acc) - live)
+    if unknown and strict:
+        raise StateMismatchError(
+            f"checkpoint accumulators {unknown} have no live slot")
+    for key, p in params.items():
+        for (slot, pid), t in opt._accumulators.items():
+            name = f"{key}.{slot}"
+            if pid == id(p) and name in acc:
+                _copy_into(t, _local(acc[name], p), f"accumulator {name!r}")
+    if zero is not None:
+        zero.refresh_parameters()
 
 
 def _restore_store(zero, b, live, brec, srec):
@@ -271,7 +388,8 @@ def restore_optimizer(opt, data, strict=True):
                 # from before the restore must not join the next step
                 p.grad = None
                 continue
-            g = from_numpy(grads[key]).to(device=p.device, dtype=p.dtype)
+            g = from_numpy(_local(grads[key], p)).to(device=p.device,
+                                                      dtype=p.dtype)
             if tuple(g.shape) != tuple(p.shape):
                 raise StateMismatchError(
                     f"gradient {key!r}: shape {tuple(g.shape)} vs "
@@ -281,6 +399,8 @@ def restore_optimizer(opt, data, strict=True):
             else:
                 p.grad = g
 
+    if data.get("full_layout"):
+        return _restore_full(opt, params, data, strict)
     zero = opt._zero
     saved_zero = data.get("zero")
     if (zero is None) != (saved_zero is None):

@@ -61,11 +61,13 @@ class _LayerWrapper(Layer):
     def forward(self, *inputs, **kwargs):
         return self._layers(*inputs, **kwargs)
 
-    def parameters(self, recurse=True):
-        return self._layers.parameters(recurse)
+    def parameters(self, include_sublayers=True, recurse=None):
+        return self._layers.parameters(include_sublayers, recurse)
 
-    def named_parameters(self, *args, **kwargs):
-        return self._layers.named_parameters(*args, **kwargs)
+    def named_parameters(self, prefix="", include_sublayers=True,
+                         recurse=None, remove_duplicate=True):
+        return self._layers.named_parameters(prefix, include_sublayers,
+                                             recurse, remove_duplicate)
 
     def state_dict(self, *args, **kwargs):
         return self._layers.state_dict(*args, **kwargs)

@@ -2,10 +2,12 @@
 
 Each initializer draws on the target device from the package's seeded
 generator (``core.random.default_generator``), so a full-width model is
-initialized on the card without a host round trip.
+initialized on the card without a host round trip (``Assign`` copies the
+array it is given).
 """
 import math
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
@@ -83,3 +85,18 @@ class KaimingUniform(Initializer):
         u = torch.rand(tuple(shape), generator=default_generator(dev),
                        device=dev, dtype=torch.float32)
         return (u * (2 * limit) - limit).to(convert_dtype(dtype))
+
+
+class Assign(Initializer):
+    """The given array, whose shape must be the parameter's."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __call__(self, shape, dtype="float32", device=None):
+        arr = np.asarray(self.value)
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"Assign initializer shape {arr.shape} != "
+                             f"param shape {tuple(shape)}")
+        return torch.tensor(arr, dtype=convert_dtype(dtype),
+                            device=resolve_device(device))

@@ -4,8 +4,5 @@ from .layers import Layer
 
 
 class ReLU(Layer):
-    def __init__(self, name=None):
-        super().__init__()
-
     def forward(self, x):
         return F.relu(x)

@@ -14,11 +14,10 @@ class Linear(Layer):
                  bias_attr=None, name=None, device=None):
         super().__init__()
         self.weight = self.create_parameter(
-            [in_features, out_features], device=device,
+            [in_features, out_features], attr=weight_attr, device=device,
             default_initializer=I.XavierNormal())
-        # bias_attr=False: no bias, as in the reference
-        self.bias = None if bias_attr is False else self.create_parameter(
-            [out_features], is_bias=True, device=device)
+        self.bias = self.create_parameter(
+            [out_features], attr=bias_attr, is_bias=True, device=device)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -28,12 +27,20 @@ class Linear(Layer):
 
 
 class Embedding(Layer):
+    """A lookup table ``[num_embeddings, embedding_dim]`` (rows of
+    ``padding_idx`` zero). ``sparse=True`` (row gradients, SelectedRows)
+    raises: it waits in ROADMAP item 2."""
+
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
-                 device=None):
+                 sparse=False, weight_attr=None, name=None, device=None):
         super().__init__()
+        if sparse:
+            raise NotImplementedError(
+                "Embedding(sparse=True) needs row gradients (SelectedRows), "
+                "which wait in ROADMAP item 2; use sparse=False")
         self._padding_idx = padding_idx
         self.weight = self.create_parameter(
-            [num_embeddings, embedding_dim], device=device,
+            [num_embeddings, embedding_dim], attr=weight_attr, device=device,
             default_initializer=I.Normal(0.0, 1.0))
         if padding_idx is not None:
             with torch.no_grad():
@@ -44,7 +51,7 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
         super().__init__()
         self.p = p
         self.axis = axis

@@ -42,3 +42,13 @@ class LayerList(Layer, torch.nn.ModuleList):
         Layer.__init__(self)
         for layer in sublayers or ():
             self.append(layer)
+
+    # the reference's argument names for torch.nn.ModuleList's own
+    def append(self, layer):
+        return torch.nn.ModuleList.append(self, layer)
+
+    def insert(self, index, layer):
+        return torch.nn.ModuleList.insert(self, index, layer)
+
+    def extend(self, layers):
+        return torch.nn.ModuleList.extend(self, layers)

@@ -1,7 +1,8 @@
 """Conv1D, Conv2D, Conv3D (counterpart: ``paddle_tpu/nn/layer/conv.py``).
 
 Weights ``[out, in/groups, *k]`` drawn from ``KaimingUniform(fan_in)`` as in
-the reference; a zero bias unless ``bias_attr=False``. The transposed
+the reference, unless ``weight_attr`` gives an initializer; a zero bias
+unless ``bias_attr`` gives one or is False (no bias). The transposed
 layers are not ported.
 """
 import math
@@ -32,9 +33,10 @@ class _ConvNd(Layer):
         fan_in = (in_channels // groups) * math.prod(self._kernel_size)
         self.weight = self.create_parameter(
             [out_channels, in_channels // groups, *self._kernel_size],
-            device=device, default_initializer=I.KaimingUniform(fan_in=fan_in))
-        self.bias = None if bias_attr is False else self.create_parameter(
-            [out_channels], is_bias=True, device=device)
+            attr=weight_attr, device=device,
+            default_initializer=I.KaimingUniform(fan_in=fan_in))
+        self.bias = self.create_parameter(
+            [out_channels], attr=bias_attr, is_bias=True, device=device)
 
     def forward(self, x):
         conv = (F.conv1d, F.conv2d, F.conv3d)[self._nd - 1]

@@ -9,17 +9,19 @@ from .layers import Layer
 
 
 class LayerNorm(Layer):
-    def __init__(self, normalized_shape, epsilon=1e-5, device=None):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, device=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
         self.weight = self.create_parameter(
-            self._normalized_shape, device=device,
+            self._normalized_shape, attr=weight_attr, device=device,
             default_initializer=I.Constant(1.0))
-        self.bias = self.create_parameter(self._normalized_shape,
-                                          is_bias=True, device=device)
+        self.bias = self.create_parameter(
+            self._normalized_shape, attr=bias_attr, is_bias=True,
+            device=device)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight, self.bias,
@@ -30,10 +32,11 @@ class LayerNorm(Layer):
 
 
 class _BatchNormBase(Layer):
-    """Scale (ones) and shift (zeros) unless ``weight_attr``/``bias_attr``
-    is False; the running statistics are the float32 buffers ``_mean``
-    (zeros) and ``_variance`` (ones), the reference's ``state_dict``
-    names. ``momentum`` is the reference's (the old value's weight)."""
+    """Scale (ones) and shift (zeros), or as ``weight_attr``/``bias_attr``
+    say (none where False); the running statistics are the float32
+    buffers ``_mean`` (zeros) and ``_variance`` (ones), the reference's
+    ``state_dict`` names. ``momentum`` is the reference's (the old
+    value's weight)."""
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
@@ -44,10 +47,11 @@ class _BatchNormBase(Layer):
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        self.weight = None if weight_attr is False else self.create_parameter(
-            [num_features], device=device, default_initializer=I.Constant(1.0))
-        self.bias = None if bias_attr is False else self.create_parameter(
-            [num_features], is_bias=True, device=device)
+        self.weight = self.create_parameter(
+            [num_features], attr=weight_attr, device=device,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(
+            [num_features], attr=bias_attr, is_bias=True, device=device)
         dev = resolve_device(device)
         self.register_buffer("_mean", torch.zeros(num_features, device=dev))
         self.register_buffer("_variance",

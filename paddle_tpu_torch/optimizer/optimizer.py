@@ -15,10 +15,17 @@ device, in float32. So a step never reads the host, and a step captured
 into a CUDA graph (``jit.to_static`` on the card) counts its steps and
 reads a rate set between replays.
 
+A parameter made with a ``ParamAttr`` carries its own ``regularizer``,
+which replaces the optimizer's ``weight_decay`` for it, and a
+``learning_rate`` factor (``p.optimize_attr``) that scales the rate for it:
+the update runs once per distinct factor with the scaled rate, a device
+tensor like the rate itself. ZeRO's flat stores take neither (enabling it
+over such a parameter raises).
+
 Parameters are named by ``p.param_name`` where set (``Layer.parameters()``
-sets the structured ``state_dict`` name), else ``param_<i>`` in order; the
-names key ``state_dict`` and are what AdamW's ``apply_decay_param_fun``
-receives.
+sets the structured ``state_dict`` name), else (or where an earlier
+parameter took the name) ``param_<i>`` in order; the names key
+``state_dict`` and are what AdamW's ``apply_decay_param_fun`` receives.
 
 Inside a step program with a dp axis (``jit.to_static(..., dp_axis=)``)
 the step first reduces every gradient over the mesh's group, a float32
@@ -41,6 +48,11 @@ from .lr import LRScheduler
 
 def _capturing(t):
     return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def _lr_scale(p):
+    """The parameter's learning-rate factor (``ParamAttr.learning_rate``)."""
+    return getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
 
 
 def _host_scalar(v):
@@ -77,6 +89,9 @@ class Optimizer:
     # optimizer whose update is not elementwise cannot run on a flat shard
     _zero = None
     _zero_compatible = True
+    # whether the update folds a regularizer into the gradient (AdamW's
+    # decoupled decay does not, as in the reference)
+    _reads_regularizer = True
 
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None, fuse_accumulators=False):
@@ -104,8 +119,15 @@ class Optimizer:
         self._accumulators = {}  # (slot, id(param)) -> float32 tensor
         self._names = {}  # id(param) -> name
         self._step_count = torch.zeros((), dtype=torch.int32, device=device)
+        used = set()
         for i, p in enumerate(self._parameters()):
-            self._names[id(p)] = getattr(p, "param_name", None) or f"param_{i}"
+            name = getattr(p, "param_name", None)
+            if not name or name in used:
+                # the lists of two layers (``a.parameters() +
+                # b.parameters()``) may repeat a structured name
+                name = f"param_{i}"
+            used.add(name)
+            self._names[id(p)] = name
             self._create_accumulators(p)
 
     @staticmethod
@@ -164,10 +186,11 @@ class Optimizer:
 
     clear_gradients = clear_grad
 
-    def _decayed_grad(self, value, g):
-        """L2/L1 decay folded into the gradient (the reference's
-        regularizer path; AdamW's decoupled decay replaces it)."""
-        reg = self._weight_decay
+    def _decayed_grad(self, value, g, p=None):
+        """L2/L1 decay folded into the gradient: parameter ``p``'s own
+        regularizer, else the optimizer's (the reference's regularizer
+        path; AdamW's decoupled decay replaces it)."""
+        reg = getattr(p, "regularizer", None) or self._weight_decay
         if isinstance(reg, L2Decay):
             return g + reg.coeff * value
         if isinstance(reg, L1Decay):
@@ -251,18 +274,23 @@ class Optimizer:
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._step_count.add_(1)
-        self._prepare_step(self._lr.tensor)
+        by_scale = {}
         for p, g in params_grads:
-            if g.dtype in (torch.bfloat16, torch.float16):
-                g = g.float()
-            # the update runs on the float32 master where one is kept; the
-            # low-precision parameter only receives the cast result
-            value = self._maybe_master(p)
-            if value is None:
-                value = p if p.dtype == torch.float32 else p.float()
-            self._apply_one(p, value, g)
-            if value is not p:
-                p.copy_(value)
+            by_scale.setdefault(_lr_scale(p), []).append((p, g))
+        for scale, pairs in by_scale.items():
+            lr = self._lr.tensor
+            self._prepare_step(lr if scale == 1.0 else lr * scale)
+            for p, g in pairs:
+                if g.dtype in (torch.bfloat16, torch.float16):
+                    g = g.float()
+                # the update runs on the float32 master where one is kept;
+                # the low-precision parameter only receives the cast result
+                value = self._maybe_master(p)
+                if value is None:
+                    value = p if p.dtype == torch.float32 else p.float()
+                self._apply_one(p, value, g)
+                if value is not p:
+                    p.copy_(value)
 
     minimize_step = step
 
@@ -334,7 +362,7 @@ class SGD(Optimizer):
         self._lr_t = lr
 
     def _apply_one(self, p, value, g):
-        value.sub_(self._lr_t * self._decayed_grad(value, g))
+        value.sub_(self._lr_t * self._decayed_grad(value, g, p))
 
     def _zero_enable(self, *args, **kwargs):
         _no_zero(self)
@@ -362,7 +390,7 @@ class Momentum(Optimizer):
         self._lr_t = lr
 
     def _apply_one(self, p, value, g):
-        g = self._decayed_grad(value, g)
+        g = self._decayed_grad(value, g, p)
         v = self._get_accumulator("velocity", p)
         v.mul_(self._momentum).add_(g)
         if self._nesterov:
@@ -409,21 +437,24 @@ class Adam(Optimizer):
                 "moment2": self._get_accumulator("moment2", p)}
 
     def _apply_one(self, p, value, g):
-        self._apply_flat(value, g, self._slots_of(p), decay=None)
+        self._apply_flat(value, g, self._slots_of(p), decay=None, p=p)
 
-    def _apply_flat(self, value, g, slots, decay):
+    def _apply_flat(self, value, g, slots, decay, p=None):
         """The update on ``value`` with its state ``slots`` (by slot name),
-        elementwise: a parameter or a ZeRO shard of flat rows alike.
+        elementwise: a parameter ``p`` or a ZeRO shard of flat rows alike.
         ``decay`` is AdamW's (True, False or a 0/1 row mask)."""
         m, v = slots["moment1"], slots["moment2"]
-        self._moments(m, v, self._decayed_grad(value, g))
+        self._moments(m, v, self._decayed_grad(value, g, p))
         self._update(value, m, v)
 
 
 class AdamW(Adam):
     """Adam with decoupled weight decay ``p -= lr * coeff * p`` for the
     parameters whose name ``apply_decay_param_fun`` accepts (all if
-    None)."""
+    None); no regularizer, a parameter's own included, as in the
+    reference."""
+
+    _reads_regularizer = False
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
@@ -448,7 +479,7 @@ class AdamW(Adam):
         self._apply_flat(value, g, self._slots_of(p),
                          decay=self._decays(self._names[id(p)]))
 
-    def _apply_flat(self, value, g, slots, decay):
+    def _apply_flat(self, value, g, slots, decay, p=None):
         m, v = slots["moment1"], slots["moment2"]
         self._moments(m, v, g)
         if decay is not False:

@@ -61,6 +61,7 @@ import torch.distributed as dist
 
 from ..distributed import bucketing, collective, parallel_env
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue
+from .optimizer import _lr_scale
 
 _FLAT_LANES = 1024  # the reference's row width
 
@@ -142,6 +143,17 @@ class ZeroState:
                 f"{type(opt).__name__} has a non-elementwise update "
                 "(norm/trust-ratio or RNG terms) and cannot run sharded; "
                 "ZeRO supports the Adam family")
+        for p in opt._parameters():
+            attrs = [a for a, on in (
+                ("learning_rate", _lr_scale(p) != 1.0),
+                ("regularizer", opt._reads_regularizer
+                 and getattr(p, "regularizer", None) is not None)) if on]
+            if attrs and p.requires_grad:
+                raise NotImplementedError(
+                    f"param {opt._names[id(p)]} has a per-parameter "
+                    f"{' and '.join(attrs)} (ParamAttr), which ZeRO's flat "
+                    "stores do not take; leave it at the default or run "
+                    "without ZeRO")
         clip = opt._grad_clip
         if clip is not None and not isinstance(
                 clip, (ClipGradByGlobalNorm, ClipGradByValue)):

@@ -50,8 +50,9 @@ PORTED_MODULES = {
     "paddle_tpu.distributed.fleet.meta_parallel.pipeline_parallel",
     "paddle_tpu.parallel.pipeline", "paddle_tpu.parallel.ring_attention",
     "paddle_tpu.parallel.moe", "paddle_tpu.incubate.moe",
-    # the convolutional path
+    # the convolutional path, and detection
     "paddle_tpu.vision.models.lenet", "paddle_tpu.vision.models.resnet",
+    "paddle_tpu.vision.ops",
     # serving from a saved artifact
     "paddle_tpu.jit.io", "paddle_tpu.jit.export", "paddle_tpu.inference",
     "paddle_tpu.serving.engine", "paddle_tpu.serving.passes",

@@ -731,7 +731,7 @@ def test_grad_scaler_skips_a_step_with_an_inf():
             if scaled:
                 s.scale(loss).backward()
                 if i == poison:
-                    next(m.parameters()).grad[0, 0] = float("inf")
+                    m.parameters()[0].grad[0, 0] = float("inf")
                 s.step(opt)
             elif i != poison:
                 loss.backward()

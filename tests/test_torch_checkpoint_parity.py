@@ -452,7 +452,7 @@ def test_grad_scaler_against_the_reference():
         sc.scale(F.cross_entropy(m(torch.from_numpy(x)),
                                  torch.from_numpy(y))).backward()
         if i == 1:
-            next(m.parameters()).grad[0, 0] = float("inf")
+            m.parameters()[0].grad[0, 0] = float("inf")
         sc.step(opt)
         opt.clear_grad()
         got.append((sc.get_init_loss_scaling(), int(sc._good_steps),
