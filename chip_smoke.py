@@ -200,7 +200,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    float32, with the host's ``multiclass_nms`` on each result: the
    decoded boxes and scores against the CPU, latency per bucket split
    into the device step and the NMS. No flash kernel may launch.
-14. One JSON line with every kernel of the paths, then the result line.
+14. The imperative surface (``Tensor``, autograd, ``PyLayer``, the vision
+   functionals, sparse embeddings), one JSON line of its results: (a) the
+   nine vision functionals and ``LocalResponseNorm`` at their users'
+   shapes (a spatial transformer at [64, 64, 56, 56], a deformable
+   ResNet-50 stage-3 conv, TSM's shift, ResNet-50 stage shapes), float32
+   forwards and gradients against the CPU; (b) GPT-small with phase 4's
+   recipe fed ``to_tensor`` ids: 2 x 10 eager steps bitwise against the
+   same steps fed plain tensors, and two calls of ``to_static(one_step,
+   scan_steps=10)`` with ``Tensor`` inputs bitwise against them, 12
+   launches of each flash kernel a step and 120 in the replayed call; then
+   the eager step timed with plain and with ``Tensor`` inputs in turns;
+   (c) ``grad(create_graph=True)`` to third order, a gradient penalty
+   through a convolutional critic, a ``PyLayer`` and ``no_grad`` against
+   the CPU, and ``get_rng_state``/``set_rng_state`` repeating draws
+   bitwise; (d) sparse embeddings at ``bench_ctr``'s sizes (a 2,000,000 x
+   64 table, 16 slots, batch 1024, Zipf-1.2 ids) with ``SGD`` and
+   ``Adam(lazy_mode=True)``: captured steps bitwise against eager steps
+   under deterministic algorithms, the untouched rows and their moments
+   unchanged, sparse SGD against the dense update, and each step timed
+   sparse against dense. No flash kernel may launch in (a), (c) or (d).
+15. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -4714,6 +4734,662 @@ def phase13(pt, fa, seed, failures):
     return out
 
 
+# ---- phase 14: the imperative surface ---------------------------------------
+
+# float32 card vs CPU in (a) and (c): the same ops, cuDNN and ATen on the
+# card, in another order (and, in the gradients of the gathers, atomics):
+# the max |card - CPU| over the max |CPU| of each output, fixed before any
+# run.
+SURFACE_FWD_TOL = 1e-5
+SURFACE_GRAD_TOL = 1e-4
+# A batch whose samples are independent (each sample's output and its
+# gradients depend on that sample alone) is rerun on the CPU for its first
+# samples only.
+SURFACE_CPU_SAMPLES = 4
+# (d): bench_ctr's accelerator sizes (benchmarks/run_all.py:419).
+CTR_VOCAB, CTR_DIM, CTR_SLOTS, CTR_BATCH = 2_000_000, 64, 16, 1024
+CTR_HIDDEN = (512, 256)
+CTR_STEPS, CTR_TIMED, CTR_WARMUP = 8, 10, 2
+CTR_SGD_LR, CTR_ADAM_LR = 0.05, 1e-3
+# sparse against dense SGD over CTR_STEPS steps from one table: the
+# touched rows' updates differ by the order in which the cotangents of
+# equal ids are summed (float32) and what that moves downstream: the L2
+# of the two updates' difference over the L2 of the dense update.
+CTR_SPARSE_DENSE_TOL = 1e-4
+SURFACE_TIMED = (3, 10)  # (b): 3 alternations of 10 steps an arm
+
+
+def max_rel(card, cpu):
+    """max |card - cpu| / max |cpu| (float32, on the CPU)."""
+    a, b = card.detach().float().cpu(), cpu.detach().float().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def check_card_vs_cpu(label, card, cpu, tol, failures):
+    worst = max((max_rel(a, b), i) for i, (a, b) in enumerate(zip(card, cpu)))
+    ok = worst[0] <= tol
+    log(f"  {label}: card vs CPU max rel {worst[0]:.3e} (output {worst[1]}"
+        f", tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 14: {label} disagrees with the CPU "
+                        f"({worst[0]:.3e} > {tol:g})")
+    return worst[0]
+
+
+def seeded(gen, shape, lo=None, hi=None):
+    """float32 on the CPU from ``gen``: normal, or uniform in [lo, hi)."""
+    if lo is None:
+        return torch.randn(shape, generator=gen)
+    return lo + (hi - lo) * torch.rand(shape, generator=gen)
+
+
+def outputs_and_grads(fn, inputs, cot):
+    """fn's output and the gradients of sum(out * cot) with respect to
+    every input that requires grad."""
+    out = fn(*inputs)
+    wrt = [x for x in inputs if isinstance(x, torch.Tensor)
+           and x.requires_grad]
+    grads = torch.autograd.grad((out * cot).sum(), wrt)
+    return [out, *grads]
+
+
+def boundary_free_grid(gen, n, h, w, height, width, align_corners):
+    """A normalized sampling grid [n, h, w, (x, y)] whose pixel
+    coordinates (some outside the input, for the padding modes) keep 0.05
+    pixel from every integer and half-integer, where bilinear weights
+    switch corners and nearest rounding switches pixels: there the card's
+    and the CPU's rounding of the same coordinate may pick differently."""
+    def coords(size, shape):
+        whole = torch.randint(-3, size + 2, shape, generator=gen).float()
+        frac = 0.05 + 0.4 * torch.rand(shape, generator=gen)
+        frac = frac + 0.5 * (torch.rand(shape, generator=gen) < 0.5)
+        pix = whole + frac
+        if align_corners:
+            return pix / (size - 1) * 2 - 1
+        return (2 * pix + 1) / size - 1
+    return torch.stack([coords(width, (n, h, w)), coords(height, (n, h, w))],
+                       dim=-1)
+
+
+def surface_vision(pt, seed, failures):
+    """(a): the vision functionals on the card at their users' shapes,
+    against the CPU, float32: each output and the gradients of sum(out *
+    c) for a seeded c with respect to every input."""
+    F = pt.nn.functional
+    gen = torch.Generator().manual_seed(seed + 1401)
+    n, c, h, w = 64, 64, 56, 56  # a spatial transformer's feature map
+    eye = torch.tensor([[1.0, 0, 0], [0, 1.0, 0]]).expand(n, 2, 3)
+    cases = {}
+    for ac in (True, False):
+        cases[f"affine_grid [{n}, 2, 3] -> [{n}, {h}, {w}, 2] "
+              f"align_corners={ac}"] = (
+            lambda theta, ac=ac: F.affine_grid(theta, [theta.shape[0], c, h,
+                                                       w], align_corners=ac),
+            [eye + 0.3 * seeded(gen, (n, 2, 3))], None)
+    for mode in ("bilinear", "nearest"):
+        for pad in ("zeros", "border"):
+            for ac in (True, False):
+                cases[f"grid_sample {mode} {pad} align_corners={ac} "
+                      f"[{n}, {c}, {h}, {w}]"] = (
+                    lambda x, g, mode=mode, pad=pad, ac=ac: F.grid_sample(
+                        x, g, mode=mode, padding_mode=pad, align_corners=ac),
+                    [seeded(gen, (n, c, h, w)),
+                     boundary_free_grid(gen, n, h, w, h, w, ac)],
+                    SURFACE_CPU_SAMPLES)
+    # the transformer whole: bilinear is continuous in the coordinates, so
+    # its output and input gradient are compared (its grid gradient is
+    # the cases above, on grids clear of the pixel boundaries)
+    cases[f"spatial transformer affine_grid + grid_sample bilinear "
+          f"[{n}, {c}, {h}, {w}]"] = (
+        lambda x, theta: F.grid_sample(
+            x, F.affine_grid(theta, [x.shape[0], c, h, w])),
+        [seeded(gen, (n, c, h, w)), eye + 0.3 * seeded(gen, (n, 2, 3))],
+        SURFACE_CPU_SAMPLES, (0,))
+    cases["deformable_conv v2 [16, 256, 14, 14] -> 256, 3x3"] = (
+        lambda x, off, wt, b, m: F.deformable_conv(x, off, wt, b, padding=1,
+                                                   mask=m),
+        [seeded(gen, (16, 256, 14, 14)), 2.0 * seeded(gen, (16, 18, 14, 14)),
+         0.02 * seeded(gen, (256, 256, 3, 3)), seeded(gen, (256,)),
+         seeded(gen, (16, 9, 14, 14), 0.0, 1.0)], None)
+    cases["temporal_shift [8*8, 256, 56, 56] seg_num=8"] = (
+        lambda x: F.temporal_shift(x, 8), [seeded(gen, (64, 256, 56, 56))],
+        8)
+    cases["channel_shuffle [32, 256, 56, 56] groups=8"] = (
+        lambda x: F.channel_shuffle(x, 8), [seeded(gen, (32, 256, 56, 56))],
+        SURFACE_CPU_SAMPLES)
+    cases["space_to_depth [32, 256, 56, 56] blocksize=2"] = (
+        lambda x: F.space_to_depth(x, 2), [seeded(gen, (32, 256, 56, 56))],
+        SURFACE_CPU_SAMPLES)
+    cases["affine_channel [32, 512, 28, 28]"] = (
+        F.affine_channel, [seeded(gen, (32, 512, 28, 28)),
+                           seeded(gen, (512,)), seeded(gen, (512,))], None)
+    cases["local_response_norm [32, 256, 56, 56] size=5"] = (
+        lambda x: F.local_response_norm(x, 5, alpha=1e-3, k=2.0),
+        [seeded(gen, (32, 256, 56, 56))], SURFACE_CPU_SAMPLES)
+    cases["lrn [32, 1024, 14, 14] n=5"] = (
+        lambda x: F.lrn(x, 5, alpha=1e-4), [seeded(gen, (32, 1024, 14, 14))],
+        SURFACE_CPU_SAMPLES)
+    cases["LocalResponseNorm [32, 2048, 7, 7] size=3"] = (
+        pt.nn.LocalResponseNorm(3, alpha=1e-3),
+        [seeded(gen, (32, 2048, 7, 7))], SURFACE_CPU_SAMPLES)
+    out = {}
+    for label, (fn, host, k, *diff) in cases.items():
+        wrt = diff[0] if diff else range(len(host))
+        card_in = [x.cuda().requires_grad_(i in wrt)
+                   for i, x in enumerate(host)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_out = fn(*card_in)
+        cot = seeded(gen, tuple(card_out.shape))
+        card = [card_out] + list(torch.autograd.grad(
+            (card_out * cot.cuda()).sum(),
+            [x for x in card_in if x.requires_grad]))
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        cpu_in = [(x[:k] if k else x).detach().clone().requires_grad_(
+            y.requires_grad) for x, y in zip(host, card_in)]
+        cpu = outputs_and_grads(fn, cpu_in, cot[:k] if k else cot)
+        if k:
+            card = [t[:k] for t in card]
+        fwd = check_card_vs_cpu(f"(a) {label} forward", card[:1], cpu[:1],
+                                SURFACE_FWD_TOL, failures)
+        grad = check_card_vs_cpu(f"(a) {label} gradients", card[1:],
+                                 cpu[1:], SURFACE_GRAD_TOL, failures)
+        out[label] = {"forward_max_rel": fwd, "grad_max_rel": grad,
+                      "card_fwd_bwd_ms_first_call": card_ms,
+                      "cpu_samples": k or "all"}
+        del card, cpu, card_in
+    return out
+
+
+def gpt_tensor_surface(pt, fa, seed, failures):
+    """(b): GPT-small through the Tensor surface, against the same steps
+    fed plain tensors and against its k-step program; then the eager
+    step's dispatch cost, plain against Tensor inputs."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.core.tensor import unwrap
+    from paddle_tpu_torch.models.gpt import synthetic_lm_batch
+    k = GPT_KSTEP
+    cfg, base = gpt_small_model(pt, seed + 1410)
+    base.to("bfloat16")
+    host = np.stack([synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size,
+                                        seed=seed + 1420 + i)
+                     for i in range(k)])
+
+    def recipe(m):
+        opt, sched = make_optimizer(m)
+
+        def one_step(ids):
+            with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+                loss = m.loss(m(ids), ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return one_step, sched
+
+    plain_ids = [torch.from_numpy(b).cuda() for b in host]
+    tensor_ids = [pt.to_tensor(b) for b in host]
+    runs, out = {}, {}
+    for arm, feed in (("plain", plain_ids), ("tensor", tensor_ids)):
+        m = copy.deepcopy(base)
+        step, sched = recipe(m)
+        fa.reset_launch_counts()
+        losses = []
+        for call in range(2):  # the scheduler steps after each k steps
+            for i in range(k):
+                loss = step(feed[i])
+                losses.append(loss.detach())
+            sched.step()
+        torch.cuda.synchronize()
+        if arm == "tensor":
+            ok = type(feed[0]) is pt.Tensor and type(loss) is pt.Tensor
+            log(f"  (b) Tensor arm: ids {type(feed[0]).__module__}."
+                f"{type(feed[0]).__name__}, loss "
+                f"{type(loss).__module__}.{type(loss).__name__} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("phase 14 (b): the Tensor surface did not "
+                                "return Tensor")
+            out["eager_launches"] = flash_launches(fa)
+        runs[arm] = (unwrap(torch.stack(losses)), m)
+    compare_runs("(b) GPT-small, Tensor inputs vs plain inputs, 2 x 10 "
+                 "eager steps", runs["plain"][0], runs["tensor"][0],
+                 runs["plain"][1], runs["tensor"][1], failures)
+    want = cfg.num_layers * 2 * k
+    for name, n in out["eager_launches"].items():
+        ok = n == want
+        log(f"  (b) {name}: {n} launches over {2 * k} eager steps with "
+            f"Tensor inputs ({n / (2 * k):g} a step; want "
+            f"{cfg.num_layers}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 14 (b): {name} launched {n} times, "
+                            f"not {want}")
+    # the k-step program with Tensor inputs, against the eager steps
+    twin = copy.deepcopy(base)
+    body, sched = recipe(twin)
+    program = jit.to_static(body, scan_steps=k)
+    stacked = pt.to_tensor(host)
+    got = []
+    with inspect_capture():
+        got.append(program(stacked))
+    sched.step()
+    fa.reset_launch_counts()
+    replays = count_replays(program)
+    got.append(replays.run(lambda: program(stacked)))
+    sched.step()
+    compare_runs(f"(b) GPT-small, to_static(one_step, scan_steps={k}) "
+                 f"with Tensor inputs vs the eager steps",
+                 runs["plain"][0],
+                 unwrap(torch.cat([g.detach() for g in got])),
+                 runs["plain"][1], twin, failures)
+    ok = type(got[0]) is pt.Tensor
+    log(f"  (b) the k-step program returns {type(got[0]).__name__} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 14 (b): the k-step program did not return "
+                        "Tensor")
+    launches, off = replays.launches()
+    for name, n in launches.items():
+        ok = n == cfg.num_layers * k and not off[name]
+        log(f"  (b) replayed k-step call: {name} {n} launches from the "
+            f"graph (want {cfg.num_layers * k}), {off[name]} off the bf16 "
+            f"variant {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 14 (b): the replayed call launched "
+                            f"{name} {n} times, not {cfg.num_layers * k}")
+    out["kstep_call_launches"] = launches
+    del program, twin, body, runs
+    free_cuda()
+
+    # dispatch cost: the eager step with plain and with Tensor inputs, in
+    # turns on one model
+    m = copy.deepcopy(base)
+    step, _ = recipe(m)
+    for i in range(2):
+        step(plain_ids[i]).item()  # warm-up
+    # the arms alternate step by step (which goes first alternating too),
+    # so the host's drift reaches both alike; each adjacent pair gives a
+    # ratio
+    reps, n = SURFACE_TIMED
+    feeds = {"plain": plain_ids, "tensor": tensor_ids}
+    times = {"plain": [], "tensor": []}
+    for rep in range(reps):
+        for i in range(n):
+            for arm in (("plain", "tensor") if i % 2 else ("tensor",
+                                                            "plain")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(feeds[arm][i % k]).item()
+                times[arm].append((time.perf_counter() - t0) * 1e3)
+    med = {arm: float(np.median(v)) for arm, v in times.items()}
+    ratio = med["tensor"] / med["plain"]
+    pairs = float(np.median(np.array(times["tensor"]) /
+                            np.array(times["plain"])))
+    log(f"  (b) eager GPT-small step, {reps} x {n} steps an arm, the arms "
+        f"in turns step by step: plain inputs median {med['plain']:.3f} ms, "
+        f"Tensor inputs median {med['tensor']:.3f} ms, ratio {ratio:.4f}; "
+        f"median of the adjacent pairs' ratios {pairs:.4f}; {card_line()}")
+    out.update(step_ms_plain_median=med["plain"],
+               step_ms_tensor_median=med["tensor"], tensor_over_plain=ratio,
+               tensor_over_plain_paired_median=pairs,
+               step_ms_plain=times["plain"], step_ms_tensor=times["tensor"])
+    del m, base
+    free_cuda()
+    return out
+
+
+def surface_autograd(pt, seed, failures):
+    """(c): higher-order gradients, a gradient penalty, a PyLayer, no_grad
+    and the RNG state on the card, against the CPU."""
+    gen = torch.Generator().manual_seed(seed + 1430)
+    out = {}
+    x_host = seeded(gen, (4096,), 0.5, 1.5)
+
+    def orders(device):
+        x = pt.to_tensor(x_host, place=device, stop_gradient=False)
+        y = (pt.tanh(x) * x * x * x).sum()
+        (g1,) = pt.grad(y, [x], create_graph=True)
+        (g2,) = pt.grad(g1.sum(), [x], create_graph=True)
+        (g3,) = pt.grad(g2.sum(), [x])
+        return [g1, g2, g3]
+
+    out["third_order"] = check_card_vs_cpu(
+        "(c) grad(create_graph=True) to third order [4096]", orders("cuda"),
+        orders("cpu"), SURFACE_GRAD_TOL, failures)
+
+    nn = pt.nn
+
+    class Critic(nn.Layer):
+        """A small convolutional critic: two strided convolutions with
+        tanh (smooth, so the card's and the CPU's rounding move no
+        activation across a kink) and a linear score."""
+
+        def __init__(self):
+            super().__init__()
+            self.c1 = nn.Conv2D(3, 64, 4, stride=2, padding=1, device="cuda")
+            self.c2 = nn.Conv2D(64, 128, 4, stride=2, padding=1,
+                                device="cuda")
+            self.fc = nn.Linear(128 * 8 * 8, 1, device="cuda")
+
+        def forward(self, x):
+            h = torch.tanh(self.c2(torch.tanh(self.c1(x))))
+            return self.fc(h.flatten(1))
+
+    pt.seed(seed + 1431)
+    disc = Critic()
+    images = seeded(gen, (16, 3, 32, 32))
+
+    def penalty(d, device):
+        x = pt.to_tensor(images, place=device, stop_gradient=False)
+        score = d(x).sum()
+        (gx,) = pt.grad(score, [x], create_graph=True)
+        norm = (gx * gx).sum(axis=[1, 2, 3]).sqrt()
+        p = ((norm - 1.0) ** 2).mean()
+        p.backward()
+        # the score's bias moves no input gradient: no gradient (zeros)
+        return [p] + [torch.zeros_like(q) if q.grad is None else q.grad
+                      for q in d.parameters()]
+
+    cpu_d = copy.deepcopy(disc).to("cpu")
+    out["gradient_penalty"] = check_card_vs_cpu(
+        "(c) gradient penalty (||grad_x D(x)|| - 1)^2 through Conv2D, tanh "
+        "and Linear [16, 3, 32, 32]", penalty(disc, "cuda"),
+        penalty(cpu_d, "cpu"), SURFACE_GRAD_TOL, failures)
+
+    class Swish(pt.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, v):
+            s = pt.nn.functional.tanh(v) * 0.5 + 0.5  # sigmoid
+            ctx.save_for_backward(v, s)
+            return v * s
+
+        @staticmethod
+        def backward(ctx, dy):
+            v, s = ctx.saved_tensor
+            return dy * (s + v * s * (1 - s))
+
+    def pylayer(device):
+        v = pt.to_tensor(x_host, place=device, stop_gradient=False)
+        y = Swish.apply(v * 2.0)
+        (gv,) = pt.grad((y * y).sum(), [v])
+        return [y, gv]
+
+    out["pylayer"] = check_card_vs_cpu("(c) PyLayer (swish, its own "
+                                       "backward) [4096]", pylayer("cuda"),
+                                       pylayer("cpu"), SURFACE_GRAD_TOL,
+                                       failures)
+    v = pt.to_tensor(x_host, place="cuda", stop_gradient=False)
+    with pt.no_grad():
+        off = v * 2
+    ok = not off.requires_grad and off.grad_fn is None and (v * 2).grad_fn \
+        is not None
+    log(f"  (c) no_grad on the card: no graph recorded inside, one outside "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 14 (c): no_grad recorded a graph")
+    ones = pt.to_tensor(np.ones((256, 256), np.float32))
+
+    def draws():
+        return [pt.rand([1024]), pt.randn([32, 32]),
+                pt.nn.functional.dropout(ones, p=0.3)]
+
+    state = pt.get_rng_state()
+    first = draws()
+    pt.set_rng_state(state)
+    again = draws()
+    ok = all(torch.equal(a, b) for a, b in zip(first, again)) and \
+        not torch.equal(first[0], draws()[0])
+    log(f"  (c) get_rng_state/set_rng_state on the card: rand, randn and "
+        f"dropout repeat bitwise after set_rng_state "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 14 (c): set_rng_state did not repeat the "
+                        "draws")
+    out["rng_state_repeats"] = ok
+    return out
+
+
+def ctr_batches(n_batches, seed, zipf=1.2):
+    """``paddle_tpu/models/ctr.py:96-115``'s synthetic_ctr_batches at
+    CTR_BATCH x CTR_SLOTS over CTR_VOCAB: Zipf-skewed ids (rank r drawn as
+    1/r^zipf, shuffled over the vocabulary) and labels from a hidden
+    per-key scorer."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, CTR_VOCAB + 1, dtype=np.float64) ** zipf
+    p /= p.sum()
+    perm = np.random.RandomState(11).permutation(CTR_VOCAB)
+    scorer = np.random.RandomState(1).randn(CTR_VOCAB).astype(np.float32)
+    out = []
+    for _ in range(n_batches):
+        ranks = rng.choice(CTR_VOCAB, (CTR_BATCH, CTR_SLOTS), p=p)
+        ids = perm[ranks].astype(np.int64)
+        label = (scorer[ids].mean(axis=1) > 0.0).astype(np.float32)
+        out.append((ids, label.reshape(-1, 1)))
+    return out
+
+
+def ctr_model(pt, seed):
+    """The deep and wide halves of the reference's WideAndDeep
+    (``paddle_tpu/models/ctr.py:39-94``) over the port's
+    ``Embedding(sparse=True)`` and ``Linear``: a [vocab, dim] table and an
+    MLP over the slots' concatenated rows, plus a [vocab, 1] table summed
+    over the slots."""
+    nn = pt.nn
+
+    class WideDeep(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            init = nn.ParamAttr(initializer=nn.initializer.Normal(0.0, 0.05))
+            self.emb = nn.Embedding(CTR_VOCAB, CTR_DIM, sparse=True,
+                                    weight_attr=init, device="cuda")
+            self.wide = nn.Embedding(CTR_VOCAB, 1, sparse=True,
+                                     weight_attr=init, device="cuda")
+            widths = [CTR_SLOTS * CTR_DIM, *CTR_HIDDEN]
+            self.deep = nn.LayerList([nn.Linear(a, b, device="cuda")
+                                      for a, b in zip(widths, widths[1:])])
+            self.head = nn.Linear(widths[-1], 1, device="cuda")
+
+        def forward(self, ids):
+            h = self.emb(ids).reshape(ids.shape[0], -1)
+            for fc in self.deep:
+                h = torch.relu(fc(h))
+            return self.head(h) + self.wide(ids).sum(1)
+
+    pt.seed(seed)
+    return WideDeep()
+
+
+def set_sparse(model, sparse):
+    model.emb._sparse = model.wide._sparse = sparse
+    return model
+
+
+def ctr_step(pt, model, kind):
+    opt = (pt.optimizer.SGD(learning_rate=CTR_SGD_LR,
+                            parameters=model.parameters()) if kind == "SGD"
+           else pt.optimizer.Adam(learning_rate=CTR_ADAM_LR, lazy_mode=True,
+                                  parameters=model.parameters()))
+
+    def one_step(ids, labels):
+        loss = torch.nn.functional.binary_cross_entropy_with_logits(
+            model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return one_step, opt
+
+
+def surface_sparse(pt, fa, seed, failures):
+    """(d): sparse embeddings at bench_ctr's sizes, SGD and Adam(lazy_mode),
+    eager against captured, untouched rows, sparse against dense."""
+    from paddle_tpu_torch import jit
+    t0 = time.perf_counter()
+    data = [(torch.from_numpy(i).cuda(), torch.from_numpy(y).cuda())
+            for i, y in ctr_batches(CTR_STEPS + CTR_TIMED + CTR_WARMUP,
+                                    seed + 1440)]
+    log(f"  (d) {len(data)} batches of {CTR_BATCH} x {CTR_SLOTS} Zipf-1.2 "
+        f"ids over {CTR_VOCAB}: {time.perf_counter() - t0:.1f} s")
+    base = ctr_model(pt, seed + 1441)
+    table_gb = base.emb.weight.numel() * 4 / 1e9
+    steps = data[:CTR_STEPS]
+    touched = torch.zeros(CTR_VOCAB, dtype=torch.bool,
+                          device=base.emb.weight.device)
+    for ids, _ in steps:
+        touched[ids.reshape(-1)] = True
+    n_touched = int(touched.sum())
+    log(f"  (d) model: table [{CTR_VOCAB}, {CTR_DIM}] float32 "
+        f"({table_gb:.3f} GB), wide [{CTR_VOCAB}, 1], MLP "
+        f"{CTR_SLOTS * CTR_DIM} -> {CTR_HIDDEN} -> 1; {n_touched} rows "
+        f"touched by the {CTR_STEPS} checked steps")
+    out = {"table_gb": table_gb, "rows_touched": n_touched}
+    finals = {}
+    for kind in ("SGD", "Adam"):
+        with deterministic_algorithms():
+            m_e = copy.deepcopy(base)
+            step_e, opt_e = ctr_step(pt, m_e, kind)
+            want = torch.stack([step_e(*b).detach() for b in steps])
+            m_g = copy.deepcopy(base)
+            step_g, opt_g = ctr_step(pt, m_g, kind)
+            prog = jit.to_static(step_g)
+            got = torch.stack([prog(*b) for b in steps])
+            compiles = len(prog._programs)
+        compare_runs(f"(d) {kind} sparse, {CTR_STEPS} steps through one "
+                     f"CUDA graph ({compiles} captured)", want, got, m_e,
+                     m_g, failures, opt_e, opt_g)
+        bad = []
+        for name in ("emb", "wide"):
+            table = getattr(m_g, name).weight.detach()
+            start = getattr(base, name).weight.detach()
+            if not torch.equal(table[~touched], start[~touched]):
+                bad.append(f"{name} rows")
+            for slot in opt_g._slot_names():
+                acc = opt_g._get_accumulator(slot, getattr(m_g, name).weight)
+                if bool(acc[~touched].any()):
+                    bad.append(f"{name}.{slot}")
+            if torch.equal(table[touched], start[touched]):
+                bad.append(f"{name}: no touched row moved")
+        log(f"  (d) {kind}: the {CTR_VOCAB - n_touched} untouched rows of "
+            f"both tables and of every accumulator bitwise as they were "
+            f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+        if bad:
+            failures.append(f"phase 14 (d) {kind}: untouched rows changed "
+                            f"or touched ones did not: {bad}")
+        finals[kind] = m_e
+        out[kind] = {"losses": [float(v) for v in want],
+                     "compiles": compiles}
+        del m_g, prog, step_g, opt_g, step_e, opt_e
+        free_cuda()
+
+    # the touched rows of sparse SGD against the dense update
+    m_d = set_sparse(copy.deepcopy(base), False)
+    step_d, _ = ctr_step(pt, m_d, "SGD")
+    for b in steps:
+        step_d(*b)
+    start = base.emb.weight.detach()[touched]
+    upd_s = finals["SGD"].emb.weight.detach()[touched] - start
+    upd_d = m_d.emb.weight.detach()[touched] - start
+    rel = float((upd_s - upd_d).norm() / upd_d.norm())
+    ok = rel <= CTR_SPARSE_DENSE_TOL and torch.equal(
+        m_d.emb.weight.detach()[~touched], base.emb.weight.detach()[~touched])
+    log(f"  (d) sparse vs dense SGD over {CTR_STEPS} steps: the touched "
+        f"rows' updates differ by rel L2 {rel:.3e} (tol "
+        f"{CTR_SPARSE_DENSE_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 14 (d): sparse SGD disagrees with the dense "
+                        f"update ({rel:.3e})")
+    out["sgd_sparse_vs_dense_rel_l2"] = rel
+    del m_d, step_d, finals
+    free_cuda()
+
+    # timed: sparse against dense, each optimizer, eager, default kernels
+    timed = data[CTR_STEPS:]
+    for kind in ("SGD", "Adam"):
+        for sparse in (True, False):
+            m = set_sparse(copy.deepcopy(base), sparse)
+            step, opt = ctr_step(pt, m, kind)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for i, b in enumerate(timed):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(*b).item()
+                if i >= CTR_WARMUP:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+            state = sum(t.numel() * t.element_size()
+                        for t in opt._accumulators.values()) / 1e9
+            arm = f"{kind} {'sparse' if sparse else 'dense'}"
+            med = float(np.median(ms))
+            log(f"  (d) {arm}: step median {med:.3f} ms over {len(ms)} "
+                f"steps ({CTR_BATCH * CTR_SLOTS * 2} lookups a step); "
+                f"working set above the model and optimizer state "
+                f"{peak:.3f} GB; optimizer state {state:.3f} GB; "
+                f"{card_line()}")
+            out[arm] = {"step_ms_median": med, "step_ms": ms,
+                        "working_set_gb": peak, "optimizer_state_gb": state}
+            del m, step, opt
+            free_cuda()
+    for kind in ("SGD", "Adam"):
+        s, d = out[f"{kind} sparse"], out[f"{kind} dense"]
+        log(f"  (d) {kind}: sparse / dense step "
+            f"{s['step_ms_median'] / d['step_ms_median']:.3f}, working set "
+            f"{s['working_set_gb']:.3f} vs {d['working_set_gb']:.3f} GB")
+    del base
+    free_cuda()
+    return out
+
+
+def phase14(pt, fa, seed, failures):
+    """Phase 14: the imperative surface (Tensor, autograd, PyLayer, the
+    vision functionals, sparse embeddings). A part that raises is a
+    failure and the next one still runs."""
+    import traceback
+    log("phase 14: the imperative surface: the vision functionals, "
+        "GPT-small through Tensor inputs, autograd, sparse embeddings at "
+        "bench_ctr's sizes")
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    for key, part in (("vision", lambda: surface_vision(pt, seed, failures)),
+                      ("gpt_tensor_surface",
+                       lambda: gpt_tensor_surface(pt, fa, seed, failures)),
+                      ("autograd", lambda: surface_autograd(pt, seed,
+                                                            failures)),
+                      ("sparse_ctr", lambda: surface_sparse(pt, fa, seed,
+                                                            failures))):
+        t0 = time.perf_counter()
+        if key != "gpt_tensor_surface":
+            fa.reset_launch_counts()
+        try:
+            out[key] = part()
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            traceback.print_exc()
+            failures.append(f"phase 14 ({key}) raised {type(e).__name__}: "
+                            f"{e}")
+        if key != "gpt_tensor_surface":
+            counts = flash_launches(fa)
+            launches[f"imperative_{key}"] = counts
+            ok = not any(counts.values())
+            log(f"  -- {key}: flash launches {counts} (none expected) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"phase 14 ({key}) launched flash kernels "
+                                f"{counts}")
+        log(f"  -- {key}: {time.perf_counter() - t0:.1f} s")
+        free_cuda()
+    gpt = out.get("gpt_tensor_surface", {})
+    launches["tensor_surface_eager_20_steps"] = gpt.get("eager_launches", {})
+    launches["tensor_surface_kstep_call"] = gpt.get("kstep_call_launches",
+                                                    {})
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 14: {out['seconds']:.1f} s; {card_line()}")
+    log(json.dumps({"imperative_surface": out}))
+    return launches
+
+
 def gpt_small_model(pt, seed):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
     pt.seed(seed)
@@ -4823,7 +5499,7 @@ def parse_phases(text):
     return phases | {1}
 
 
-LAST_PHASE = 13
+LAST_PHASE = 14
 TIMING_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "max_abs_err")
 
@@ -4960,6 +5636,11 @@ def main():
         detection = phase13(pt, fa, args.seed, failures)
         det_launches = detection.pop("flash_launches", {})
 
+    # ---- 14. the imperative surface
+    surface_launches = {}
+    if on(14, "the imperative surface"):
+        surface_launches = phase14(pt, fa, args.seed, failures)
+
     # ---- kernels line and result (a skipped phase's entries are null)
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
@@ -4986,7 +5667,9 @@ def main():
                 **{path: counts.get(name)
                    for path, counts in vision_launches.items()},
                 **{path: counts.get(name)
-                   for path, counts in det_launches.items()}),
+                   for path, counts in det_launches.items()},
+                **{path: counts.get(name)
+                   for path, counts in surface_launches.items()}),
             gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,

@@ -30,19 +30,30 @@ LeNet, the ResNets) train with ``optimizer.Momentum`` and
 ``optimizer.lr.PiecewiseDecay`` through ``nn.Conv2D``, ``nn.BatchNorm2D``
 and the pooling layers (torch's convolutions, cuDNN on the card), eagerly
 or as the k-step program, and are served behind ``Engine.from_layer``.
+YOLOv3 detection (``vision.ops``) trains and serves. The reference's
+imperative surface is here too: ``Tensor`` and ``Parameter``
+(``core.tensor``: how they meet torch, and where their names keep
+torch's meaning), ``to_tensor``, ``grad`` with ``create_graph``,
+``no_grad``, ``autograd.PyLayer``, the op library behind the ``Tensor``
+methods (``ops``), the RNG state (``get_rng_state``/``set_rng_state``),
+``set_flags``/``get_flags``, and sparse embeddings
+(``nn.Embedding(sparse=True)``: ``SelectedRows`` gradients that ``SGD``,
+``Momentum``, ``Adam`` and ``AdamW`` apply row by row).
 """
-import numpy as np
-import torch
-
-from . import (amp, checkpoint, distributed, incubate,  # noqa: F401
-               inference, jit, monitor, nn, optimizer, parallel, recompute,
-               regularizer, serving)
+from . import ops  # noqa: F401  (first: it sets the Tensor methods)
+from . import (amp, autograd, checkpoint, distributed, incubate,  # noqa: F401
+               inference, jit, linalg, monitor, nn, optimizer, parallel,
+               recompute, regularizer, serving)
+from .core.autograd import enable_grad, grad, no_grad  # noqa: F401
 from .core.device import resolve_device
+from .core.flags import get_flags, set_flags  # noqa: F401
+from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
 from .distributed.parallel import DataParallel  # noqa: F401
 from .nn.layer.layers import ParamAttr  # noqa: F401
 from .core.dtype import bfloat16, convert_dtype, float32, int32  # noqa: F401
-from .core.random import default_generator, seed  # noqa: F401
-from .ops import flatten, reshape, unstack  # noqa: F401
+from .core.random import (default_generator, get_rng_state,  # noqa: F401
+                          seed, set_rng_state)
+from .ops import *  # noqa: F401,F403
 from .regularizer import L1Decay, L2Decay  # noqa: F401
 from .serialization import load, save  # noqa: F401
 
@@ -59,26 +70,12 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-def to_tensor(data, dtype=None, place=None, stop_gradient=True):
-    """``data`` (a tensor, numpy array, scalar or nested list) as a tensor
-    on the card, unless ``place`` asks for the CPU (``"cpu"``); numpy's
-    dtype is kept unless ``dtype`` names another. ``stop_gradient=False``
-    makes it require grad."""
-    where = resolve_device(place)
-    if isinstance(data, torch.Tensor):
-        t = data.detach()
-    else:
-        t = torch.from_numpy(np.array(data, copy=True))
-    t = t.to(device=where, dtype=convert_dtype(dtype) if dtype else None,
-             copy=True)
-    if not stop_gradient:
-        t.requires_grad_(True)
-    return t
-
-
-__all__ = ["seed", "default_generator", "resolve_device", "convert_dtype",
-           "DataParallel", "ParamAttr", "to_tensor", "flatten", "reshape", "unstack",
-           "float32", "bfloat16", "int32", "L1Decay", "L2Decay",
-           "save", "load", "amp", "checkpoint", "distributed", "incubate",
-           "inference", "jit", "models", "monitor", "nn", "optimizer", "parallel",
-           "recompute", "regularizer", "serving", "vision"]
+__all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
+           "resolve_device", "convert_dtype", "DataParallel", "ParamAttr",
+           "Tensor", "Parameter", "to_tensor", "grad", "no_grad",
+           "enable_grad", "set_flags", "get_flags", "float32", "bfloat16",
+           "int32", "L1Decay", "L2Decay", "save", "load", "amp", "autograd",
+           "checkpoint", "distributed", "incubate", "inference", "jit",
+           "linalg", "models", "monitor", "nn", "ops", "optimizer",
+           "parallel", "recompute", "regularizer", "serving",
+           "vision"] + ops.__all__

@@ -16,10 +16,13 @@ Under a dp axis the flag is the OR over the group's ranks. In an
 accumulation window's micro steps ``step`` only defers to the optimizer,
 and the window's last step unscales the window's gradients once; ZeRO
 stage 2/3 windows (whose earlier micro steps are already folded into
-``gacc``, scaled) are not supported.
+``gacc``, scaled) are not supported. A sparse gradient (``SelectedRows``)
+is unscaled and checked through its row values.
 """
 import torch
 
+from ..core.selected_rows import SelectedRows
+from ..core.tensor import fold_sparse
 from ..distributed import collective, parallel_env
 
 __all__ = ["GradScaler", "AmpScaler"]
@@ -83,12 +86,15 @@ class GradScaler:
             inv = self._scale.reciprocal()
             found = torch.zeros_like(self._found_inf)
             for p in optimizer._parameters():
-                g = p.grad
+                g = fold_sparse(p)
                 if g is None:
                     continue
-                if g.is_sparse:
-                    raise NotImplementedError("sparse gradients are not "
-                                              "ported")
+                if isinstance(g, SelectedRows):
+                    g = g.values
+                elif g.is_sparse:
+                    raise NotImplementedError(
+                        "torch sparse (COO) gradients are not taken: the "
+                        "port's sparse gradients are SelectedRows")
                 g.mul_(inv.to(g.dtype))
                 if _check_finite:
                     found |= ~torch.isfinite(g).all()

@@ -18,6 +18,9 @@ place (``Generator.set_state``): torch keeps one state object per
 generator, which a graph registered with it reads at every replay, so a
 restored state takes effect at the next replay.
 
+:func:`get_rng_state` and :func:`set_rng_state` read and set one
+device's generator (the reference's RNG state as one tensor).
+
 :func:`generators_from` hands the package's draws in a block to other
 generators (the tensor-parallel RNG tracker's states).
 """
@@ -94,6 +97,22 @@ def register_with_graph(graph, device):
         if not any(g is r for r in _state["graph_safe"]):
             _state["graph_safe"].append(g)
     return True
+
+
+def get_rng_state(device=None):
+    """The state of the package's generator for ``device`` (default: the
+    card) as a uint8 ``Tensor`` on the CPU (``Generator.get_state``)."""
+    from .tensor import Tensor
+    return Tensor(default_generator(device).get_state())
+
+
+def set_rng_state(state, device=None):
+    """Set the package's generator for ``device`` to a state that
+    :func:`get_rng_state` gave, in place: the next draws repeat the ones
+    that followed it."""
+    from .tensor import unwrap
+    default_generator(device).set_state(
+        unwrap(state).detach().to("cpu", torch.uint8).clone())
 
 
 def capture_state():

@@ -5,7 +5,10 @@
 parameters from the group's first rank, so every replica starts alike;
 ``apply_collective_grads`` (``fused_allreduce_grads``) averages the
 gradients over the group in float32 flat buckets of ``comm_buffer_size`` MB,
-one all-reduce each (the reference's ``reducer.cc`` groups). Under
+one all-reduce each (the reference's ``reducer.cc`` groups). A sparse
+gradient (``SelectedRows``, from ``embedding(sparse=True)``) is skipped,
+as the reference skips it; a parameter with a dense and a sparse one is
+reduced as their dense sum. Under
 ``jit.to_static(..., dp_axis="dp")`` the optimizer reduces instead.
 
 The wrappers of this module and ``fleet.meta_parallel`` hand the inner
@@ -15,6 +18,7 @@ layer's names through: ``parameters()``, ``named_parameters()``,
 """
 import torch
 
+from ..core.tensor import fold_sparse
 from . import bucketing, collective, parallel_env
 from ..nn.layer.layers import Layer
 
@@ -32,11 +36,10 @@ def fused_allreduce_grads(params, comm_buffer_mb=25.0,
     """Average the parameters' gradients over ``group`` (default: the
     mesh's dp group) in place: float32 flat buckets of ``comm_buffer_mb``
     MB, one all-reduce each. Returns the number of buckets."""
-    params = [p for p in params if p.requires_grad and p.grad is not None]
+    params = [p for p in params if p.requires_grad and p.grad is not None
+              and fold_sparse(p) is not None]
     if not params:
         return 0
-    if any(p.grad.is_sparse for p in params):
-        raise NotImplementedError("sparse gradients are not ported")
     group = _dp_group() if group is None else group
     buckets = bucketing.bucket_params(params, comm_buffer_mb,
                                       last_comm_buffer_mb)

@@ -11,8 +11,9 @@ same-codebase artifact (the pickled layer) serves through ``jit.load``.
 
 The device follows the package's rule: ``cuda`` unless the config asks for
 the CPU (``Config.disable_gpu()``); ``enable_use_gpu(memory_pool_mb,
-device_id)`` selects ``cuda:<device_id>``. ``inference.Tensor`` waits for
-ROADMAP item 2.
+device_id)`` selects ``cuda:<device_id>``. ``inference.Tensor`` is the
+package's ``Tensor`` (``core.tensor``), as the reference re-exports its
+own.
 """
 import re
 import warnings
@@ -20,7 +21,9 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["Config", "Predictor", "create_predictor"]
+from ..core.tensor import Tensor  # noqa: F401
+
+__all__ = ["Config", "Predictor", "create_predictor", "Tensor"]
 
 
 class Config:

@@ -22,8 +22,10 @@ MLM loss is the parallel cross entropy.
 """
 import numpy as np
 
-from .. import nn, ops
+from .. import nn
+from ..ops import plain as ops
 from ..core.device import resolve_device
+from ..core.tensor import boundary
 from ..nn import functional as F
 
 
@@ -248,6 +250,7 @@ class BertForPretraining(nn.Layer):
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
         return self.cls(seq, pooled)
 
+    @boundary
     def loss(self, prediction_logits, nsp_logits, masked_labels, nsp_labels,
              ignore_index=-100):
         if self.config.use_mp:

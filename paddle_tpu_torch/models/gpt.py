@@ -26,8 +26,10 @@ import functools
 import numpy as np
 import torch
 
-from .. import nn, ops
+from .. import nn
+from ..ops import plain as ops
 from ..core.device import resolve_device
+from ..core.tensor import boundary
 from ..nn import functional as F
 
 
@@ -160,6 +162,7 @@ class GPTForCausalLM(nn.Layer):
         # weight-tied LM head
         return ops.matmul(hidden, self.gpt.wte.weight, transpose_y=True)
 
+    @boundary
     def loss(self, logits, labels):
         """Next-token cross entropy, mean over positions 0..S-2 (the
         reference's ``logits[:, :-1]`` against ``labels[:, 1:]``). The last

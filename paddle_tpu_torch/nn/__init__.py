@@ -8,7 +8,7 @@ from .layer.container import LayerList, Sequential  # noqa: F401
 from .layer.conv import Conv1D, Conv2D, Conv3D  # noqa: F401
 from .layer.layers import Layer, ParamAttr  # noqa: F401
 from .layer.norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
-                         BatchNorm3D, LayerNorm)
+                         BatchNorm3D, LayerNorm, LocalResponseNorm)
 from .layer.pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
                             AdaptiveMaxPool2D, AvgPool1D, AvgPool2D,
                             AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
@@ -18,5 +18,5 @@ __all__ = ["Layer", "ParamAttr", "Linear", "Embedding", "Dropout", "LayerNorm",
            "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
            "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
-           "AdaptiveMaxPool2D", "functional", "initializer",
+           "AdaptiveMaxPool2D", "LocalResponseNorm", "functional", "initializer",
            "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]

@@ -2,9 +2,23 @@
 
 Each clip maps a list of (param, grad) pairs to a new one before the
 optimizer applies its update. Scaled gradients keep their dtype; the scale
-is applied in float32.
+is applied in float32. A sparse gradient (``SelectedRows``) is clipped
+through its row values, which give the dense gradient's norm (its other
+rows are zero, and ``merge_add``'s padding rows hold zeros).
 """
 import torch
+
+from ..core.selected_rows import SelectedRows
+
+
+def _values(g):
+    return g.values if isinstance(g, SelectedRows) else g
+
+
+def _with_values(g, values):
+    if isinstance(g, SelectedRows):
+        return SelectedRows(g.rows, values, g.height)
+    return values
 
 
 class ClipGradBase:
@@ -21,12 +35,14 @@ class ClipGradByValue(ClipGradBase):
         self.min = float(min) if min is not None else -self.max
 
     def _clip(self, params_grads):
-        return [(p, None if g is None else g.clamp(self.min, self.max))
-                for p, g in params_grads]
+        return [(p, None if g is None else _with_values(
+            g, _values(g).clamp(self.min, self.max)))
+            for p, g in params_grads]
 
 
 def _grad_scale(g, scale):
-    return (g.float() * scale).to(g.dtype)
+    v = _values(g)
+    return _with_values(g, (v.float() * scale).to(v.dtype))
 
 
 class ClipGradByNorm(ClipGradBase):
@@ -42,7 +58,7 @@ class ClipGradByNorm(ClipGradBase):
             if g is None:
                 out.append((p, g))
                 continue
-            norm = g.square().sum().sqrt()
+            norm = _values(g).square().sum().sqrt()
             scale = torch.clamp(self.clip_norm / norm.clamp_min(1e-12),
                                 max=1.0)
             out.append((p, _grad_scale(g, scale)))
@@ -66,7 +82,8 @@ class ClipGradByGlobalNorm(ClipGradBase):
         pairs = [(p, g) for p, g in params_grads if g is not None]
         if not pairs:
             return params_grads
-        sq = torch.stack([g.float().square().sum() for _, g in pairs])
+        sq = torch.stack([_values(g).float().square().sum()
+                          for _, g in pairs])
         global_norm = self._total_sq([p for p, _ in pairs], sq).sqrt()
         scale = self.clip_norm / global_norm.clamp_min(self.clip_norm)
         return [(p, None if g is None else _grad_scale(g, scale))

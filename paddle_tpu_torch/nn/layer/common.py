@@ -28,17 +28,15 @@ class Linear(Layer):
 
 class Embedding(Layer):
     """A lookup table ``[num_embeddings, embedding_dim]`` (rows of
-    ``padding_idx`` zero). ``sparse=True`` (row gradients, SelectedRows)
-    raises: it waits in ROADMAP item 2."""
+    ``padding_idx`` zero). With ``sparse=True`` the table's gradient is a
+    ``SelectedRows`` of the looked-up rows (``F.embedding``), which the
+    optimizers apply row by row."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, device=None):
         super().__init__()
-        if sparse:
-            raise NotImplementedError(
-                "Embedding(sparse=True) needs row gradients (SelectedRows), "
-                "which wait in ROADMAP item 2; use sparse=False")
         self._padding_idx = padding_idx
+        self._sparse = sparse
         self.weight = self.create_parameter(
             [num_embeddings, embedding_dim], attr=weight_attr, device=device,
             default_initializer=I.Normal(0.0, 1.0))
@@ -47,7 +45,8 @@ class Embedding(Layer):
                 self.weight[padding_idx] = 0
 
     def forward(self, x):
-        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
 
 class Dropout(Layer):

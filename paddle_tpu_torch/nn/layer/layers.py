@@ -5,7 +5,10 @@ A ``torch.nn.Module`` that keeps the reference's surface: ``ParamAttr``
 and ``create_parameter(shape, attr=...)`` (the attribute's initializer,
 name, ``trainable``, and the ``learning_rate``, ``regularizer`` and
 ``need_clip`` that the optimizers read from the parameter) through the
-package's initializers on an explicit device; ``parameters()`` and
+package's initializers on an explicit device, as a ``Parameter``
+(``core.tensor``); a call with ``Tensor`` inputs hands ``forward`` plain
+tensors and returns ``Tensor``s (``core.tensor.boundary``), a call with
+plain tensors runs as ``torch.nn.Module``'s; ``parameters()`` and
 ``named_parameters()`` returning lists, with ``include_sublayers``;
 ``state_dict(include_sublayers, structured_name_prefix)``;
 ``set_state_dict`` returning (missing, unexpected); ``to(dtype)`` taking
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ...core.dtype import convert_dtype, is_dtype_name
+from ...core.tensor import Parameter, boundary, clear_grads
 from .. import initializer as I
 
 
@@ -77,13 +81,15 @@ class Layer(torch.nn.Module):
         init = (attr.initializer or default_initializer
                 or (I.Constant(0.0) if is_bias else I.XavierNormal()))
         value = init(shape, dtype or self._dtype, device=device)
-        p = torch.nn.Parameter(value, requires_grad=attr.trainable)
+        p = Parameter(value, trainable=attr.trainable)
         if attr.name is not None:
             p.param_name = p._attr_name = attr.name
         p.optimize_attr = {"learning_rate": attr.learning_rate}
         p.regularizer = attr.regularizer
         p.need_clip = attr.need_clip
         return p
+
+    __call__ = boundary(torch.nn.Module.__call__)
 
     def named_parameters(self, prefix="", include_sublayers=True,
                          recurse=None, remove_duplicate=True):
@@ -184,8 +190,7 @@ class Layer(torch.nn.Module):
         return [l for _, l in self.named_sublayers(include_self=include_self)]
 
     def clear_gradients(self):
-        for p in self.parameters():
-            p.grad = None
+        clear_grads(self.parameters())
 
     def astype(self, dtype):
         return self.to(dtype)

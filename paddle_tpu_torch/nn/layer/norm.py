@@ -90,3 +90,17 @@ class BatchNorm3D(_BatchNormBase):
                  name=None, device=None):
         super().__init__(num_features, momentum, epsilon, weight_attr,
                          bias_attr, data_format, name=name, device=device)
+
+
+class LocalResponseNorm(Layer):
+    """``F.local_response_norm`` as a layer (no parameters)."""
+
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.local_response_norm(x, self.size, self.alpha, self.beta,
+                                     self.k, self.data_format)

@@ -34,12 +34,24 @@ control). In an accumulation window's micro steps ``step`` and
 ``clear_grad`` return at once, so the gradients accumulate; the window's
 last step scales them 1/a after the reduction and before the clip.
 ``_zero_enable`` partitions the state instead (ZeRO-1/2/3, ``zero.py``).
-Not ported: sparse (row) gradients and coalesced accumulator stores
+
+A parameter looked up by ``embedding(sparse=True)`` carries a sparse
+gradient (a ``SelectedRows``, ``core.tensor.grad_of``). The step applies it
+row by row after the dense updates (:meth:`Optimizer._apply_sparse`, the
+reference's ``_apply_sparse``): the update formula runs on the gathered
+rows of the parameter, its master and its accumulators, and the results
+are scattered back, so untouched rows and their accumulators stay
+bitwise as they were (``lazy_mode`` semantics; the reference applies a
+sparse gradient so whatever ``lazy_mode`` says, and so does the port).
+A sparse gradient under a dp axis or under ZeRO raises, as in the
+reference. Not ported: coalesced accumulator stores
 (``fuse_accumulators``); asking for them raises.
 """
 import numpy as np
 import torch
 
+from ..core.selected_rows import SelectedRows
+from ..core.tensor import clear_grads, grad_of
 from ..distributed import collective, parallel_env
 from ..nn.clip import ClipGradBase
 from ..regularizer import L1Decay, L2Decay
@@ -181,8 +193,7 @@ class Optimizer:
         acc = parallel_env.current_accum()
         if acc is not None and acc[0] == "accum":
             return  # an accumulation window's gradients outlive its steps
-        for p in self._parameters():
-            p.grad = None
+        clear_grads(self._parameters())
 
     clear_gradients = clear_grad
 
@@ -210,9 +221,14 @@ class Optimizer:
         degree = parallel_env.axis_degree(mesh, axis)
         out = []
         for p in self._parameters():
-            if not p.requires_grad or p.grad is None:
+            g = grad_of(p) if p.requires_grad else None
+            if g is None:
                 continue
-            g = p.grad.float()
+            if isinstance(g, SelectedRows):
+                raise NotImplementedError(
+                    "sparse (SelectedRows) gradients cannot be reduced over "
+                    "a dp axis, as in the reference")
+            g = g.float()
             collective.all_reduce(g, group=group)
             out.append((p, g.div_(degree)))
         return out
@@ -254,6 +270,11 @@ class Optimizer:
     def step(self):
         acc = parallel_env.current_accum()
         if self._zero is not None:
+            if any(isinstance(grad_of(p), SelectedRows)
+                   for p in self._parameters()):
+                raise NotImplementedError(
+                    "the ZeRO sharded step does not take sparse "
+                    "(SelectedRows) gradients, as in the reference")
             if acc is not None and acc[0] == "accum":
                 return self._zero.accum_fold()
             return self._zero.step()
@@ -263,19 +284,28 @@ class Optimizer:
         if axis is not None:
             params_grads = self._reduce_dp_grads(axis)
         else:
-            params_grads = [(p, p.grad) for p in self._parameters()
-                            if p.requires_grad and p.grad is not None]
-        if any(g.is_sparse for _, g in params_grads):
-            raise NotImplementedError("sparse gradients are not ported")
+            params_grads = [(p, g) for p, g in (
+                (p, grad_of(p)) for p in self._parameters()
+                if p.requires_grad) if g is not None]
+        if any(isinstance(g, torch.Tensor) and g.is_sparse
+               for _, g in params_grads):
+            raise NotImplementedError(
+                "torch sparse (COO) gradients are not taken: the port's "
+                "sparse gradients are SelectedRows (embedding(sparse=True))")
         if acc is not None and acc[1] > 1:
             # the window's gradients are sums of a micro-batch means: the
             # big batch's mean, before the clip
-            params_grads = [(p, g / acc[1]) for p, g in params_grads]
+            params_grads = [(p, _grad_div(g, acc[1]))
+                            for p, g in params_grads]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._step_count.add_(1)
         by_scale = {}
+        sparse = []
         for p, g in params_grads:
+            if isinstance(g, SelectedRows):
+                sparse.append((p, g))
+                continue
             by_scale.setdefault(_lr_scale(p), []).append((p, g))
         for scale, pairs in by_scale.items():
             lr = self._lr.tensor
@@ -291,6 +321,57 @@ class Optimizer:
                 self._apply_one(p, value, g)
                 if value is not p:
                     p.copy_(value)
+        for p, g in sparse:
+            lr = self._lr.tensor
+            scale = _lr_scale(p)
+            self._prepare_step(lr if scale == 1.0 else lr * scale)
+            self._apply_sparse(p, g)
+
+    def _apply_sparse(self, p, rows):
+        """Apply the ``SelectedRows`` gradient ``rows`` to the rows it
+        names (the reference's ``_apply_sparse``): gather those rows of
+        the parameter (of its float32 master where one is kept) and of its
+        accumulators, run :meth:`_apply_one` on them, and scatter them
+        back. The padding rows of ``merge_add`` (index ``height``) are
+        dropped on the device without a host read: each is aimed at the
+        smallest real row and carries that row's new value (or, with no
+        real row, the old value of the row it is aimed at), so every write
+        to a row writes the same bits."""
+        height = rows.height
+        idx = rows.rows
+        g = rows.values.float()
+        k = idx.shape[0]
+        valid = idx < height
+        first = torch.argmin(idx)  # the smallest row: real whenever any is
+        anchor = idx.min().clamp(max=height - 1)
+        target = torch.where(valid, idx, anchor)
+        source = torch.where(valid, torch.arange(k, device=idx.device),
+                             first)
+        keep_new = valid[source].unsqueeze(-1)
+
+        def scatter(full, old, new):
+            picked = torch.where(keep_new, new[source], old[source])
+            full.index_copy_(0, target, picked.to(full.dtype))
+
+        master = self._maybe_master(p)
+        whole = master if master is not None else p
+        old = whole.index_select(0, target).float()
+        value = old.clone()
+        slots = {key: acc for key, acc in self._accumulators.items()
+                 if key[1] == id(p) and key[0] != "master"}
+        gathered = {key: acc.index_select(0, target)
+                    for key, acc in slots.items()}
+        before = {key: t.clone() for key, t in gathered.items()}
+        self._accumulators.update(gathered)
+        try:
+            self._apply_one(p, value, g)
+        finally:
+            self._accumulators.update(slots)
+        for key, acc in slots.items():
+            scatter(acc, before[key], gathered[key])
+        scatter(whole, old, value)
+        if master is not None:
+            scatter(p, old, value)
 
     minimize_step = step
 
@@ -347,6 +428,12 @@ class Optimizer:
             elif k in by_name:
                 with torch.no_grad():
                     by_name[k].copy_(torch.as_tensor(np.array(v)))
+
+
+def _grad_div(g, a):
+    if isinstance(g, SelectedRows):
+        return SelectedRows(g.rows, g.values / a, g.height)
+    return g / a
 
 
 def _no_zero(optimizer):

@@ -1,6 +1,7 @@
 """LeNet (counterpart: ``paddle_tpu/vision/models/lenet.py``): two
 conv-ReLU-maxpool stages on 1 x 28 x 28 images, then three Linear layers."""
-from ... import nn, ops
+from ... import nn
+from ...ops import plain as ops
 
 
 class LeNet(nn.Layer):

@@ -3,7 +3,8 @@
 with the reference's layers and ``state_dict`` names. Convolutions carry
 no bias; each is followed by ``BatchNorm2D``. ``device`` places every
 parameter and buffer (the card unless ``"cpu"``)."""
-from ... import nn, ops
+from ... import nn
+from ...ops import plain as ops
 
 
 class BasicBlock(nn.Layer):

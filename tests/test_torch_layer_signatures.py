@@ -60,6 +60,14 @@ DIFFERENT = {
     "paddle_tpu.distributed.fleet.stop_worker": "parameter server",
     # the port has no per-op dispatch spans to sample
     "paddle_tpu.observability.enable": "no dispatch category",
+    # a Parameter keeps torch.Tensor's own methods (core.tensor's table of
+    # deliberate differences; tests/test_torch_tensor.py)
+    "paddle_tpu.Parameter.backward": "torch.Tensor.backward",
+    "paddle_tpu.Parameter.norm": "torch.Tensor.norm",
+    "paddle_tpu.Parameter.split": "torch.Tensor.split",
+    "paddle_tpu.Parameter.unique": "torch.Tensor.unique",
+    "paddle_tpu.Parameter.unique_consecutive":
+        "torch.Tensor.unique_consecutive",
 }
 
 
@@ -100,6 +108,24 @@ def test_ported_signatures_take_the_reference_names():
             wrong.append((name, want, got))
     assert checked > 1000
     assert wrong == []
+
+
+def test_the_imperative_surface_is_compared():
+    """The callables of the imperative surface are among the compared
+    pairs: the ops, autograd, Tensor and Parameter, the RNG state, the
+    flags and the vision functionals."""
+    names = {name for name, _, _ in _pairs()}
+    for name in ("paddle_tpu.ops.sum", "paddle_tpu.ops.getitem",
+                 "paddle_tpu.ops.unique_consecutive", "paddle_tpu.rand",
+                 "paddle_tpu.grad", "paddle_tpu.no_grad",
+                 "paddle_tpu.to_tensor", "paddle_tpu.Tensor",
+                 "paddle_tpu.Tensor.backward", "paddle_tpu.Parameter",
+                 "paddle_tpu.Parameter.set_value", "paddle_tpu.set_flags",
+                 "paddle_tpu.get_rng_state", "paddle_tpu.linalg.norm",
+                 "paddle_tpu.nn.functional.deformable_conv",
+                 "paddle_tpu.nn.functional.grid_sample",
+                 "paddle_tpu.nn.LocalResponseNorm"):
+        assert name in names, name
 
 
 def test_the_allow_list_names_only_real_differences():
@@ -229,8 +255,17 @@ def test_param_attr_trainable_name_and_attributes():
 
 
 def test_sparse_embedding_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        tnn.Embedding(10, 4, sparse=True, device="cpu")
+    """ROADMAP item 2 ported ``Embedding(sparse=True)``: its table gets a
+    row gradient (``SelectedRows``) and no dense one; a table that is not
+    a leaf cannot carry one and raises."""
+    emb = tnn.Embedding(10, 4, sparse=True, device="cpu")
+    emb(torch.tensor([[1, 2, 2]])).sum().backward()
+    rows = emb.weight._sparse_grad
+    assert emb.weight.grad is None and rows.height == 10
+    assert rows.rows.tolist() == [1, 2, 10]
+    with pytest.raises(ValueError, match="leaf table"):
+        tnn.functional.embedding(torch.tensor([1]), emb.weight * 1.0,
+                                 sparse=True)
 
 
 # -- the optimizers read the per-parameter rate and regularizer --------------------
