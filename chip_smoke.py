@@ -220,11 +220,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    under deterministic algorithms, the untouched rows and their moments
    unchanged, sparse SGD against the dense update, and each step timed
    sparse against dense. No flash kernel may launch in (a), (c) or (d).
-15. One JSON line with every kernel of the paths, then the result line.
+15. The runtime services on GPT-small with phase 4's recipe: (a) the
+   tracer (default categories), a run-log, the flight recorder and
+   ``profiler.Profiler(state="All")`` on for 10 eager steps and two calls
+   of ``to_static(one_step, scan_steps=10)``, bitwise against the same
+   steps with everything off, 12 launches of each flash kernel a step and
+   120 in the replayed call, the chrome trace holding the host spans, the
+   per-op events and the kernels' device events under the reference's
+   names, ``compile_stall_frac`` above 0 in the window of the capture and
+   0 after; (b) the sampled op observer at rate 1.0 counting each kernel
+   12 times a step, then the eager step off, at 0.01 and at 1.0 timed in
+   turns; (c)
+   ``FLAGS_check_nan_inf=1``: the eager step timed, the steps and the
+   k-step program bitwise against (a)'s, a NaN written into one weight
+   raising at the first op that holds it; (d) the state ledger of the
+   model and its AdamW against the tensors' bytes, the serving buckets in
+   the program registry; (e) a fault at a checkpoint kill point leaving
+   one flight dump, a real out-of-memory error classified; (f) two ranks
+   of ``testing.pod_fixture`` on the card under ``VirtualPod``, rank 1
+   SIGKILLed and respawned: the survivor re-forms, the world heals to 2,
+   the losses within 1e-6 of the fixture's control on the card; once
+   with the reference's MLP (liveness at the fixture's size) and once
+   with GPT-small replicas, AdamW with float32 masters, whose survivor
+   and replacement restore the whole state from the pod checkpoint.
+16. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 import argparse
+import contextlib
 import copy
 import json
 import re
@@ -5390,6 +5414,561 @@ def phase14(pt, fa, seed, failures):
     return launches
 
 
+# ---- phase 15: runtime services --------------------------------------------
+
+OBSERVED_TIMED = (3, 4)   # (b): 3 alternations of 4 steps an arm
+POD_LOSS_TOL = 1e-6       # (f): the pod's losses against its control
+# (f)'s runs: (POD_FIX_MODEL, steps, checkpoint every, the kill's hit of
+# pod/mid_step, heal by step)
+POD_RUNS = {"liveness_mlp": ("mlp", 10, 3, 5, 7),
+            "state_gpt_small": ("gpt_small", 5, 2, 4, 4)}
+RUNTIME_DIR = ".chip_smoke_runtime"  # run-log, flight dumps, traces
+
+
+def runtime_dir(name):
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        RUNTIME_DIR, name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def observed_recipe(pt, m, span=False):
+    """Phase 4's recipe around ``m``: (one_step, the scheduler); with
+    ``span`` each step is a ``step`` span of the tracer."""
+    from paddle_tpu_torch import observability
+    opt, sched = make_optimizer(m)
+
+    def one_step(ids):
+        with (observability.trace_span("train/step", cat="step") if span
+              else contextlib.nullcontext()):
+            with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+                loss = m.loss(m(ids), ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        return loss
+    return one_step, sched, opt
+
+
+def observed_run(pt, fa, base, feed, stacked, k, label, failures,
+                 profile=None, timer=None):
+    """10 eager steps, then two calls of ``to_static(scan_steps=k)`` (the
+    capture, then a replayed call counted from its graph) on a copy of
+    ``base``: (losses, model, eager launches, replayed-call launches,
+    StepTimer marks). ``profile`` wraps the eager steps."""
+    from paddle_tpu_torch import jit
+    m = copy.deepcopy(base)
+    step, sched, _opt = observed_recipe(pt, m, span=True)
+    fa.reset_launch_counts()
+    losses = []
+    with (profile if profile is not None else contextlib.nullcontext()):
+        for i in range(k):
+            losses.append(step(feed[i]).detach())
+        torch.cuda.synchronize()
+    eager = flash_launches(fa)
+    sched.step()
+    program = jit.to_static(step, scan_steps=k)
+    marks = []
+    if timer is not None:
+        torch.cuda.synchronize()
+        timer.start()
+    with inspect_capture():
+        losses.append(program(stacked).detach())
+    if timer is not None:
+        losses[-1].cpu()
+        marks.append(timer.step())
+    sched.step()
+    replays = count_replays(program)
+    losses.append(replays.run(lambda: program(stacked)).detach())
+    if timer is not None:
+        losses[-1].cpu()
+        marks.append(timer.step())
+    sched.step()
+    launches, off = replays.launches()
+    from paddle_tpu_torch.observability import memory
+    mem = program.export_memory_stats()
+    reg = memory.program_memory()
+    ok = len(mem) == 1 and all(
+        v["temp_bytes"] > 0 and v["output_bytes"] > 0 and reg.get(entry) == v
+        for entry, v in mem.items())
+    log(f"  {label}: the program's memory_stats {mem} (in the registry) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 15 {label}: StaticFunction.memory_stats "
+                        f"{mem} / the registry disagree")
+    for name, n in eager.items():
+        ok = n == base.config.num_layers * k
+        log(f"  {label}: {name} {n} launches in {k} eager steps (want "
+            f"{base.config.num_layers * k}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 15 {label}: {name} launched {n} times "
+                            f"in {k} eager steps")
+    for name, n in launches.items():
+        ok = n == base.config.num_layers * k and not off[name]
+        log(f"  {label}: replayed k-step call: {name} {n} launches from the "
+            f"graph (want {base.config.num_layers * k}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 15 {label}: the replayed call launched "
+                            f"{name} {n} times")
+    del program
+    return (torch.cat([x.reshape(-1) for x in losses]), m, eager, launches,
+            marks)
+
+
+def runtime_everything_on(pt, fa, base, feed, stacked, k, failures):
+    """(a): the tracer (default categories), a run-log, the flight
+    recorder and ``profiler.Profiler(state="All")`` on, against the same
+    steps with everything off: bitwise, and the same launches."""
+    import os
+    from paddle_tpu_torch import observability, profiler
+    from paddle_tpu_torch.observability import flight, runlog
+    from paddle_tpu_torch.observability.step import StepTimer
+    off = observed_run(pt, fa, base, feed, stacked, k, "(a) everything off",
+                       failures)
+    observability.tracing.reset()
+    observability.enable()
+    log_ = runlog.start_run(dir=runtime_dir("runlog"))
+    flight.install(runtime_dir("flight_a"))
+    prof = profiler.Profiler(state="All")
+    timer = StepTimer(window=1, publish_as=None)
+    try:
+        on = observed_run(pt, fa, base, feed, stacked, k, "(a) everything on",
+                          failures, profile=prof, timer=timer)
+    finally:
+        observability.disable()
+        runlog.stop_run()
+        flight.uninstall()
+    compare_runs(f"(a) everything on vs off, {k} eager steps and 2 calls of "
+                 f"to_static(scan_steps={k})", off[0], on[0], off[1], on[1],
+                 failures)
+    ok = on[2] == off[2] and on[3] == off[3]
+    log(f"  (a) launches on {on[2]} / {on[3]} vs off {off[2]} / {off[3]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 15 (a): launches differ with everything on")
+    # the chrome trace: host spans, per-op events, the kernels' device
+    # events under the reference's names
+    path = os.path.join(runtime_dir("trace"), "phase15a.json")
+    n_events = observability.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sum(e["name"] == "train/step" for e in events)
+    ops = sum(e["cat"] == "op" for e in events)
+    device = {name: sum(e["name"] == name and e["cat"] == "kernel"
+                        for e in events)
+              for name in set(fa.CUDA_FUNCTIONS.values())}
+    host_kernels = {name: sum(e["name"] == name and e["cat"] == "op"
+                              for e in events)
+                    for name in set(fa.CUDA_FUNCTIONS.values())}
+    # the k eager steps, and the program's first call runs the body's
+    # Python twice (its eager warm-up step and the capture); a replay
+    # runs none
+    ok = spans == k + 2 and ops > 0 and all(device.values()) and all(
+        n == base.config.num_layers * k for n in host_kernels.values())
+    log(f"  (a) chrome trace: {n_events} events, {spans} train/step spans "
+        f"(want {k + 2}), "
+        f"{ops} op events (kernels as ops {host_kernels}), device events "
+        f"{device} (the trace may drop a record) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 15 (a): the chrome trace lacks host spans, "
+                        "op events or the kernels' device events")
+    fracs = [m["compile_stall_frac"] for m in on[4]]
+    ok = fracs[0] > 0 and fracs[1] == 0
+    log(f"  (a) compile_stall_frac: {fracs[0]:.4f} in the window with the "
+        f"capture, {fracs[1]:.4f} in the replayed call's "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 15 (a): compile_stall_frac {fracs}")
+    with open(log_.path) as f:
+        n_records = sum(1 for _ in f)
+    log(f"  (a) run-log {os.path.basename(log_.path)}: {n_records} records")
+    return off, {"eager_launches": on[2], "kstep_call_launches": on[3],
+                 "chrome_events": n_events, "device_events": device,
+                 "compile_stall_frac": fracs}
+
+
+def runtime_sampled(pt, fa, base, feed, eager_ms, failures):
+    """(b): the sampled op observer at rate 1.0 (the kernels' per-op
+    counters), then the eager step off, at 0.01 and at 1.0, in turns."""
+    from paddle_tpu_torch import monitor, observability
+    m = copy.deepcopy(base)
+    step, _, _ = observed_recipe(pt, m)
+    for i in range(2):
+        step(feed[i]).item()  # warm-up
+    before = dict(monitor.stats())
+    observability.enable(categories=["dispatch"], dispatch_sample_rate=1.0)
+    try:
+        step(feed[2]).item()
+    finally:
+        observability.disable()
+    after = monitor.stats()
+    per_op = {key: after[key] - before.get(key, 0) for key in after
+              if key.startswith("dispatch_op_sampled{")
+              and after[key] != before.get(key, 0)}
+    kern = {name: per_op.get(f'dispatch_op_sampled{{op="{name}"}}', 0)
+            for name in flash_launches(fa)}
+    ok = all(n == base.config.num_layers for n in kern.values())
+    log(f"  (b) rate 1.0: {len(per_op)} op names, "
+        f"{sum(per_op.values())} ops in one step; the kernels {kern} (want "
+        f"{base.config.num_layers} each) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 15 (b): the sampled observer counted the "
+                        f"kernels {kern}")
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  (b) most frequent ops at rate 1.0: "
+        + ", ".join(f"{k.split('=')[1][1:-2]} {v}" for k, v in top))
+    rates = {"off": None, "rate_0.01": 0.01, "rate_1.0": 1.0}
+    reps, n = OBSERVED_TIMED
+    times = {arm: [] for arm in rates}
+    order = list(rates)
+    for rep in range(reps):
+        for i in range(n):
+            for arm in (order if (rep * n + i) % 2 == 0 else order[::-1]):
+                if rates[arm] is not None:
+                    observability.enable(categories=["dispatch"],
+                                         dispatch_sample_rate=rates[arm])
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(feed[i % len(feed)]).item()
+                    times[arm].append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    if rates[arm] is not None:
+                        observability.disable()
+    med = {arm: float(np.median(v)) for arm, v in times.items()}
+    log("  (b) eager GPT-small step, medians of "
+        f"{reps} x {n} steps an arm in turns: "
+        + ", ".join(f"{arm} {ms:.3f} ms" for arm, ms in med.items())
+        + f"; {card_line()}")
+    log(f"  (b) the eager step with no observer {med['off']:.3f} ms; phase "
+        f"4's eager step "
+        + ("not run" if eager_ms is None else f"{eager_ms:.3f} ms"))
+    del m
+    return {"kernel_ops_rate_1": kern, "step_ms_median": med,
+            "step_ms": times}
+
+
+def runtime_nan_check(pt, fa, base, feed, stacked, k, control, failures):
+    """(c): FLAGS_check_nan_inf=1: the eager steps and the k-step program
+    bitwise against (a)'s run with everything off, the eager step's time;
+    then a NaN written into one layer's weight raises at the first op
+    whose output holds it."""
+    pt.set_flags({"FLAGS_check_nan_inf": 1})
+    try:
+        m = copy.deepcopy(base)
+        step, _, _ = observed_recipe(pt, m)
+        ms = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(feed[i]).item()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  (c) eager step with FLAGS_check_nan_inf=1: "
+            + ", ".join(f"{x:.1f}" for x in ms) + f" ms; {card_line()}")
+        del m, step
+        free_cuda()
+        got = observed_run(pt, fa, base, feed, stacked, k,
+                           "(c) FLAGS_check_nan_inf=1", failures)
+        compare_runs(f"(c) FLAGS_check_nan_inf=1 vs (a) everything off, {k} "
+                     f"eager steps and 2 calls of to_static(scan_steps={k})",
+                     control[0], got[0], control[1], got[1], failures)
+        del got
+        free_cuda()
+        bad = copy.deepcopy(base)
+        step, _, _ = observed_recipe(pt, bad)
+        w = dict(bad.named_parameters())["gpt.blocks.5.fc1.weight"]
+        with torch.no_grad():
+            w[7, 11] = float("nan")
+        try:
+            step(feed[0])
+        except FloatingPointError as e:
+            msg = str(e)
+        else:
+            msg = None
+        ok = msg is not None and msg.startswith("Operator `")
+        op = msg.split("`")[1] if ok else None
+        log(f"  (c) NaN in gpt.blocks.5.fc1.weight: "
+            + (f"FloatingPointError at op {op!r}: {msg}" if ok
+               else "no FloatingPointError") + (" ok" if ok else " FAIL"))
+        if not ok:
+            failures.append("phase 15 (c): a NaN weight raised no "
+                            "FloatingPointError")
+        del bad, step
+    finally:
+        pt.set_flags({"FLAGS_check_nan_inf": 0})
+    return {"step_ms": ms, "nan_op": op}
+
+
+def runtime_memory(pt, serving, seed, failures):
+    """(d): the state ledger of GPT-small and its AdamW, each category
+    against its tensors' bytes; the serving buckets in the program
+    registry."""
+    import gc
+    from paddle_tpu_torch.observability import memory
+    gc.collect()
+    before = memory.state_ledger()
+    cfg, model = gpt_small_model(pt, seed + 1530)
+    model.to("bfloat16")
+    opt, _ = make_optimizer(model)
+    gc.collect()
+    led = memory.state_ledger()
+    cats = {}
+    for c, v in led["categories"].items():
+        w = before["categories"].get(c, {"bytes": 0, "count": 0})
+        if v["bytes"] - w["bytes"]:
+            cats[c] = v["bytes"] - w["bytes"]
+    want = {"param": sum(p.nbytes for p in model.parameters()),
+            "master": sum(t.nbytes for (s, _), t in opt._accumulators.items()
+                          if s == "master"),
+            "opt_moment": sum(t.nbytes for (s, _), t in
+                              opt._accumulators.items() if s != "master")}
+    allocated = torch.cuda.memory_allocated()
+    ok = all(cats.get(c) == n for c, n in want.items())
+    ok &= led["total_bytes"] <= allocated
+    log(f"  (d) state ledger of GPT-small + AdamW (bytes by category): "
+        f"{cats}; want {want}; total {led['total_bytes']} <= allocated "
+        f"{allocated} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 15 (d): the state ledger disagrees with the "
+                        "tensors' bytes")
+    del opt
+    model.to("float32")
+    engine = serving.Engine.from_layer(
+        model, [([None, SEQ], "int32")], bucket_ladder=(1, 4),
+        passes=("bf16",), device="cuda")
+    try:
+        stats = engine.memory_stats()
+        reg = memory.program_memory()
+        ok = all(reg.get(f"serving_b{b}") == stats[b] for b in (1, 4))
+        log(f"  (d) program registry: serving_b1 peak "
+            f"{reg.get('serving_b1', {}).get('peak_bytes')} B, serving_b4 "
+            f"peak {reg.get('serving_b4', {}).get('peak_bytes')} B, equal to "
+            f"memory_stats() {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("phase 15 (d): the program registry disagrees "
+                            "with Engine.memory_stats()")
+    finally:
+        engine.close()
+    del model, engine
+    free_cuda()
+    return {"ledger_bytes": cats, "programs": {
+        b: stats[b]["peak_bytes"] for b in (1, 4)}}
+
+
+def runtime_flight(pt, seed, failures):
+    """(e): a FaultInjected at a checkpoint kill point of a GPT-small save
+    leaves one dump (the span ring, the memory section, the lockwatch
+    section); a real torch.OutOfMemoryError is classified as one."""
+    import os
+    import shutil
+    from paddle_tpu_torch import _lockwatch, observability
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.observability import flight, memory
+    from paddle_tpu_torch.testing import faults
+    root, dumps = ckpt_dir("runtime_flight"), runtime_dir("flight_e")
+    shutil.rmtree(dumps, ignore_errors=True)
+    was = _lockwatch.enable()
+    cfg, model = gpt_small_model(pt, seed + 1540)
+    model.to("bfloat16")
+    opt, _ = make_optimizer(model)
+    flight.install(dumps)
+    observability.enable()
+    try:
+        mgr = CheckpointManager(root).add_model(model).add_optimizer(opt)
+        with faults.scoped("checkpoint/data_partial"):
+            try:
+                mgr.save(1)
+                raised = None
+            except faults.FaultInjected as e:
+                raised = e
+        files = sorted(f for f in os.listdir(dumps) if f.endswith(".json"))
+        rec = {}
+        if len(files) == 1:
+            with open(os.path.join(dumps, files[0])) as f:
+                rec = json.load(f)
+        ok = (raised is not None and len(files) == 1
+              and rec.get("kill_point") == "checkpoint/data_partial"
+              and rec["spans"] and "state" in rec.get("memory", {})
+              and "lockwatch" in rec)
+        log(f"  (e) FaultInjected at checkpoint/data_partial of a GPT-small "
+            f"save: {len(files)} dump(s), {len(rec.get('spans', []))} spans "
+            f"(last {rec.get('spans', [{}])[-1].get('name')}), memory "
+            f"section {sorted(rec.get('memory', {}))}, lockwatch section "
+            f"{'lockwatch' in rec} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("phase 15 (e): the kill point left no complete "
+                            "flight dump")
+        try:
+            torch.empty(1 << 44, dtype=torch.uint8, device="cuda")
+            oom = None
+        except torch.OutOfMemoryError as e:
+            oom = e
+        path = flight.dump("unhandled_exception", exc=oom)
+        with open(path) as f:
+            tag = json.load(f)["reason"]
+        ok = oom is not None and memory.is_oom_error(oom) and tag == "oom"
+        log(f"  (e) torch.OutOfMemoryError ({str(oom).splitlines()[0][:80]}"
+            f"...): is_oom_error {memory.is_oom_error(oom)}, dump reason "
+            f"{tag!r} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("phase 15 (e): an out-of-memory error was not "
+                            "classified")
+    finally:
+        observability.disable()
+        flight.uninstall()
+        if not was:
+            _lockwatch.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    del model, opt
+    free_cuda()
+    return {"dump_spans": len(rec.get("spans", []))}
+
+
+def runtime_pod(failures):
+    """(f): two ranks of ``testing.pod_fixture`` on the card under
+    ``VirtualPod`` with a restart policy, rank 1 SIGKILLed at
+    ``pod/mid_step``: detection, re-formation at world 1, the survivor's
+    restore, the replacement's rejoin; every loss against the fixture's
+    control on the card. Once with the reference's MLP (the pod's
+    liveness and control at the fixture's size), once with GPT-small
+    replicas (their restore moves the whole model and AdamW state)."""
+    import os
+    import shutil
+    from paddle_tpu_torch.distributed.restart import RestartPolicy
+    from paddle_tpu_torch.testing import pod_fixture
+    from paddle_tpu_torch.testing.virtual_pod import VirtualPod
+    out = {}
+    for arm, (model, steps, every, kill_at, heal_by) in POD_RUNS.items():
+        work = runtime_dir("pod")
+        shutil.rmtree(work, ignore_errors=True)
+        root = os.path.join(work, "ckpt")
+        env = {"POD_FIX_CKPT_ROOT": root, "POD_FIX_MODEL": model,
+               "POD_FIX_STEPS": str(steps), "POD_FIX_CKPT_EVERY": str(every),
+               "POD_FIX_TARGET_WORLD": "2",
+               "POD_FIX_HEAL_BY_STEP": str(heal_by),
+               "POD_FIX_HEAL_TIMEOUT": "90", "POD_FIX_DEVICE": "cuda"}
+        t0 = time.time()
+        vp = VirtualPod(2, pod_fixture.__file__, workdir=work, env=env,
+                        kill=(1, "pod/mid_step", kill_at),
+                        restart=RestartPolicy(max_restarts=2, base_delay=0.2,
+                                              seed=0))
+        exits = vp.run(timeout=240)
+        wall = time.time() - t0
+        r0 = vp.log(0)
+        text = r0 + vp.log(1)
+        losses = {}
+        for s, v in re.findall(r"^LOSS (\d+) (\S+)$", text, re.M):
+            losses.setdefault(int(s), []).append(float(v))
+        control = pod_fixture.control(steps, device="cuda", model=model)
+        free_cuda()
+        worst = max((abs(v - control[s]) for s, vs in losses.items()
+                     for v in vs), default=float("inf"))
+        step_bytes = {}
+        for d in os.listdir(root) if os.path.isdir(root) else ():
+            if not d.startswith("step_"):
+                continue
+            files = [os.path.join(dp, f) for dp, _, fs in
+                     os.walk(os.path.join(root, d)) for f in fs]
+            step_bytes[d] = sum(os.path.getsize(f) for f in files)
+
+        def stamps(pattern):
+            return [float(t) for t in
+                    re.findall(pattern + r".* t=([0-9.]+)", r0)]
+        killed = vp.exit_history[0] if vp.exit_history else None
+        detected = stamps(r"FAILURE_DETECTED")
+        shrunk = stamps(r"REFORMED rank=0 world=1 gen=1 dir=shrink")
+        grown = stamps(r"REFORMED rank=0 world=2 gen=2 dir=grow")
+        resumed = stamps(r"RESUME_FROM \d+")
+        ok = (killed is not None and killed.signal == "SIGKILL"
+              and exits[0].returncode == 0 and exits[1].returncode == 0
+              and exits[1].incarnation == 2
+              and all((detected, shrunk, grown)) and len(resumed) == 2
+              and sorted(losses) == list(range(steps))
+              and worst <= POD_LOSS_TOL and "DONE rank=0 world=2" in r0)
+        times = {}
+        if ok:
+            # rank 0 resumes twice: after the shrink, after the grow
+            times = {"detect_s": detected[0] - killed.t_reaped,
+                     "reform_s": shrunk[0] - detected[0],
+                     "restore_s": resumed[0] - shrunk[0],
+                     "recover_s": resumed[0] - killed.t_reaped,
+                     "heal_s": grown[0] - killed.t_reaped,
+                     "grow_restore_s": resumed[1] - grown[0]}
+        log(f"  (f) {arm}: virtual pod on the card: exits {exits}; losses "
+            f"of {len(losses)} steps, worst |diff| against the control on "
+            f"the card {worst:.3e} (tol {POD_LOSS_TOL:g}); "
+            + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+            + f"; checkpoint bytes a step {step_bytes}; {wall:.1f} s "
+            f"{'ok' if ok else 'FAIL'}; {card_line()}")
+        if not ok:
+            log(vp.tail_logs(6000))
+            failures.append(f"phase 15 (f) {arm}: the virtual pod did not "
+                            "heal within its control")
+        shutil.rmtree(work, ignore_errors=True)
+        out[arm] = dict(times, worst_loss_diff=worst, seconds=wall,
+                        checkpoint_bytes=step_bytes)
+    return out
+
+
+def phase15(pt, fa, serving, seed, eager_ms, failures):
+    """Phase 15: the runtime services on GPT-small at full width. A part
+    that raises is a failure and the next one still runs."""
+    import traceback
+    from paddle_tpu_torch.models.gpt import synthetic_lm_batch
+    log("phase 15: runtime services on GPT-small: everything on against "
+        "off, the sampled op observer, FLAGS_check_nan_inf, memory, the "
+        "flight recorder, the virtual pod")
+    t_phase = time.perf_counter()
+    k = GPT_KSTEP
+    cfg, base = gpt_small_model(pt, seed + 1500)
+    base.to("bfloat16")
+    host = np.stack([synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size,
+                                        seed=seed + 1510 + i)
+                     for i in range(k)])
+    feed = [torch.from_numpy(b).cuda() for b in host]
+    stacked = torch.from_numpy(host).cuda()
+    out, launches, control = {}, {}, [None]
+
+    def everything_on():
+        control[0], res = runtime_everything_on(pt, fa, base, feed, stacked,
+                                                k, failures)
+        launches["observed_eager_10_steps"] = res["eager_launches"]
+        launches["observed_kstep_call"] = res["kstep_call_launches"]
+        return res
+
+    parts = (("everything_on", everything_on),
+             ("sampled_observer", lambda: runtime_sampled(
+                 pt, fa, base, feed, eager_ms, failures)),
+             ("nan_check", lambda: runtime_nan_check(
+                 pt, fa, base, feed, stacked, k, control[0], failures)),
+             ("memory", lambda: runtime_memory(pt, serving, seed, failures)),
+             ("flight", lambda: runtime_flight(pt, seed, failures)),
+             ("pod", lambda: runtime_pod(failures)))
+    for key, part in parts:
+        t0 = time.perf_counter()
+        try:
+            if key == "nan_check" and control[0] is None:
+                raise RuntimeError("(a) did not run, so (c) has no control")
+            out[key] = part()
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            traceback.print_exc()
+            failures.append(f"phase 15 ({key}) raised {type(e).__name__}: "
+                            f"{e}")
+        log(f"  -- {key}: {time.perf_counter() - t0:.1f} s")
+        free_cuda()
+    del base, control
+    import os
+    import shutil
+    shutil.rmtree(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               RUNTIME_DIR), ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15: {out['seconds']:.1f} s; {card_line()}")
+    log(json.dumps({"runtime_services": out}, default=str))
+    return launches
+
+
 def gpt_small_model(pt, seed):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
     pt.seed(seed)
@@ -5499,7 +6078,7 @@ def parse_phases(text):
     return phases | {1}
 
 
-LAST_PHASE = 14
+LAST_PHASE = 15
 TIMING_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "max_abs_err")
 
@@ -5641,6 +6220,12 @@ def main():
     if on(14, "the imperative surface"):
         surface_launches = phase14(pt, fa, args.seed, failures)
 
+    # ---- 15. runtime services
+    runtime_launches = {}
+    if on(15, "runtime services"):
+        runtime_launches = phase15(pt, fa, serving, args.seed, eager_ms,
+                                   failures)
+
     # ---- kernels line and result (a skipped phase's entries are null)
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
@@ -5669,7 +6254,9 @@ def main():
                 **{path: counts.get(name)
                    for path, counts in det_launches.items()},
                 **{path: counts.get(name)
-                   for path, counts in surface_launches.items()}),
+                   for path, counts in surface_launches.items()},
+                **{f"runtime_{path}": counts.get(name)
+                   for path, counts in runtime_launches.items()}),
             gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,

@@ -38,12 +38,20 @@ torch's meaning), ``to_tensor``, ``grad`` with ``create_graph``,
 methods (``ops``), the RNG state (``get_rng_state``/``set_rng_state``),
 ``set_flags``/``get_flags``, and sparse embeddings
 (``nn.Embedding(sparse=True)``: ``SelectedRows`` gradients that ``SGD``,
-``Momentum``, ``Adam`` and ``AdamW`` apply row by row).
+``Momentum``, ``Adam`` and ``AdamW`` apply row by row). The runtime
+services: the op observers at ``core.dispatch`` (``call_op``; the
+``FLAGS_check_nan_inf`` check, the ``profiler`` with ``torch.profiler``'s
+device trace merged in, the sampled dispatch telemetry of
+``observability``), the crash flight recorder, memory accounting, the
+lock-order watchdog (``analysis.lockwatch``), and the pod runtime with
+elastic restart (``distributed.pod``, ``testing.virtual_pod``).
 """
 from . import ops  # noqa: F401  (first: it sets the Tensor methods)
 from . import (amp, autograd, checkpoint, distributed, incubate,  # noqa: F401
-               inference, jit, linalg, monitor, nn, optimizer, parallel,
-               recompute, regularizer, serving)
+               inference, jit, linalg, monitor, nn, observability,
+               optimizer, parallel, profiler, recompute, regularizer,
+               serving, testing)
+from .core.dispatch import call_op, call_op_nograd, unwrap  # noqa: F401
 from .core.autograd import enable_grad, grad, no_grad  # noqa: F401
 from .core.device import resolve_device
 from .core.flags import get_flags, set_flags  # noqa: F401
@@ -73,9 +81,11 @@ def __getattr__(name):
 __all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
            "resolve_device", "convert_dtype", "DataParallel", "ParamAttr",
            "Tensor", "Parameter", "to_tensor", "grad", "no_grad",
-           "enable_grad", "set_flags", "get_flags", "float32", "bfloat16",
+           "enable_grad", "set_flags", "get_flags", "call_op",
+           "call_op_nograd", "unwrap", "float32", "bfloat16",
            "int32", "L1Decay", "L2Decay", "save", "load", "amp", "autograd",
            "checkpoint", "distributed", "incubate", "inference", "jit",
-           "linalg", "models", "monitor", "nn", "ops", "optimizer",
-           "parallel", "recompute", "regularizer", "serving",
+           "linalg", "models", "monitor", "nn", "observability", "ops",
+           "optimizer", "parallel", "profiler", "recompute", "regularizer",
+           "serving", "testing",
            "vision"] + ops.__all__

@@ -507,9 +507,10 @@ class PodCheckpointManager:
     dead rank's state restores from its files).
 
     ``rank``/``world`` default to this process's rank and world
-    (``distributed.parallel_env``). ``pod`` is any object with ``rank``,
-    ``world_size``, ``gen`` and ``check_failures()`` that supplies them
-    at every call instead (the reference's ``PodRuntime``, not ported)."""
+    (``distributed.parallel_env``). ``pod``, a
+    ``distributed.pod.PodRuntime``, supplies them at every call instead
+    (its ``rank``, ``world_size`` and ``gen``; ``check_failures()`` turns
+    a dead rank mid-save into ``RankFailedError``)."""
 
     def __init__(self, root, pod=None, rank=None, world=None,
                  keep_last_n=3, fs=None, include_rng=True, timeout=120.0):

@@ -43,6 +43,13 @@ def seed(s):
         _state["generators"].clear()
 
 
+def generators():
+    """``{device: torch.Generator}`` of the package's generators made so
+    far (the memory ledger's ``rng`` entries)."""
+    with _lock:
+        return dict(_state["generators"])
+
+
 def default_generator(device=None):
     """The package's generator for ``device`` (created on first use from
     the current seed)."""

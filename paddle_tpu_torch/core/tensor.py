@@ -71,7 +71,7 @@ import types
 import numpy as np
 import torch
 
-from . import state
+from . import dispatch, state
 from .device import resolve_device
 from .dtype import convert_dtype
 
@@ -128,16 +128,20 @@ def _has_tensor(args, kwargs):
     return False
 
 
-def boundary(fn, always=False):
+def boundary(fn, always=False, op_name=None):
     """The reference's boundary for a function written over plain torch
     tensors: called with a ``Tensor`` it gets plain tensors and its tensor
     results come back as ``Tensor``s; called with none it runs as is,
     unless ``always`` (the ``ops``) asks for ``Tensor`` results anyway.
-    The body stays reachable as ``__wrapped__``."""
+    With ``op_name`` (the ops and the functionals), a call that crosses
+    the boundary runs under the op observers as that one op
+    (``core.dispatch``). The body stays reachable as ``__wrapped__``."""
     @functools.wraps(fn)
     def call(*args, **kwargs):
         if not always and not _has_tensor(args, kwargs):
             return fn(*args, **kwargs)
+        if op_name is not None and dispatch._OBSERVER_LIST is not None:
+            return dispatch.call_op(fn, *args, op_name=op_name, **kwargs)
         return wrap(fn(*unwrap(args), **unwrap(kwargs)))
     return call
 

@@ -2,13 +2,14 @@
 facade (``init``, ``distributed_model``, ``distributed_optimizer``, the
 hybrid topology), the meta-parallel layers and wrappers
 (``meta_parallel``), and the filesystem abstraction the checkpoint core
-writes through (``utils.fs.LocalFS``). The parameter-server entry points
-raise (not ported)."""
-from . import meta_parallel, utils  # noqa: F401
+writes through (``utils.fs.LocalFS``) and the elastic manager
+(``elastic``). The parameter-server entry points raise (not ported)."""
+from . import elastic, meta_parallel, utils  # noqa: F401
 from .base import fleet_base as _fb
 from .base.distributed_strategy import DistributedStrategy  # noqa: F401
 from .base.topology import (CommunicateTopology,  # noqa: F401
                             HybridCommunicateGroup)
+from .elastic import ElasticManager  # noqa: F401
 
 init = _fb.init
 distributed_model = _fb.distributed_model
@@ -30,7 +31,8 @@ save_persistables = _fb.save_persistables
 shutdown_servers = _fb.shutdown_servers
 
 __all__ = ["DistributedStrategy", "CommunicateTopology",
-           "HybridCommunicateGroup", "meta_parallel", "utils", "init",
+           "HybridCommunicateGroup", "meta_parallel", "utils", "elastic",
+           "ElasticManager", "init",
            "distributed_model", "distributed_optimizer",
            "get_hybrid_communicate_group", "worker_index", "worker_num",
            "is_first_worker", "is_server", "is_worker", "barrier_worker",

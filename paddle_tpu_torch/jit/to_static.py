@@ -66,6 +66,12 @@ Rules that capture imposes on the body, each enforced where it can be:
   the captured graph's kernel nodes (``CUDAGraph(keep_graph=True)``,
   ``debug_dump``) times its replays, or by the profiler.
 
+No op observer (``core.dispatch``: the profiler, the NaN check, the
+sampled telemetry) runs while a unit is captured, and a replay runs no
+Python, so a replayed call is observed by no one, as the reference's
+static trace. A capture is a compile event (``jit_compile_ns``, a ``jit``
+span) and a program in ``memory_stats()``: the pool bytes of its capture.
+
 A capture or replay that fails raises; the program never runs eagerly in
 its place. ``xla_flags`` and ``donate_state`` are accepted for the
 reference's signature and have no effect on CUDA. Not ported: the AST
@@ -78,9 +84,12 @@ import weakref
 
 import torch
 
+from ..core import dispatch as _dispatch
 from ..core import random as _random
 from ..distributed import collective as _collective
 from ..distributed import parallel_env
+from ..observability import memory as _memory
+from ..observability import tracing as _tracing
 
 _hooks = {"call_begin": [], "step": [], "call_end": []}
 
@@ -235,12 +244,17 @@ class _GraphProgram:
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        t0 = _tracing.now_ns()
         try:
-            with torch.cuda.graph(self.graph, stream=self.stream):
+            # no op observer runs under a capture (a host read breaks it)
+            with _dispatch.static_scope(), torch.cuda.graph(
+                    self.graph, stream=self.stream):
                 captured = self._call()
         finally:
             if collecting:
                 gc.enable()
+        _tracing.record_compile("capture", t0, _tracing.now_ns(),
+                                steps=self.n)
         if _structure(captured[0], _output_leaf) != spec:
             raise RuntimeError("the captured step returned other outputs "
                                "than its eager warm-up")
@@ -248,6 +262,34 @@ class _GraphProgram:
         self.outputs = [_tree(o)[0] for o in captured]
         self.out_rebuild = _tree(captured[0])[1]
         return [_tree(o)[0] for o in out]
+
+    def memory_stats(self):
+        """The captured unit's device memory, in the reference's kinds:
+        ``argument_bytes`` (its static input buffers), ``output_bytes``
+        (the outputs it writes), ``temp_bytes`` (the segments of the
+        graph's memory pool, beyond the outputs), ``alias_bytes`` and
+        ``generated_code_bytes`` (0: no donation, no generated code) and
+        ``peak_bytes``. State (parameters, moments) is updated in place
+        and is the state ledger's (``observability.memory``)."""
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts
+                       if isinstance(t, torch.Tensor))
+        out_bytes = nbytes(t for step in self.outputs for t in step)
+        # the graph's private pool: the allocator's segments that carry
+        # its id (read without resetting the device's peak counter, which
+        # callers measure by; the reserved total around a capture was seen
+        # to grow by far less than the pool holds)
+        pool = tuple(self.graph.pool())
+        pool_bytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool)
+        stats = {"argument_bytes": nbytes(self.inputs),
+                 "output_bytes": out_bytes,
+                 "temp_bytes": max(pool_bytes - out_bytes, 0),
+                 "alias_bytes": 0, "generated_code_bytes": 0,
+                 "host_offload_bytes": 0}
+        stats["peak_bytes"] = _memory.peak_bytes(stats)
+        return stats
 
     def replay(self, unit_leaves):
         self._load(unit_leaves)
@@ -372,6 +414,39 @@ class StaticFunction:
         if self._dp_axis is not None:
             out = self._mean_over_ranks(out, dp, group)
         return out
+
+    def _memory_entries(self):
+        """``(label, program)`` per captured program, labelled
+        ``<fn>#<i>:<kind>`` as the reference labels its entries."""
+        name = getattr(self, "__name__", "fn")
+        kind = "scan" if self._scan_steps is not None else "unrolled"
+        return [(f"{name}#{i}:{kind}", prog)
+                for i, prog in enumerate(self._programs.values())
+                if prog.outputs is not None]
+
+    def memory_stats(self):
+        """``{label: stats}`` of each captured program (the reference's
+        per-entry attribution; :meth:`_GraphProgram.memory_stats`)."""
+        out = {label: prog.memory_stats()
+               for label, prog in self._memory_entries()}
+        if not out:
+            raise RuntimeError(
+                "no captured program yet; call the step once on the card "
+                "before asking for its memory attribution")
+        return out
+
+    def export_memory_stats(self):
+        """:meth:`memory_stats`, each entry recorded in the program-memory
+        registry (``observability.memory``) and exported as
+        ``program_hbm_bytes{entry=,kind=}`` gauges; returns the stats."""
+        stats = {label: _memory.record_program_memory(label,
+                                                      prog.memory_stats())
+                 for label, prog in self._memory_entries()}
+        if not stats:
+            raise RuntimeError(
+                "no captured program yet; call the step once on the card "
+                "before asking for its memory attribution")
+        return stats
 
     @staticmethod
     def _mean_over_ranks(out, dp, group):

@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -49,6 +50,7 @@ def build(names):
     """Compile every source of ``names`` that is not built yet, all at
     once; raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic_ns()
     compiler = None
     jobs = []
     for name in names:
@@ -61,6 +63,8 @@ def build(names):
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    if not jobs:
+        return
     failed = []
     for name, out, tmp, proc in jobs:
         log, _ = proc.communicate()
@@ -73,6 +77,10 @@ def build(names):
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    # a backend compile: jit_backend_compile_ns / jit_backend_compiles
+    from ..observability import tracing
+    tracing.record_compile("backend", t0, time.monotonic_ns(),
+                           sources=len(jobs))
 
 
 def load(name):

@@ -46,12 +46,19 @@ through it. An exported program cannot re-route at run time, so the
 gate (:func:`supports`) reads only shapes, dtypes and strides; a bfloat16
 input whose base address is off 16 bytes (which TMA cannot load) is copied
 into fresh storage at launch and counted in ``flash_attention_fwd.realigned``.
+
+Each entry point (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
+:func:`flash_attention_bwd_dkv`, so :class:`FlashAttention` too) reports
+its call to the op observers (``core.dispatch``) as one op under the
+reference's kernel name; with no observer registered that costs one
+global read (``_dispatch._OBSERVER_LIST``).
 """
 import ctypes
 import functools
 
 import torch
 
+from ..core import dispatch as _dispatch
 from . import _build
 
 BLOCK_Q = 64
@@ -60,6 +67,15 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {torch.bfloat16: "bf16", torch.float32: "float32"}
+# each kernel's CUDA function name (as a device trace shows it) -> the
+# reference's name for the kernel
+CUDA_FUNCTIONS = {
+    "flash_fwd_sm90_kernel": "flash_attention_fwd",
+    "flash_fwd_kernel": "flash_attention_fwd",
+    "flash_bwd_dq_sm90_kernel": "flash_attention_bwd_dq",
+    "flash_bwd_dq_kernel": "flash_attention_bwd_dq",
+    "flash_bwd_dkv_sm90_kernel": "flash_attention_bwd_dkv",
+    "flash_bwd_dkv_kernel": "flash_attention_bwd_dkv"}
 _MAX_GRID_Y = 65535
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -282,6 +298,10 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
             "flash_attention_fwd launches the kernel outside autograd; "
             "call flash_attention_bshd (the FlashAttention Function) for "
             "a differentiable result")
+    if _dispatch._OBSERVER_LIST is not None:
+        return _dispatch.observe_call(
+            "flash_attention_fwd", flash_attention_fwd_op, q, k, v,
+            bool(causal), _scale(scale, q.shape[3]))
     return flash_attention_fwd_op(q, k, v, bool(causal),
                                   _scale(scale, q.shape[3]))
 
@@ -342,6 +362,14 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None):
     float32 ``[B, H, S_q]``) from q/k/v/O/dO ``[B, S, H, D]`` and the
     forward's lse (float32 ``[B, H, S_q]``). The delta is what
     :func:`flash_attention_bwd_dkv` takes."""
+    if _dispatch._OBSERVER_LIST is not None:
+        return _dispatch.observe_call(
+            "flash_attention_bwd_dq", _flash_attention_bwd_dq, q, k, v, o,
+            do, lse, causal, scale)
+    return _flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale)
+
+
+def _flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale):
     _check_bwd(q, k, v, do, lse, None, causal)
     _check_o(o, q)
     b, s_q, h, d = q.shape
@@ -377,6 +405,14 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     """(dK, dV), each ``[B, S_k, H, D]`` in the input dtype, from q/k/v/dO,
     the forward's lse and the ``delta`` that :func:`flash_attention_bwd_dq`
     returned (both float32 ``[B, H, S_q]``)."""
+    if _dispatch._OBSERVER_LIST is not None:
+        return _dispatch.observe_call(
+            "flash_attention_bwd_dkv", _flash_attention_bwd_dkv, q, k, v, do,
+            lse, delta, causal, scale)
+    return _flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+
+
+def _flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
     _check_bwd(q, k, v, do, lse, delta, causal)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]

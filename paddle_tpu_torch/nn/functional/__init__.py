@@ -5,6 +5,7 @@ Each takes the reference's ``Tensor`` at its boundary
 ``Tensor`` inputs); called with plain tensors, as the port's layers call
 them, it runs as written.
 """
+from ...core.dispatch import call_op  # noqa: F401
 from ...core.tensor import boundary as _boundary
 from ...ops.manipulation import pad  # noqa: F401
 from .activation import gelu, relu, tanh  # noqa: F401
@@ -33,6 +34,6 @@ __all__ = ["linear", "embedding", "dropout", "layer_norm", "batch_norm",
 # pad is an op of ``ops`` (Tensor in, Tensor out)
 for _name in __all__:
     if _name != "pad":
-        globals()[_name] = _boundary(globals()[_name])
+        globals()[_name] = _boundary(globals()[_name], op_name=_name)
 shuffle_channel = channel_shuffle  # noqa: F811
 del _name

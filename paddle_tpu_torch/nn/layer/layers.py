@@ -29,6 +29,7 @@ import torch
 
 from ...core.dtype import convert_dtype, is_dtype_name
 from ...core.tensor import Parameter, boundary, clear_grads
+from ...observability import memory as _memory
 from .. import initializer as I
 
 
@@ -67,6 +68,7 @@ class ParamAttr:
 class Layer(torch.nn.Module):
     def __init__(self, name_scope=None, dtype="float32"):
         super().__init__()
+        _memory.register_layer(self)  # its buffers, for the state ledger
         self._dtype = dtype
         self._name_scope = name_scope or type(self).__name__.lower()
 

@@ -16,24 +16,16 @@ Three metric sources feed the exporters:
 scrapeable, with ``/healthz`` answering from the health registry
 (``register_health``); JSON mirrors the same data.
 
-The reference builds its locks through ``_lockwatch`` (lock-order
-checking), which waits for ROADMAP item 16 here: each lock is a plain
-``threading.Lock`` made by :func:`_named_lock` under the name the
-reference gives it, so the swap is one line.
+Every lock is a ``_lockwatch`` lock under the reference's name (lock
+order checked when ``PADDLE_TPU_LOCKWATCH`` is armed).
 """
 import json
 import re
 import threading
 import time
 
+from .. import _lockwatch as lockwatch
 from .. import monitor
-
-
-def _named_lock(name):
-    """A ``threading.Lock`` standing for the reference's
-    ``lockwatch.Lock(name=name)``."""
-    del name
-    return threading.Lock()
 
 
 __all__ = ["publish", "gauges", "set_gauge", "prometheus_text",
@@ -48,7 +40,7 @@ __all__ = ["publish", "gauges", "set_gauge", "prometheus_text",
 PROM_PREFIX = "paddle_tpu"
 
 _gauges = {}
-_gauges_lock = _named_lock("metrics.gauges")
+_gauges_lock = lockwatch.Lock(name="metrics.gauges")
 
 # the quantile ladder every summary exports (Prometheus summary-type
 # convention: one labeled series per quantile + _count/_sum)
@@ -100,7 +92,7 @@ def _max_label_sets():
 
 
 _label_sets = {}  # metric -> set of label suffixes already admitted
-_label_sets_lock = _named_lock("metrics.label_sets")
+_label_sets_lock = lockwatch.Lock(name="metrics.label_sets")
 
 
 def clear_label_sets():
@@ -171,7 +163,7 @@ class Summary:
         self._n = 0          # lifetime observations (ring fills to window)
         self._count = 0
         self._sum = 0.0
-        self._lock = _named_lock("metrics.summary")
+        self._lock = lockwatch.Lock(name="metrics.summary")
 
     def observe(self, value):
         v = float(value)
@@ -224,7 +216,7 @@ class Summary:
 
 
 _summaries = {}
-_summaries_lock = _named_lock("metrics.summaries")
+_summaries_lock = lockwatch.Lock(name="metrics.summaries")
 
 
 def summary(name, window=None):
@@ -262,7 +254,7 @@ def clear_summaries():
 # label suffix ('ps_server_op_ns{table="1000",op="pull_sparse"}'); values
 # must be monotonic counters.
 _collectors = {}
-_collectors_lock = _named_lock("metrics.collectors")
+_collectors_lock = lockwatch.Lock(name="metrics.collectors")
 
 _name_re = re.compile(r"[^a-zA-Z0-9_:]")
 
@@ -304,7 +296,7 @@ def collected():
 # aggregate on /healthz (200 while every component is "ok", 503
 # otherwise — the readiness-probe contract).
 _health = {}
-_health_lock = _named_lock("metrics.health")
+_health_lock = lockwatch.Lock(name="metrics.health")
 
 
 def register_health(name, fn):

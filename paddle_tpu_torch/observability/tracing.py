@@ -9,24 +9,34 @@
   mints a new trace. ``trace_context()``, ``attach_context(trace,
   parent)`` and ``mint_context()`` carry it across threads and processes.
 - ``count(name, value)``: a counter of ``monitor``, guarded by the switch.
-- ``enable(categories=[...])`` turns on a subset of ``CATEGORIES``.
+- ``enable(categories=[...], dispatch_sample_rate=0.01)`` turns on a
+  subset of ``CATEGORIES``. ``dispatch`` (off by default) registers the
+  sampled op observer at ``core.dispatch``: per-op ``op/<name>`` spans
+  and the ``dispatch_op_sampled{op=}`` / ``dispatch_op_ns{op=}``
+  counters.
+- Compile events: the reference mirrors jax's compile events; the port's
+  are its own. The nvcc build of a kernel library at first use
+  (``kernels/_build.py``) adds to ``jit_backend_compile_ns`` and
+  ``jit_backend_compiles``, and a CUDA-graph capture (a ``to_static`` unit
+  or a serving bucket) to ``jit_compile_ns``, as a ``jit`` span
+  (:func:`record_compile`). ``StepTimer``'s compile-stall fraction reads
+  them.
 
-A completed span goes to the in-process span buffer (:func:`spans`,
-:func:`reset`) and, when a run-log is active, to its JSONL stream
-(``runlog.py``). Not ported: the JAX compile hook and the sampled
-op-dispatch observer (the ``dispatch`` category records nothing here).
+A completed span goes to three sinks: the profiler's event buffer (the
+one buffer; :func:`spans` and :func:`reset` read and clear it), the
+flight recorder's ring (``flight.py``) and, when a run-log is active, its
+JSONL stream (``runlog.py``).
 """
 import random
 import threading
-import time
 
-from .. import monitor
-from . import runlog
+from .. import monitor, profiler
+from . import flight, runlog
 
 __all__ = ["enable", "disable", "enabled", "trace_span", "current_span",
            "count", "now_ns", "CATEGORIES", "DEFAULT_CATEGORIES",
            "trace_context", "attach_context", "mint_context",
-           "record_span", "spans", "reset", "Span"]
+           "record_span", "spans", "reset", "Span", "record_compile"]
 
 # every instrumented subsystem; "dispatch" is opt-in (sampled per-op spans)
 CATEGORIES = ("executor", "jit", "dataloader", "collective", "ps",
@@ -60,8 +70,8 @@ def _new_id():
 
 
 def now_ns():
-    """The span clock: monotonic nanoseconds."""
-    return time.monotonic_ns()
+    """The span clock: the profiler's (monotonic nanoseconds)."""
+    return profiler._now_ns()
 
 
 def trace_context():
@@ -118,30 +128,24 @@ def enabled(cat=None):
     return True if cat is None else cat in cats
 
 
-_spans = []  # completed spans, in the order they ended
-_spans_lock = threading.Lock()
-
-
 def spans():
     """The completed spans recorded since the last :func:`reset`, as dicts
     (``name``, ``cat``, ``t0``, ``t1``, ``trace_id``, ``span_id``,
-    ``parent_id``, ``attrs``)."""
-    with _spans_lock:
-        return list(_spans)
+    ``parent_id``, ``attrs``): read from the profiler's buffer."""
+    return profiler.spans()
 
 
 def reset():
-    """Drop the recorded spans."""
-    with _spans_lock:
-        _spans.clear()
+    """Drop the recorded spans (the profiler's buffer)."""
+    profiler.reset()
 
 
 def _emit(name, cat, t0, t1, trace_id, span_id, parent_id, attrs):
-    """One completed span to the span buffer and the active run-log."""
-    with _spans_lock:
-        _spans.append({"name": name, "cat": cat, "t0": t0, "t1": t1,
-                       "trace_id": trace_id, "span_id": span_id,
-                       "parent_id": parent_id, "attrs": attrs or {}})
+    """One completed span to every sink: the profiler buffer (chrome
+    trace), the flight ring (crash evidence) and the active run-log."""
+    profiler.record_span(name, cat, t0, t1,
+                         span=(trace_id, span_id, parent_id, attrs or {}))
+    flight.record(name, cat, t0, t1, trace_id, span_id, parent_id, attrs)
     if runlog.active() is not None:
         runlog.span(name, cat, t0, t1, trace_id, span_id, parent_id,
                     attrs)
@@ -206,11 +210,11 @@ class Span:
             self.trace_id, self.parent_id = _new_id(), 0
         self.span_id = _new_id()
         stack.append(self)
-        self._t0 = now_ns()
+        self._t0 = profiler._now_ns()
         return self
 
     def __exit__(self, *exc):
-        end = now_ns()
+        end = profiler._now_ns()
         stack = _tls.stack
         if stack and stack[-1] is self:
             stack.pop()
@@ -260,10 +264,71 @@ def count(name, value=1, cat=None):
     monitor.stat_add(name, value)
 
 
-def enable(categories=None):
+def record_compile(kind, t0_ns, t1_ns, **attrs):
+    """A compile event of the port: ``kind`` ``"backend"`` (an nvcc
+    build) adds to ``jit_backend_compile_ns`` and ``jit_backend_compiles``;
+    ``"capture"`` (a CUDA-graph capture) to ``jit_compile_ns``. Either is
+    also a ``jit`` span. Guarded by the ``jit`` category, as the
+    reference's compile hook is."""
+    if not enabled("jit"):
+        return
+    dur = int(t1_ns) - int(t0_ns)
+    if kind == "backend":
+        monitor.stat_add("jit_backend_compile_ns", dur)
+        monitor.stat_add("jit_backend_compiles", 1)
+        name = "jit/backend_compile"
+    elif kind == "capture":
+        monitor.stat_add("jit_compile_ns", dur)
+        monitor.stat_add("jit_compiles", 1)
+        name = "jit/capture"
+    else:
+        raise ValueError(f"unknown compile kind {kind!r}")
+    record_span(name, "jit", t0_ns, t1_ns, **attrs)
+
+
+# -- sampled op-dispatch observer -----------------------------------------
+
+_op_label_re = None
+
+
+def _op_label(name):
+    """Sanitize an op name into a Prometheus label value (op names come
+    from ``dispatch.op_display_name``)."""
+    global _op_label_re
+    if _op_label_re is None:
+        import re
+        _op_label_re = re.compile(r'[^0-9A-Za-z_./:-]')
+    return _op_label_re.sub("_", name)
+
+
+class _SampledOpObserver:
+    """Per-op spans through the ``core.dispatch`` seam, sampled by period
+    so the op path stays cheap: the seam calls it on one op in
+    ``period`` (it counts the ops), and each call is one span."""
+
+    def __init__(self, sample_rate=0.01):
+        self.period = max(1, int(round(1.0 / max(sample_rate, 1e-9))))
+
+    def begin(self, name):
+        return profiler._now_ns()
+
+    def end(self, token, name, outputs):
+        end_ns = profiler._now_ns()
+        profiler.record_span(f"op/{name}", "dispatch", token, end_ns)
+        monitor.stat_add("dispatch_sampled_ops", 1)
+        from .export import format_labels
+        key = format_labels("dispatch_op", op=_op_label(name))
+        monitor.stat_add("dispatch_op_sampled" + key, 1)
+        monitor.stat_add("dispatch_op_ns" + key, end_ns - token)
+
+
+def enable(categories=None, dispatch_sample_rate=0.01):
     """Turn on tracing for ``categories`` (default: every category but
-    ``dispatch``). Starts the run-log named by ``PADDLE_TPU_RUNLOG_DIR``
-    when one is set and none is active."""
+    ``dispatch``) and the profiler's event collection, so spans reach the
+    chrome trace. Starts the run-log named by ``PADDLE_TPU_RUNLOG_DIR``
+    and arms the flight recorder at ``PADDLE_TPU_FLIGHT_DIR`` when they
+    are set. With ``dispatch``, registers the sampled op observer at
+    ``dispatch_sample_rate``."""
     cats = (frozenset(categories) if categories is not None
             else DEFAULT_CATEGORIES)
     unknown = cats - frozenset(CATEGORIES)
@@ -272,9 +337,22 @@ def enable(categories=None):
             f"unknown trace categories {sorted(unknown)}; "
             f"valid: {list(CATEGORIES)}")
     _enabled_cats[0] = cats
+    profiler.enable_collection()
     runlog.maybe_start_from_env()
+    flight.maybe_install_from_env()
+    from ..core import dispatch
+    if "dispatch" in cats:
+        dispatch.add_observer("observability",
+                              _SampledOpObserver(dispatch_sample_rate))
+    else:
+        # an enable without "dispatch" tears a previous sampler down
+        dispatch.remove_observer("observability")
 
 
 def disable():
-    """Turn tracing off. Recorded spans stay until :func:`reset`."""
+    """Turn tracing off and stop the profiler's event collection.
+    Recorded spans stay until :func:`reset`."""
     _enabled_cats[0] = None
+    from ..core import dispatch
+    dispatch.remove_observer("observability")
+    profiler.disable_collection()

@@ -10,15 +10,17 @@ define (``core.tensor``'s docstring). The models of the port call the
 same bodies without the boundary (:data:`plain`): plain tensors in and
 out, so a model's inside never meets ``Tensor``.
 
+Under an op observer (``core.dispatch``) each op is one op under its
+reference name; ``call_op``/``call_op_nograd`` run any function that way.
+
 Not ported with this module: ``ops/misc_tail.py``, ``ctr_tail.py``,
-``tdm.py`` and ``sequence.py`` (ROADMAP items 17 and 14), and the
-reference's dispatch seam (``call_op``, ``call_op_nograd``, ``unwrap``:
-the op observer goes with item 16).
+``tdm.py`` and ``sequence.py`` (ROADMAP items 17 and 14).
 """
 import types
 
 import torch
 
+from ..core.dispatch import call_op, call_op_nograd  # noqa: F401
 from ..core.tensor import Parameter, Tensor, unwrap
 from . import extras, manipulation, math, random  # noqa: F401
 from .extras import *  # noqa: F401,F403

@@ -40,8 +40,9 @@ def op(fn):
     """The ops' boundary: ``Tensor`` arguments reach ``fn`` as plain
     tensors, and its tensor results come back as ``Tensor``s, whatever
     it was given. ``fn`` itself is the op's ``__wrapped__`` (``ops.plain``
-    holds the bodies the models call)."""
-    return boundary(fn, always=True)
+    holds the bodies the models call). Under an op observer it is the
+    op ``fn.__name__``, the reference's name for it."""
+    return boundary(fn, always=True, op_name=fn.__name__)
 
 
 def amp(name, *tensors):

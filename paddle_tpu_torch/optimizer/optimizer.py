@@ -141,6 +141,8 @@ class Optimizer:
             used.add(name)
             self._names[id(p)] = name
             self._create_accumulators(p)
+        from ..observability import memory
+        memory.register_optimizer(self)  # the state ledger's walk
 
     @staticmethod
     def _wd_value(weight_decay):

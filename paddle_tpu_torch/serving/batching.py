@@ -33,6 +33,8 @@ import time
 from collections import deque
 from concurrent.futures import Future, InvalidStateError
 
+from ..core import dispatch as _dispatch
+
 __all__ = ["Request", "DynamicBatcher", "OverloadedError",
            "DeadlineExceeded"]
 
@@ -249,6 +251,7 @@ class DynamicBatcher:
                 return
             if batch is None:
                 continue
+            _dispatch.sync_thread()  # this thread's op-observer mode
             try:
                 self._run_batch(batch)
             except BaseException as e:  # noqa: BLE001 — futures must resolve

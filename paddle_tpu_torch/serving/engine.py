@@ -53,9 +53,11 @@ import numpy as np
 import torch
 
 from .. import monitor as _monitor
+from ..core import dispatch as _dispatch
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype, to_numpy_dtype
 from ..observability import export as _export
+from ..observability import memory as _memory
 from ..observability import runlog as _runlog
 from ..observability import tracing as _obs
 from ..testing import faults as _faults
@@ -219,7 +221,9 @@ class _BucketGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            # no op observer runs under a capture (a host read breaks it)
+            with _dispatch.static_scope(), torch.cuda.graph(self.graph,
+                                                            pool=pool):
                 self.outputs = forward(self.feeds)
         finally:
             if collecting:
@@ -442,6 +446,7 @@ class Engine:
         self._stats["capture_ms"][bucket] = unit.capture_ms
         _monitor.stat_add("serving_graph_captures", 1)
         _monitor.stat_add("serving_graph_capture_ns", _obs.now_ns() - t0)
+        _obs.record_compile("capture", t0, _obs.now_ns(), bucket=bucket)
 
     # -- public surface ----------------------------------------------------
     @property
@@ -506,7 +511,9 @@ class Engine:
         CPU, which captures nothing), alias_bytes, generated_code_bytes
         (0: no buffer donation, no generated code), peak_bytes}}``. The
         capture reads the device's peak-memory counter, which it resets.
-        The program-memory registry waits for ROADMAP item 16."""
+        Each captured bucket is recorded in the program-memory registry
+        (``observability.memory``) as ``serving_b<bucket>``, as the
+        reference records its bucket executables."""
         out = {}
         for b in self.bucket_ladder:
             m = dict(self._memory[b])
@@ -518,6 +525,8 @@ class Engine:
                                m["argument_bytes"] + m["output_bytes"]
                                + m["temp_bytes"])
             out[b] = m
+            if unit is not None:
+                _memory.record_program_memory(f"serving_b{b}", m)
         return out
 
     def stats(self):

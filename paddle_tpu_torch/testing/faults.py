@@ -231,14 +231,26 @@ def kill_point(point):
 
 def _on_fired(point, exc=None):
     """A kill point fired: leave evidence before the injected exception
-    unwinds, a zero-width span at the kill site and a run-log event.
-    Never raises: injecting the configured fault is the contract."""
+    unwinds, a zero-width span at the kill site, a run-log event and,
+    when the flight recorder is armed, an atomic crash dump whose last
+    span is this one (the injected exception rides into the dump, so an
+    injected allocation failure classifies as ``reason="oom"``). Never
+    raises: injecting the configured fault is the contract."""
     try:
-        from ..observability import runlog, tracing
+        from ..observability import flight, runlog, tracing
         now = tracing.now_ns()
-        tracing.record_span(f"fault/{point}", "user", now, now,
-                            kill_point=point)
+        if tracing.enabled("user"):
+            # record_span fans out to the profiler, the flight ring and
+            # the run-log
+            tracing.record_span(f"fault/{point}", "user", now, now,
+                                kill_point=point)
+        else:
+            # evidence even with tracing off: the flight ring is always on
+            flight.record(f"fault/{point}", "user", now, now, 0, 0, 0,
+                          {"kill_point": point})
         runlog.event("fault_fired", point=point)
+        if flight.installed():
+            flight.on_kill_point(point, exc)
     except Exception:
         pass
 

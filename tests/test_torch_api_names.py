@@ -65,7 +65,18 @@ PORTED_MODULES = {
     "paddle_tpu.ops.manipulation", "paddle_tpu.ops.extras",
     "paddle_tpu.ops.random", "paddle_tpu.core.selected_rows",
     "paddle_tpu.core.state", "paddle_tpu.core.enforce",
-    "paddle_tpu.nn.functional.vision"}
+    "paddle_tpu.nn.functional.vision",
+    # runtime services: the op observer and the NaN check, the profiler,
+    # the flight recorder, memory accounting, the gate, lockwatch, and the
+    # pod with elastic restart
+    "paddle_tpu.core.dispatch", "paddle_tpu.core.flags",
+    "paddle_tpu.profiler", "paddle_tpu.observability",
+    "paddle_tpu.observability.flight", "paddle_tpu.observability.memory",
+    "paddle_tpu.observability.gate", "paddle_tpu._lockwatch",
+    "paddle_tpu.distributed.restart", "paddle_tpu.distributed.spawn",
+    "paddle_tpu.distributed.launch", "paddle_tpu.distributed.pod",
+    "paddle_tpu.distributed.fleet.elastic",
+    "paddle_tpu.testing.virtual_pod"}
 PORTED_CLASSES = {
     "paddle_tpu.optimizer.optimizer": {"Optimizer", "Adam", "AdamW", "SGD",
                                        "Momentum"},
@@ -90,8 +101,6 @@ PORTED_CLASSES = {
         "max_pool1d", "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
         "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
         "adaptive_max_pool2d"},
-    # the NaN/Inf observer of core.flags waits in ROADMAP item 16
-    "paddle_tpu.core.flags": {"set_flags", "get_flags"},
     "paddle_tpu.vision.datasets": {"MNIST"}}
 
 NOT_PORTED = {
@@ -101,15 +110,18 @@ NOT_PORTED = {
     "paddle_tpu.jit.StaticFunction.collective_stats",
     "paddle_tpu.jit.StaticFunction.concrete_program",
     "paddle_tpu.jit.StaticFunction.export_collective_bytes",
-    "paddle_tpu.jit.StaticFunction.export_memory_stats",
     "paddle_tpu.jit.StaticFunction.export_overlap_stats",
     "paddle_tpu.jit.StaticFunction.hlo_text",
-    "paddle_tpu.jit.StaticFunction.memory_stats",
     "paddle_tpu.jit.StaticFunction.overlap_stats",
     "paddle_tpu.jit.StaticFunction.schedulable_stats",
     "paddle_tpu.jit.StaticFunction.traced_memory_stats",
     "paddle_tpu.jit.StaticFunction.verify",
     "paddle_tpu.jit.StaticFunction.xla_flags",
+    # memory attribution that reads XLA HLO or compiles a recorded
+    # program's twin (with traced_memory_stats above): ROADMAP item 18
+    "paddle_tpu.observability.memory.top_buffers",
+    "paddle_tpu.observability.memory.compile_program_twin",
+    "paddle_tpu.observability.memory.attribute_program",
     # the tracer and the static graph: ROADMAP item 17
     "paddle_tpu.static.InputSpec",
     "paddle_tpu.jit.in_tracing", "paddle_tpu.jit.not_to_static",

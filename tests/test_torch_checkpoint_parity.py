@@ -311,7 +311,10 @@ def port(workdir, reference):
     ZeRO on two gloo ranks."""
     torch.set_num_threads(2)
     out = _port_side(workdir, ["replicated", "replicated_bf16"])
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    # a rank that aborts in native code prints torch's C++ stack and every
+    # thread's Python stack (F11)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               TORCH_SHOW_CPP_STACKTRACES="1", PYTHONFAULTHANDLER="1")
     procs = [subprocess.Popen(
         [sys.executable, __file__, str(rank), "2", str(workdir)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

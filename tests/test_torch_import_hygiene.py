@@ -73,6 +73,24 @@ _ARTIFACT = ("paddle_tpu_torch.jit.io", "paddle_tpu_torch.jit.export",
              "paddle_tpu_torch.observability.export")
 
 
+# runtime services: the op seam, the profiler, the flight recorder, memory
+# accounting, the gate, lockwatch, the pod with elastic restart
+_RUNTIME = ("paddle_tpu_torch.core.dispatch", "paddle_tpu_torch.core.flags",
+            "paddle_tpu_torch.profiler", "paddle_tpu_torch._lockwatch",
+            "paddle_tpu_torch.analysis", "paddle_tpu_torch.analysis.lockwatch",
+            "paddle_tpu_torch.observability.flight",
+            "paddle_tpu_torch.observability.memory",
+            "paddle_tpu_torch.observability.gate",
+            "paddle_tpu_torch.observability.step",
+            "paddle_tpu_torch.distributed.restart",
+            "paddle_tpu_torch.distributed.spawn",
+            "paddle_tpu_torch.distributed.launch",
+            "paddle_tpu_torch.distributed.pod",
+            "paddle_tpu_torch.distributed.fleet.elastic",
+            "paddle_tpu_torch.testing.virtual_pod",
+            "paddle_tpu_torch.testing.pod_fixture")
+
+
 def _forbidden(name):
     return name.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
 
@@ -88,7 +106,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
     for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT + _HYBRID \
-            + _ARTIFACT:
+            + _ARTIFACT + _RUNTIME:
         assert f"'{name}'" in every, (name, every)
 
 
@@ -98,7 +116,8 @@ def test_package_import_brings_its_top_level_modules():
     probe = ("import sys, paddle_tpu_torch as pt\n"
              "print(all(hasattr(pt, n) for n in ('models', 'serving', "
              "'distributed', 'recompute', 'to_tensor', 'checkpoint', "
-             "'save', 'load', 'incubate', 'parallel', 'inference')))\n"
+             "'save', 'load', 'incubate', 'parallel', 'inference', "
+             "'profiler', 'observability', 'testing', 'call_op')))\n"
              "print(sorted(n for n in sys.modules if n.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -58,8 +58,6 @@ DIFFERENT = {
     "paddle_tpu.distributed.fleet.save_persistables": "parameter server",
     "paddle_tpu.distributed.fleet.shutdown_servers": "parameter server",
     "paddle_tpu.distributed.fleet.stop_worker": "parameter server",
-    # the port has no per-op dispatch spans to sample
-    "paddle_tpu.observability.enable": "no dispatch category",
     # a Parameter keeps torch.Tensor's own methods (core.tensor's table of
     # deliberate differences; tests/test_torch_tensor.py)
     "paddle_tpu.Parameter.backward": "torch.Tensor.backward",

@@ -69,7 +69,10 @@ def _inputs(path):
 
 def spawn(workdir, world, task):
     """Run ``task`` on ``world`` gloo ranks; returns rank 0's result."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    # a rank that aborts in native code prints torch's C++ stack and every
+    # thread's Python stack (F11)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               TORCH_SHOW_CPP_STACKTRACES="1", PYTHONFAULTHANDLER="1")
     procs = [subprocess.Popen(
         [sys.executable, __file__, task, str(rank), str(world),
          str(workdir)], env=env, stdout=subprocess.PIPE,
