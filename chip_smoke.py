@@ -243,7 +243,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with the reference's MLP (liveness at the fixture's size) and once
    with GPT-small replicas, AdamW with float32 masters, whose survivor
    and replacement restore the whole state from the pod checkpoint.
-16. One JSON line with every kernel of the paths, then the result line.
+16. CTR through the parameter server (``distributed.ps``,
+   ``models.ctr``), no hand-written kernel on this path (each flash
+   kernel's launches are counted and must be 0): (a) the native PS service
+   built with g++ (build time printed), a server on port 0 with sparse SGD
+   and Adam tables, a dense table and a spilled table: fresh rows bitwise
+   the server's float32 rule (and the reference's float64 mirror's gap),
+   three Adam pushes against numpy, dense pushes and deltas, 500 rows past
+   a 64-row budget, a save/load round trip bitwise; (b) bench_hbm_cache
+   at its sizes (vocab 200,000, dim 64, 30 batches of 4096, capacity 2^18,
+   SGD 0.1): the direct path (a loopback TCP pull and push a batch) and
+   the cached path (``build_pass``, then ``run_fused_pass``: one CUDA
+   graph of one batch, replayed 30 times, after a warm-up pass), the
+   passes bitwise against the same body run eagerly (deterministic
+   algorithms), the server's rows bitwise the device table after
+   ``end_pass``; ms a batch of each path and the hit rate; (c) bench_ctr
+   at its accelerator sizes (``WideAndDeep``: vocab 2,000,000, dim 64, 16
+   slots, batch 1024, hidden (512, 256), k 16, Zipf-1.2 ids of seed 3, the
+   (10 + 1) x 16 batches as run_all.py feeds them, capacity 2^18, sparse SGD
+   0.05, dense ``Adam(1e-3)``) through ``train_ctr_windows(prefetch=True,
+   depth=2, flush=True)`` with a ``WriteBackQueue`` and a
+   ``SyncCommunicator``, then with ``prefetch=False``: losses finite and
+   falling, both runs bitwise alike (losses, dense parameters, the
+   server's rows), lookups/s, overlap efficiency, pull and wait ms, hits,
+   misses, evictions, capture time, the cache's and the program's memory
+   and one profiled window (device busy, idle share, top kernels); (d)
+   a small ``WideAndDeep`` on the card against the CPU within stated
+   float32 bounds; (e) one server and two worker processes of
+   ``testing.ps_fixture`` through the fleet (``init(is_collective=
+   False)`` ... ``shutdown_servers``) in sync mode, the workers' dense math
+   on the card: losses finite and falling, final dense parameters equal.
+17. One JSON line with every kernel of the paths, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -5969,6 +5999,683 @@ def phase15(pt, fa, serving, seed, eager_ms, failures):
     return launches
 
 
+# ---- phase 16: CTR through the parameter server ----------------------------
+
+PS_DIR = ".chip_smoke_ps"  # spill files and snapshots, removed at the end
+# (b): bench_hbm_cache's sizes (benchmarks/run_all.py:342, 365).
+HBM_VOCAB, HBM_DIM, HBM_BATCH, HBM_STEPS = 200_000, 64, 4096, 30
+HBM_CAPACITY, HBM_LR = 1 << 18, 0.1
+# (c): bench_ctr's accelerator sizes (benchmarks/run_all.py:418-420, with
+# phase 14's CTR_VOCAB, CTR_DIM, CTR_SLOTS, CTR_BATCH and CTR_HIDDEN): k
+# steps a window; run_all.py's bench_ctr feeds (windows + 1) * k batches.
+PSCTR_K, PSCTR_WINDOWS, PSCTR_CAPACITY = 16, 10, 1 << 18
+PSCTR_SPARSE_LR, PSCTR_DENSE_LR, PSCTR_SEED = 0.05, 1e-3, 3
+# The same recipe with a cache below its working set: 185,752 distinct ids
+# (seed 3) against 131,071 rows; each window's ~32,000 ids and the two
+# planned ahead fit. With no free rows kept ahead (the watermark at 0; by
+# default the consumer's drain evicts ahead, 164,867 rows in a run, and
+# the planner then never has to), every eviction is the planner's:
+# deferred on its thread, written back by the consumer's flush, and a
+# missed key whose write-back is still pending moves instead of a pull.
+PSCTR_EVICT_CAPACITY, PSCTR_EVICT_WATERMARK = 1 << 17, (0.0, 0.0)
+# The recipe's windows learn for three windows and then oscillate, in the
+# JAX package as in the port (tools/ctr_window_losses.py): the check is
+# that the first PSCTR_FALLING windows' mean losses fall strictly.
+PSCTR_FALLING = 3
+# Whole windows profiled after a run (take, feeds, replay, drain, loss
+# read, end_pass): the recipe's last ones.
+PSCTR_PROFILE_WINDOWS = 3
+# (d): a small WideAndDeep, the same windows on the card and on the CPU.
+# Dense SGD: Adam turns summation-order noise in near-zero gradient
+# components into steps of the rate's size, SGD moves each parameter by
+# its gradient; float32 on both sides (TF32 off), so the runs differ only
+# in summation order: the losses' relative difference, the dense
+# parameters' relative L2 and the server rows' absolute difference.
+PS_SMALL = dict(vocab=20_000, dim=16, slots=4, batch=128, hidden=(64, 32),
+                k=4, windows=3)
+PS_SMALL_LR = 0.05
+PS_CARD_CPU_LOSS_REL, PS_CARD_CPU_PARAM_REL, PS_CARD_CPU_ROW_ABS = \
+    2e-5, 2e-5, 1e-6
+# (a): the Adam rule in numpy float32 against the server's (std::pow in
+# the bias corrections may round differently from numpy's power).
+PS_ADAM_REL = 1e-6
+# (e): the fixture's cluster on the card: one server, two workers, sync.
+PS_CLUSTER_STEPS = 200
+
+
+def ps_dir(name):
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), PS_DIR,
+                        name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def ps_server(ps, tables):
+    srv = ps.PsServer(tables, port=0)
+    cli = ps.PsClient([f"127.0.0.1:{srv.start()}"])
+    for t in tables:
+        if t.kind == "sparse":
+            cli.register_sparse(t.table_id, t.dim)
+    return srv, cli
+
+
+def ps_close(srv, cli):
+    cli.stop_servers()
+    cli.close()
+    srv.stop()
+
+
+def ps_check(label, ok, failures, detail=""):
+    log(f"  {label}{': ' + detail if detail else ''} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 16 {label}")
+    return ok
+
+
+def ps_service(pt, failures):
+    """(a): the native service: its build, fresh rows against the server's
+    float32 rule (bitwise) and the reference's float64 mirror, a sparse
+    Adam push against numpy, dense tables, a spilled table, a save/load
+    round trip."""
+    from paddle_tpu_torch import _native
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.distributed.ps.embedding import (
+        deterministic_init, server_init_rows)
+    t0 = time.perf_counter()
+    _native.lib()
+    build_s = time.perf_counter() - t0
+    log(f"  (a) PS service: g++ build {build_s:.2f} s "
+        f"({'built' if _native.build_seconds else 'cached'}: "
+        f"{_native.library_path()}); {card_line()}")
+    work = ps_dir("service")
+
+    def tables(spill):
+        return [ps.TableConfig(1000, "sparse", 8, "sgd", lr=0.5,
+                               init_range=0.2, seed=7),
+                ps.TableConfig(1001, "sparse", 3, "adam", lr=0.1,
+                               init_range=0.0),
+                ps.TableConfig(0, "dense", 0, "sgd", lr=0.1),
+                ps.TableConfig(1002, "sparse", 4, "sgd", lr=0.1,
+                               init_range=0.1, seed=1000,
+                               mem_budget_rows=64, spill_path=spill)]
+
+    keys = np.arange(1, 4097, dtype=np.uint64) * np.uint64(7919)
+    spill_keys = np.arange(500, dtype=np.uint64)
+    adam_key = np.array([5], np.uint64)
+    srv, cli = ps_server(ps, tables(f"{work}/spill_a"))
+    out = {"build_s": build_s}
+    try:
+        rows = cli.pull_sparse(1000, keys)
+        mirror = deterministic_init(7, keys, 8, 0.2)
+        gap = float(np.abs(rows - mirror).max())
+        ps_check("(a) 4096 fresh rows bitwise the server's float32 rule",
+                 np.array_equal(rows, server_init_rows(7, keys, 8, 0.2)),
+                 failures, f"the reference's float64 mirror within "
+                 f"{gap:.3e}")
+        p = np.zeros(3, np.float32)
+        m, v = np.zeros(3, np.float32), np.zeros(3, np.float32)
+        b1, b2, lr, eps = (np.float32(x) for x in (0.9, 0.999, 0.1, 1e-8))
+        one = np.float32(1)
+        for t in range(1, 4):
+            g = np.full(3, t, np.float32)
+            cli.push_sparse_grad(1001, adam_key, g.reshape(1, 3))
+            m = b1 * m + (one - b1) * g
+            v = b2 * v + (one - b2) * g * g
+            bc1 = one - np.power(b1, np.float32(t))
+            bc2 = one - np.power(b2, np.float32(t))
+            p = p - lr * (m / bc1) / (np.sqrt(v / bc2) + eps)
+        got = cli.pull_sparse(1001, adam_key)[0]
+        rel = float(np.abs(got - p).max() / np.abs(p).max())
+        ps_check("(a) three sparse Adam pushes against the numpy float32 "
+                 "rule", rel <= PS_ADAM_REL, failures,
+                 f"max rel {rel:.3e} (tol {PS_ADAM_REL:g})")
+        cli.register_dense(0, 4)
+        init = np.arange(4, dtype=np.float32)
+        cli.pull_dense_init(0, init)
+        cli.push_dense_grad(0, np.ones(4, np.float32))
+        cli.push_dense_delta(0, np.full(4, 0.5, np.float32))
+        want = init - np.float32(0.1) * np.float32(1) + np.float32(0.5)
+        ps_check("(a) dense init, SGD push and delta",
+                 np.array_equal(cli.pull_dense(0), want), failures)
+        cli.push_sparse_grad(1002, spill_keys,
+                             np.ones((500, 4), np.float32))
+        in_mem, spilled, fails = cli.sparse_spill_info(1002)[0]
+        spilled_rows = cli.pull_sparse(1002, spill_keys)
+        ps_check("(a) spilled table: 500 rows past a 64-row budget, pulled "
+                 "back bitwise", in_mem <= 64 and in_mem + spilled == 500
+                 and fails == 0 and np.array_equal(
+                     spilled_rows, server_init_rows(1000, spill_keys, 4, 0.1)
+                     - np.float32(0.1)), failures,
+                 f"{in_mem} in memory, {spilled} spilled")
+        state = [cli.pull_sparse(1000, keys), cli.pull_sparse(1001, adam_key),
+                 cli.pull_dense(0), spilled_rows]
+        t0 = time.perf_counter()
+        cli.save(f"{work}/snap")
+        out["save_s"] = time.perf_counter() - t0
+    finally:
+        ps_close(srv, cli)
+    srv, cli = ps_server(ps, tables(f"{work}/spill_b"))
+    try:
+        cli.register_dense(0, 4)
+        t0 = time.perf_counter()
+        cli.load(f"{work}/snap")
+        out["load_s"] = time.perf_counter() - t0
+        again = [cli.pull_sparse(1000, keys), cli.pull_sparse(1001, adam_key),
+                 cli.pull_dense(0), cli.pull_sparse(1002, spill_keys)]
+        ps_check("(a) save, a fresh server, load: every table bitwise",
+                 all(np.array_equal(a, b) for a, b in zip(state, again)),
+                 failures, f"save {out['save_s'] * 1e3:.1f} ms, load "
+                 f"{out['load_s'] * 1e3:.1f} ms")
+    finally:
+        ps_close(srv, cli)
+    return out
+
+
+def ps_hbm_cache(pt, seed, failures):
+    """(b): bench_hbm_cache at its sizes: the direct path (a TCP pull and
+    push a batch) and the cached path (build_pass, then run_fused_pass as
+    one CUDA graph replayed 30 times after a warm-up pass), the program
+    bitwise against the same body run eagerly batch by batch, and the
+    server rows bitwise the device rows after end_pass."""
+    from paddle_tpu_torch.distributed import ps
+    tables = [ps.TableConfig(t, "sparse", HBM_DIM, "sgd", lr=HBM_LR,
+                             init_range=0.1, seed=1000)
+              for t in (1000, 1001, 1002)]
+    rng = np.random.RandomState(seed + 1600)
+    batches = [rng.randint(0, HBM_VOCAB, HBM_BATCH).astype(np.int64)
+               for _ in range(HBM_STEPS)]
+    all_ids = np.concatenate(batches)
+    srv, cli = ps_server(ps, tables)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for ids in batches:
+            keys = np.unique(ids).astype(np.uint64)
+            rows = cli.pull_sparse(1000, keys)
+            cli.push_sparse_grad(1000, keys, np.ones_like(rows))
+        direct_s = time.perf_counter() - t0
+        cache, twin = (ps.HbmEmbeddingCache(cli, t, HBM_DIM, HBM_CAPACITY,
+                                            optimizer="sgd", lr=HBM_LR,
+                                            device="cuda")
+                       for t in (1001, 1002))
+        t0 = time.perf_counter()
+        staged = cache.build_pass(all_ids)
+        build_s = time.perf_counter() - t0
+        twin.build_pass(all_ids)
+
+        def emb_loss(e):
+            return e.sum()
+
+        with deterministic_algorithms():
+            t0 = time.perf_counter()
+            first = cache.run_fused_pass(batches, emb_loss)
+            first_s = time.perf_counter() - t0
+            want = [twin._fused_pass(batches, emb_loss, None, program=False)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed = cache.run_fused_pass(batches, emb_loss)
+            cached_s = time.perf_counter() - t0
+        ps_check("(b) two fused passes (one CUDA graph) bitwise the same body "
+                 "eager: losses and table",
+                 np.array_equal(first, want[0])
+                 and np.array_equal(timed, want[1])
+                 and torch.equal(cache.table, twin.table), failures,
+                 f"{len(cache._fused_progs)} program")
+        n_dirty = cache.end_pass()
+        keys = np.fromiter(cache._slots, np.uint64)
+        slots = torch.tensor(list(cache._slots.values()),
+                             device=cache.device)
+        server = cli.pull_sparse(1001, keys)
+        device = cache.table.index_select(0, slots).cpu().numpy()
+        ps_check(f"(b) after end_pass the server's {keys.size} rows bitwise "
+                 f"the device table's", np.array_equal(server, device),
+                 failures, f"{n_dirty} rows written back")
+        out = {"direct_ms_per_batch": direct_s / HBM_STEPS * 1e3,
+               "cached_ms_per_batch": cached_s / HBM_STEPS * 1e3,
+               "first_pass_s": first_s, "build_pass_s": build_s,
+               "staged_rows": staged,
+               "rows_per_batch": int(np.unique(batches[0]).size),
+               "losses_finite": bool(np.isfinite(timed).all())}
+        ps_check("(b) losses finite", out["losses_finite"], failures)
+        log(f"  (b) bench_hbm_cache ({HBM_STEPS} batches of {HBM_BATCH} ids "
+            f"over {HBM_VOCAB}, dim {HBM_DIM}, capacity {HBM_CAPACITY}): "
+            f"direct {out['direct_ms_per_batch']:.3f} ms a batch (TCP pull + "
+            f"push on loopback), cached {out['cached_ms_per_batch']:.3f} ms "
+            f"a batch (one run_fused_pass, deterministic algorithms), "
+            f"{direct_s / cached_s:.2f}x; build_pass {build_s:.3f} s for "
+            f"{staged} rows; first pass (eager step, capture, replays) "
+            f"{first_s:.3f} s (build_pass stages every id of the pass: "
+            f"no miss can happen); {card_line()}")
+        del cache, twin
+    finally:
+        ps_close(srv, cli)
+    return out
+
+
+def ps_ctr_arm(pt, batches, prefetch, seed, device="cuda", small=None,
+               profile=False, capacity=PSCTR_CAPACITY,
+               watermark=(0.0, 0.15)):
+    """One run of train_ctr_windows on a fresh server: the losses, the
+    dense parameters, the server's rows of every id after the flush and
+    the run's figures. With ``profile``, PSCTR_PROFILE_WINDOWS whole
+    windows of the same recipe run under the profiler after it."""
+    import torch as _torch
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.distributed.ps.communicator import \
+        SyncCommunicator
+    from paddle_tpu_torch.distributed.ps.embedding import reset_registry
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.observability import tracing
+    cfg = small or dict(vocab=CTR_VOCAB, dim=CTR_DIM, slots=CTR_SLOTS,
+                        hidden=CTR_HIDDEN, k=PSCTR_K)
+    reset_registry()
+    srv, cli = ps_server(ps, [
+        ps.TableConfig(1000, "sparse", cfg["dim"], "sgd",
+                       lr=PSCTR_SPARSE_LR, init_range=0.05, seed=1000),
+        ps.TableConfig(1001, "sparse", 1, "sgd", lr=PSCTR_SPARSE_LR,
+                       init_range=0.05, seed=1001)])
+    wb = ps.WriteBackQueue(cli)
+    out = {}
+    try:
+        pt.seed(seed)
+        model = ctr.WideAndDeep(cfg["vocab"], dim=cfg["dim"],
+                                slots=cfg["slots"], hidden=cfg["hidden"],
+                                cached=True, capacity=capacity,
+                                optimizer="sgd", lr=PSCTR_SPARSE_LR,
+                                writeback=wb, watermark=watermark,
+                                device=device)
+        if small is not None:
+            model.load_state_dict(small["state"])
+            opt = pt.optimizer.SGD(parameters=model.parameters(),
+                                   learning_rate=PS_SMALL_LR)
+        else:
+            opt = pt.optimizer.Adam(parameters=model.parameters(),
+                                    learning_rate=PSCTR_DENSE_LR)
+        ps.bind_model(model, SyncCommunicator(cli, n_workers=1))
+        step = ctr.build_ctr_scan_step(model, opt, cfg["k"])
+        stats = ("hit", "miss", "evict", "deferred_evict", "resurrect")
+        before = {k: monitor.stat_get(f"hbm_cache_{k}") for k in stats}
+        tracing.enable(categories=["jit"])
+        compile_ns = monitor.stat_get("jit_compile_ns")
+        if device != "cpu":
+            _torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = ctr.train_ctr_windows(model, opt, batches, k=cfg["k"],
+                                  prefetch=prefetch, depth=2, flush=True,
+                                  step=step)
+        if device != "cpu":
+            _torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["capture_ms"] = (monitor.stat_get("jit_compile_ns")
+                             - compile_ns) / 1e6
+        tracing.disable()
+        out.update({k: monitor.stat_get(f"hbm_cache_{k}") - v
+                    for k, v in before.items()})
+        out.update(losses=np.asarray(r["losses"]), windows=r["windows"],
+                   lookups=r["lookups"],
+                   overlap_efficiency=r["overlap_efficiency"],
+                   pull_ms=r["pull_s"] * 1e3, wait_ms=r["wait_s"] * 1e3)
+        out["dense"] = [p.detach().cpu().clone() for p in model.parameters()]
+        ids = np.unique(np.concatenate([b[0].ravel() for b in batches]))
+        out["rows"] = [cli.pull_sparse(t, ids.astype(np.uint64))
+                       for t in (1000, 1001)]
+        caches = model.caches()
+        out["device_rows_are_server_rows"] = all(
+            np.array_equal(c.table.index_select(0, _torch.tensor(
+                list(c._slots.values()), device=c.device)).cpu().numpy(),
+                cli.pull_sparse(c.table_id, np.fromiter(c._slots, np.uint64)))
+            for c in caches)
+        out["cache_bytes"] = sum(
+            t.numel() * t.element_size() for c in caches
+            for t in (c.table, c.staged, c.delta, getattr(c, "m", None),
+                      getattr(c, "v", None), getattr(c, "t", None))
+            if t is not None)
+        if device != "cpu":
+            out["program_memory"] = step.memory_stats()
+        if profile:
+            tail = batches[-PSCTR_PROFILE_WINDOWS * cfg["k"]:]
+            out["profile"] = profile_retry(lambda: ctr.train_ctr_windows(
+                model, opt, tail, k=cfg["k"], prefetch=prefetch, depth=2,
+                flush=True, step=step))
+        del model, opt, step, caches
+    finally:
+        wb.stop(flush=False)
+        ps_close(srv, cli)
+    return out
+
+
+def ps_resurrection(failures):
+    """A directed deferred eviction and resurrection on the card (the
+    reference's ``test_async_cache`` scenario): keys 1 and 2 trained, a
+    planned window that evicts both with their deltas still on the card, a
+    second plan that wants key 1 back before the first one's installs ran.
+    Row 1 must move on the card with its local training, row 2's delta
+    reach the server, and after end_pass the server hold row 1 as the
+    card does, each bitwise in float32."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.distributed.ps.embedding import server_init_rows
+    dim, lr = 4, np.float32(0.1)
+    srv, cli = ps_server(ps, [ps.TableConfig(1000, "sparse", dim, "sgd",
+                                             lr=0.1, init_range=0.1,
+                                             seed=1000)])
+    try:
+        cache = ps.HbmEmbeddingCache(cli, 1000, dim, 7, optimizer="sgd",
+                                     lr=0.1, device="cuda")
+        cache.lookup(torch.tensor([[1, 2]], device="cuda")).sum().backward()
+        cache.apply_grads()
+        before = monitor.stat_get("hbm_cache_resurrect")
+        plan1 = cache.plan_window(np.array([[3, 4, 5, 6, 7]], np.int64),
+                                  bucket=8)
+        deferred = 1 not in cache._slots and bool(cache._pending_evict)
+        plan2 = cache.plan_window(np.array([[1]], np.int64), bucket=2)
+        moved = 1 in cache._slots and bool(cache._pending_copy)
+        plan2.feeds()
+        row1 = cache.table[cache._slots[1]].cpu().numpy()
+        init = server_init_rows(1000, np.array([1, 2], np.uint64), dim, 0.1)
+        trained = init + (-lr)  # a gradient of ones, SGD on the card
+        row2_server = cli.pull_sparse(1000, np.array([2], np.uint64))[0]
+        cache.end_pass()
+        row1_server = cli.pull_sparse(1000, np.array([1], np.uint64))[0]
+        row1_after = cache.table[cache._slots[1]].cpu().numpy()
+        plan1.release()
+        plan2.release()
+        n = monitor.stat_get("hbm_cache_resurrect") - before
+        ps_check("(c) a directed resurrection on the card: key 1 evicted "
+                 "with its delta pending, planned again, moved with its "
+                 "training; key 2's delta on the server; after end_pass the "
+                 "server's row 1 the card's (bitwise)",
+                 deferred and moved and n == 1
+                 and np.array_equal(row1, trained[0])
+                 and np.array_equal(row2_server,
+                                    init[1] + (trained[1] - init[1]))
+                 and np.array_equal(row1_server, row1_after), failures,
+                 f"deferred {deferred}, moved {moved}, resurrections {n}")
+    finally:
+        ps_close(srv, cli)
+
+
+def ps_bench_ctr(pt, seed, failures):
+    """(c): bench_ctr at its accelerator sizes through train_ctr_windows
+    (prefetch on, depth 2, a WriteBackQueue and a SyncCommunicator): one
+    timed run with torch's default algorithms (the one a user runs; whole
+    windows of it profiled after), then two under deterministic
+    algorithms, prefetch on and off, bitwise the same losses, dense
+    parameters and server rows; then the same pair with a cache below the
+    working set and no rows kept free ahead, whose planner evicts; then a
+    directed resurrection."""
+    from paddle_tpu_torch.models import ctr
+    t0 = time.perf_counter()
+    batches = ctr.synthetic_ctr_batches((PSCTR_WINDOWS + 1) * PSCTR_K,
+                                        batch_size=CTR_BATCH,
+                                        slots=CTR_SLOTS, vocab=CTR_VOCAB,
+                                        seed=PSCTR_SEED)
+    log(f"  (c) {len(batches)} batches of {CTR_BATCH} x {CTR_SLOTS} Zipf-1.2 "
+        f"ids over {CTR_VOCAB} (seed {PSCTR_SEED}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    timed = ps_ctr_arm(pt, batches, True, seed + 1610, profile=True)
+    free_cuda()
+    arms = {}
+    with deterministic_algorithms():
+        for capacity in (PSCTR_CAPACITY, PSCTR_EVICT_CAPACITY):
+            for prefetch in (True, False):
+                roomy = capacity == PSCTR_CAPACITY
+                arms[capacity, prefetch] = ps_ctr_arm(
+                    pt, batches, prefetch, seed + 1610, capacity=capacity,
+                    profile=prefetch and roomy,
+                    **({} if roomy else dict(
+                        watermark=PSCTR_EVICT_WATERMARK)))
+                free_cuda()
+    k = PSCTR_K
+
+    def means(a):
+        return [float(a["losses"][i:i + k].mean())
+                for i in range(0, len(a["losses"]), k)]
+
+    def falling(a):
+        m = means(a)[:PSCTR_FALLING]
+        return all(x > y for x, y in zip(m, m[1:]))
+
+    def same(a, b):
+        return (np.array_equal(a["losses"], b["losses"])
+                and all(torch.equal(x, y) for x, y in zip(a["dense"],
+                                                          b["dense"]))
+                and all(np.array_equal(x, y) for x, y in zip(a["rows"],
+                                                             b["rows"])))
+
+    runs = [timed, *arms.values()]
+    ps_check(f"(c) {len(timed['losses'])} losses finite (all five runs), the "
+             f"first {PSCTR_FALLING} windows' means falling strictly",
+             all(bool(np.isfinite(a["losses"]).all()) and falling(a)
+                 for a in runs), failures,
+             "window means " + " ".join(f"{m:.4f}" for m in means(timed)))
+    for capacity in (PSCTR_CAPACITY, PSCTR_EVICT_CAPACITY):
+        on, off = arms[capacity, True], arms[capacity, False]
+        cache = (f"capacity {capacity}" if capacity == PSCTR_CAPACITY else
+                 f"capacity {capacity}, watermark {PSCTR_EVICT_WATERMARK}")
+        ps_check(f"(c) {cache}: prefetch on bitwise prefetch off "
+                 f"(deterministic algorithms): losses, dense parameters, "
+                 f"the server's rows after the flush", same(on, off),
+                 failures, f"{on['rows'][0].shape[0]} ids; evictions "
+                 f"{on['evict']} / {off['evict']} (deferred "
+                 f"{on['deferred_evict']} / {off['deferred_evict']}), "
+                 f"resurrections {on['resurrect']} / {off['resurrect']}, "
+                 f"hits {on['hit']} / {off['hit']}, misses {on['miss']} / "
+                 f"{off['miss']}")
+    ps_check("(c) device rows are the server's after the flush (all five "
+             "runs)", all(a["device_rows_are_server_rows"] for a in runs),
+             failures)
+    small = [arms[PSCTR_EVICT_CAPACITY, p] for p in (True, False)]
+    ps_check(f"(c) capacity {PSCTR_EVICT_CAPACITY} evicts through the "
+             f"planner (deferred evictions in both runs)",
+             all(a["evict"] > 0 and a["deferred_evict"] > 0 for a in small),
+             failures)
+    evict_gap = float(np.abs(small[0]["losses"]
+                             - arms[PSCTR_CAPACITY, True]["losses"]).max())
+    ps_resurrection(failures)
+
+    def rate(a):
+        return a["lookups"] / a["wall_s"]
+
+    det = {f"{c}_{'on' if p else 'off'}": rate(a)
+           for (c, p), a in arms.items()}
+    log(f"  (c) bench_ctr: {timed['windows']} windows of {k} steps, "
+        f"{timed['lookups']} lookups in {timed['wall_s']:.3f} s: "
+        f"{rate(timed):.1f} lookups/s (deterministic algorithms, capacity "
+        f"and prefetch: " + ", ".join(f"{n} {v:.1f}" for n, v in det.items())
+        + f"); overlap efficiency {timed['overlap_efficiency']:.4f}, pull "
+        f"{timed['pull_ms']:.1f} ms, wait {timed['wait_ms']:.1f} ms; hits "
+        f"{timed['hit']}, misses {timed['miss']}, evictions "
+        f"{timed['evict']}; capture {timed['capture_ms']:.1f} ms; cache "
+        f"state {timed['cache_bytes'] / 1e6:.1f} MB; the evicting run's "
+        f"losses against the roomy run's: max |diff| {evict_gap:.3e}; "
+        f"{card_line()}")
+    for label, st in timed["program_memory"].items():
+        log(f"    captured program {label}: "
+            + ", ".join(f"{k2} {v / 1e6:.1f} MB" for k2, v in st.items()))
+    profs = {}
+    for key, arm, how in (("default", timed, "default algorithms"),
+                          ("deterministic", arms[PSCTR_CAPACITY, True],
+                           "deterministic algorithms")):
+        prof = report_profile(
+            f"(c) {PSCTR_PROFILE_WINDOWS} whole windows after the run (take, "
+            f"feeds, replay, drain, loss read, end_pass; {how})",
+            arm["profile"], failures)
+        if prof is not None:
+            profs[key] = {k2: prof[k2] for k2 in
+                          ("wall_ms", "busy_ms", "idle", "by_kind_ms")}
+            profs[key]["top"] = prof["top"][:8]
+    res = {key: timed[key] for key in (
+        "wall_s", "capture_ms", "hit", "miss", "evict", "windows",
+        "lookups", "overlap_efficiency", "pull_ms", "wait_ms",
+        "cache_bytes", "program_memory")}
+    res.update(lookups_per_s=rate(timed), lookups_per_s_deterministic=det,
+               overlap_efficiency_deterministic=arms[
+                   PSCTR_CAPACITY, True]["overlap_efficiency"],
+               window_loss_means=means(timed),
+               evicting={f"prefetch_{'on' if p else 'off'}": {
+                   k2: arms[PSCTR_EVICT_CAPACITY, p][k2] for k2 in (
+                       "hit", "miss", "evict", "deferred_evict",
+                       "resurrect", "overlap_efficiency", "wall_s")}
+                   for p in (True, False)},
+               evicting_loss_gap=evict_gap, profile=profs)
+    return res
+
+
+def ps_card_vs_cpu(pt, seed, failures):
+    """(d): the same small windows through the port on the card and on the
+    CPU, from the same dense weights."""
+    from paddle_tpu_torch.distributed.ps.embedding import reset_registry
+    from paddle_tpu_torch.models import ctr
+    c = PS_SMALL
+    batches = ctr.synthetic_ctr_batches(c["windows"] * c["k"],
+                                        batch_size=c["batch"],
+                                        slots=c["slots"], vocab=c["vocab"],
+                                        seed=PSCTR_SEED)
+    reset_registry()
+    pt.seed(seed + 1620)
+    state = {k2: v.clone() for k2, v in ctr.WideAndDeep(
+        c["vocab"], dim=c["dim"], slots=c["slots"], hidden=c["hidden"],
+        cached=False, device="cpu").state_dict().items()}
+    small = dict(c, state=state)
+    card, cpu = (ps_ctr_arm(pt, batches, True, seed + 1620, device=dev,
+                            small=small) for dev in ("cuda", "cpu"))
+    loss_rel = float(np.abs(card["losses"] - cpu["losses"]).max()
+                     / np.abs(cpu["losses"]).max())
+    param_rel = max(float((a - b).norm() / b.norm())
+                    for a, b in zip(card["dense"], cpu["dense"]))
+    row_abs = max(float(np.abs(a - b).max())
+                  for a, b in zip(card["rows"], cpu["rows"]))
+    ps_check(f"(d) {len(cpu['losses'])} steps card vs CPU (vocab "
+             f"{c['vocab']}, dim {c['dim']}, {c['slots']} slots, batch "
+             f"{c['batch']}, hidden {c['hidden']}, k {c['k']})",
+             loss_rel <= PS_CARD_CPU_LOSS_REL
+             and param_rel <= PS_CARD_CPU_PARAM_REL
+             and row_abs <= PS_CARD_CPU_ROW_ABS, failures,
+             f"losses rel {loss_rel:.3e} (tol {PS_CARD_CPU_LOSS_REL:g}), "
+             f"dense rel L2 {param_rel:.3e} (tol {PS_CARD_CPU_PARAM_REL:g}),"
+             f" server rows abs {row_abs:.3e} (tol {PS_CARD_CPU_ROW_ABS:g}); "
+             f"{card_line()}")
+    return {"loss_rel": loss_rel, "param_rel_l2": param_rel,
+            "row_abs": row_abs}
+
+
+def ps_cluster(failures):
+    """(e): one server process and two worker processes of
+    ``testing.ps_fixture`` through the fleet in sync mode, the workers'
+    dense math on the card; worker 0 saves the tables
+    (``save_persistables``) after training."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    snap = os.path.join(ps_dir("cluster"), "snap")
+
+    def spawn(role, endpoint, wid=0):
+        env = {k2: v for k2, v in os.environ.items()
+               if not k2.startswith(("PADDLE_", "PS_"))}
+        env.update(PYTHONPATH=root, PYTHONFAULTHANDLER="1", PS_ROLE=role,
+                   PS_MODE="sync", PADDLE_PSERVER_ENDPOINTS=endpoint,
+                   TRAINING_ROLE="PSERVER" if role == "server" else
+                   "TRAINER", PADDLE_PSERVER_ID="0",
+                   PADDLE_TRAINER_ID=str(wid), PADDLE_TRAINERS_NUM="2",
+                   PS_FIX_DEVICE="cuda", PS_FIX_STEPS=str(PS_CLUSTER_STEPS),
+                   PS_SAVE=snap)
+        return subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.testing.ps_fixture"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=root)
+
+    t0 = time.perf_counter()
+    procs = [spawn("server", "127.0.0.1:0")]
+    outs = []
+    try:
+        line = procs[0].stdout.readline()
+        if not line.startswith("SERVER_READY"):
+            raise RuntimeError(f"the PS server did not start: {line}"
+                               + procs[0].stderr.read()[-3000:])
+        endpoint = f"127.0.0.1:{line.split()[1]}"
+        procs += [spawn("worker", endpoint, w) for w in (0, 1)]
+        for w in procs[1:]:
+            o, e = w.communicate(timeout=300)
+            if w.returncode != 0:
+                raise RuntimeError(f"a PS worker failed: {e[-3000:]}")
+            outs.append(o)
+        procs[0].wait(timeout=60)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    losses = [np.array([float(v) for v in re.findall(r"^LOSS \d+ (\S+)$", o,
+                                                     re.M)]) for o in outs]
+    digests = {m.group(1) for o in outs
+               for m in [re.search(r"^PARAMS (\S+)$", o, re.M)] if m}
+    saved = re.search(r"^SPARSE_SIZE (\d+)$", outs[0], re.M)
+    rows = int(saved.group(1)) if saved else 0
+    ok = (procs[0].returncode == 0 and rows > 0
+          and os.path.getsize(snap + ".0") > 0
+          and all(len(ls) == PS_CLUSTER_STEPS and np.isfinite(ls).all()
+                  and ls[-10:].mean() < ls[:5].mean() for ls in losses)
+          and len(digests) == 1)
+    ps_check(f"(e) 1 server + 2 workers, sync, {PS_CLUSTER_STEPS} steps "
+             f"through the fleet (workers on the card)", ok, failures,
+             "losses " + ", ".join(f"{ls[:5].mean():.4f} -> "
+                                   f"{ls[-10:].mean():.4f}" for ls in losses)
+             + f", final dense parameters equal: {len(digests) == 1}; "
+             f"snapshot of {rows} sparse rows, "
+             f"{os.path.getsize(snap + '.0') if rows else 0} B; {wall:.1f} s; "
+             f"{card_line()}")
+    return {"seconds": wall, "snapshot_rows": rows,
+            "loss_first5": [float(ls[:5].mean())
+                                             for ls in losses],
+            "loss_last10": [float(ls[-10:].mean()) for ls in losses]}
+
+
+def phase16(pt, fa, seed, failures):
+    """Phase 16: CTR through the parameter server. A part that raises is a
+    failure and the next one still runs."""
+    import os
+    import shutil
+    import traceback
+    log("phase 16: CTR through the parameter server: the native service, "
+        "bench_hbm_cache, bench_ctr, card vs CPU, the fleet's cluster")
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    for key, part in (("service", lambda: ps_service(pt, failures)),
+                      ("hbm_cache", lambda: ps_hbm_cache(pt, seed, failures)),
+                      ("bench_ctr", lambda: ps_bench_ctr(pt, seed, failures)),
+                      ("card_vs_cpu", lambda: ps_card_vs_cpu(pt, seed,
+                                                             failures)),
+                      ("cluster", lambda: ps_cluster(failures))):
+        t0 = time.perf_counter()
+        fa.reset_launch_counts()
+        try:
+            out[key] = part()
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            traceback.print_exc()
+            failures.append(f"phase 16 ({key}) raised {type(e).__name__}: "
+                            f"{e}")
+        counts = flash_launches(fa)
+        launches[f"ps_{key}"] = counts
+        ok = not any(counts.values())
+        log(f"  -- {key}: flash launches {counts} (none expected) "
+            f"{'ok' if ok else 'FAIL'}; {time.perf_counter() - t0:.1f} s")
+        if not ok:
+            failures.append(f"phase 16 ({key}) launched flash kernels "
+                            f"{counts}")
+        free_cuda()
+    shutil.rmtree(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               PS_DIR), ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16: {out['seconds']:.1f} s; {card_line()}")
+    log(json.dumps({"parameter_server": out}, default=str))
+    return launches
+
+
 def gpt_small_model(pt, seed):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
     pt.seed(seed)
@@ -6078,7 +6785,7 @@ def parse_phases(text):
     return phases | {1}
 
 
-LAST_PHASE = 15
+LAST_PHASE = 16
 TIMING_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "max_abs_err")
 
@@ -6226,6 +6933,11 @@ def main():
         runtime_launches = phase15(pt, fa, serving, args.seed, eager_ms,
                                    failures)
 
+    # ---- 16. CTR through the parameter server
+    ps_launches = {}
+    if on(16, "CTR through the parameter server"):
+        ps_launches = phase16(pt, fa, args.seed, failures)
+
     # ---- kernels line and result (a skipped phase's entries are null)
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
@@ -6256,7 +6968,9 @@ def main():
                 **{path: counts.get(name)
                    for path, counts in surface_launches.items()},
                 **{f"runtime_{path}": counts.get(name)
-                   for path, counts in runtime_launches.items()}),
+                   for path, counts in runtime_launches.items()},
+                **{path: counts.get(name)
+                   for path, counts in ps_launches.items()}),
             gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,

@@ -44,7 +44,11 @@ services: the op observers at ``core.dispatch`` (``call_op``; the
 device trace merged in, the sampled dispatch telemetry of
 ``observability``), the crash flight recorder, memory accounting, the
 lock-order watchdog (``analysis.lockwatch``), and the pod runtime with
-elastic restart (``distributed.pod``, ``testing.virtual_pod``).
+elastic restart (``distributed.pod``, ``testing.virtual_pod``). CTR trains
+through the parameter server (``distributed.ps``: the native service
+built with g++ at first use, its client and communicators, a
+device-resident embedding cache with prefetched k-step windows;
+``fleet.init(is_collective=False)``; ``models.WideAndDeep``).
 """
 from . import ops  # noqa: F401  (first: it sets the Tensor methods)
 from . import (amp, autograd, checkpoint, distributed, incubate,  # noqa: F401

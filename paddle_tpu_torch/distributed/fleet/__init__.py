@@ -3,10 +3,14 @@ facade (``init``, ``distributed_model``, ``distributed_optimizer``, the
 hybrid topology), the meta-parallel layers and wrappers
 (``meta_parallel``), and the filesystem abstraction the checkpoint core
 writes through (``utils.fs.LocalFS``) and the elastic manager
-(``elastic``). The parameter-server entry points raise (not ported)."""
+(``elastic``), the role makers, the datasets and the parameter-server
+entry points (``distributed.ps``)."""
 from . import elastic, meta_parallel, utils  # noqa: F401
 from .base import fleet_base as _fb
 from .base.distributed_strategy import DistributedStrategy  # noqa: F401
+from .base.role_maker import (PaddleCloudRoleMaker,  # noqa: F401
+                              UserDefinedRoleMaker)
+from .dataset import InMemoryDataset, QueueDataset  # noqa: F401
 from .base.topology import (CommunicateTopology,  # noqa: F401
                             HybridCommunicateGroup)
 from .elastic import ElasticManager  # noqa: F401
@@ -31,6 +35,8 @@ save_persistables = _fb.save_persistables
 shutdown_servers = _fb.shutdown_servers
 
 __all__ = ["DistributedStrategy", "CommunicateTopology",
+           "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "InMemoryDataset",
+           "QueueDataset",
            "HybridCommunicateGroup", "meta_parallel", "utils", "elastic",
            "ElasticManager", "init",
            "distributed_model", "distributed_optimizer",

@@ -26,8 +26,14 @@ program, whose optimizer reduces by itself). A global-norm clip sums the
 squares of sliced parameters over the mp group and of each stage's over
 the pipe group, where those degrees are above one.
 
-The parameter-server half (``init_server``, ``run_server``,
-``init_worker``, ``ps_step``, ...) is not ported: each raises by name.
+The parameter-server half: ``init`` with a non-collective role (or
+``is_collective=False``) builds a ``distributed.ps.PsRuntime`` and no mesh;
+``is_server``, ``init_server``, ``run_server``, ``init_worker``,
+``ps_step``, ``ps_runtime``, ``barrier_worker``, ``save_persistables``,
+``stop_worker`` and ``shutdown_servers`` then act on it, as the
+reference's do. ``strategy.a_sync`` selects the PS mode (async, or geo with
+``a_sync_configs["k_steps"]``) and, as in the reference, no meta-optimizer:
+``distributed_optimizer`` passes it through.
 """
 from ... import collective, parallel_env
 from ...parallel import DataParallel, fused_allreduce_grads
@@ -37,21 +43,32 @@ from .topology import (HybridCommunicateGroup, get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
 
 _strategy = None
+_role_maker = None
+_ps_runtime = None
 
 # meta-optimizer switches of the strategy that the port does not run
+# (a_sync is none: it selects the parameter server's mode)
 _UNPORTED = ("amp", "dgc", "localsgd", "adaptive_localsgd", "lamb", "lars",
-             "fp16_allreduce", "asp", "gradient_merge", "a_sync")
+             "fp16_allreduce", "asp", "gradient_merge")
 
 
 def init(role_maker=None, is_collective=True, strategy=None, device=None):
     """Build the hybrid mesh of ``strategy.hybrid_configs`` over the
     default process group (created here if there is none, on ``device``:
-    the card unless ``"cpu"``); returns the ``HybridCommunicateGroup``."""
-    global _strategy
-    if not is_collective or not getattr(role_maker, "_is_collective", True):
-        raise NotImplementedError("fleet.init for the parameter server is "
-                                  "not ported")
+    the card unless ``"cpu"``); returns the ``HybridCommunicateGroup``.
+    With a non-collective role (``PaddleCloudRoleMaker(is_collective=
+    False)``, or ``is_collective=False``) it builds the parameter-server
+    runtime instead and returns it."""
+    global _strategy, _role_maker, _ps_runtime
+    from .role_maker import PaddleCloudRoleMaker
+    _role_maker = role_maker or PaddleCloudRoleMaker(
+        is_collective=is_collective)
     _strategy = strategy or DistributedStrategy()
+    if not getattr(_role_maker, "_is_collective", is_collective):
+        from ...ps import PsRuntime
+        _ps_runtime = PsRuntime(_role_maker, _strategy)
+        return _ps_runtime
+    _ps_runtime = None  # a collective re-init drops a stale PS runtime
     parallel_env.init_parallel_env(device=device)
     hcg = HybridCommunicateGroup(strategy=_strategy)
     if hcg.mesh is None:
@@ -65,10 +82,14 @@ def init(role_maker=None, is_collective=True, strategy=None, device=None):
 
 
 def worker_index():
+    if _ps_runtime is not None:
+        return _role_maker.worker_index()
     return parallel_env.get_rank()
 
 
 def worker_num():
+    if _ps_runtime is not None:
+        return _role_maker.worker_num()
     return parallel_env.get_world_size()
 
 
@@ -77,33 +98,73 @@ def is_first_worker():
 
 
 def is_server():
-    return False
+    return _role_maker is not None and _role_maker.is_server()
 
 
 def is_worker():
-    return True
+    return _role_maker is None or _role_maker.is_worker()
 
 
 def barrier_worker():
+    """The workers' barrier: through server 0 in parameter-server mode,
+    else the process group's."""
+    if _ps_runtime is not None:
+        if _ps_runtime.client is not None:
+            _ps_runtime.client.barrier(_role_maker.worker_num(),
+                                       timeout=600.0)
+        return
     collective.barrier()
 
 
-def _ps_only(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"fleet.{name} (the parameter server) is "
-                                  "not ported")
-    fn.__name__ = name
-    return fn
+def _ps():
+    if _ps_runtime is None:
+        raise RuntimeError("call fleet.init with a parameter-server role "
+                           "(is_collective=False) first")
+    return _ps_runtime
 
 
-init_server = _ps_only("init_server")
-run_server = _ps_only("run_server")
-init_worker = _ps_only("init_worker")
-ps_step = _ps_only("ps_step")
-ps_runtime = _ps_only("ps_runtime")
-save_persistables = _ps_only("save_persistables")
-shutdown_servers = _ps_only("shutdown_servers")
-stop_worker = _ps_only("stop_worker")
+# -- parameter-server entry points (reference: fleet_base.py init_server
+# :1080 / run_server / init_worker / save_persistables over TheOnePSRuntime)
+def init_server(model=None, port=None):
+    """Start this process's PS server with the tables of the constructed
+    ``SparseEmbedding`` layers and ``model``'s dense parameters."""
+    return _ps().init_server(model=model, port=port)
+
+
+def run_server():
+    """Serve until a worker stops the servers (``shutdown_servers``)."""
+    _ps().run_server()
+
+
+def init_worker(model=None):
+    """Connect this worker: client, communicator, bound embeddings, dense
+    parameters aligned with the server's."""
+    return _ps().init_worker(model=model)
+
+
+def ps_step(optimizer=None):
+    """Post-backward communicator step for PS workers."""
+    _ps().step(optimizer)
+
+
+def ps_runtime():
+    return _ps_runtime
+
+
+def save_persistables(executor=None, dirname=None, main_program=None):
+    """Snapshot every server's tables to ``dirname``.<server index>."""
+    if _ps_runtime is not None and dirname is not None:
+        _ps_runtime.save_persistables(dirname)
+
+
+def stop_worker():
+    if _ps_runtime is not None:
+        _ps_runtime.stop_worker()
+
+
+def shutdown_servers():
+    if _ps_runtime is not None:
+        _ps_runtime.shutdown_servers()
 
 
 def _hcg():
@@ -144,12 +205,18 @@ def distributed_model(model):
 
 
 def distributed_optimizer(optimizer, strategy=None):
+    """The optimizer under the hybrid mesh (``HybridParallelOptimizer``);
+    in parameter-server mode, where the servers apply the rule (the
+    worker's optimizer steps only in geo mode, through ``ps_step``), the
+    optimizer itself."""
     global _strategy
     strategy = strategy or _strategy or DistributedStrategy()
     on = [k for k in _UNPORTED if getattr(strategy, k, False)]
     if on:
         raise NotImplementedError(f"strategy switches {on} (meta-optimizers) "
                                   "are not ported")
+    if _ps_runtime is not None:
+        return optimizer
     return HybridParallelOptimizer(optimizer, _hcg(), strategy)
 
 

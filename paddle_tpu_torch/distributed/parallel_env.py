@@ -248,6 +248,23 @@ def init_parallel_env(device=None, init_method=None, world_size=None,
     return ParallelEnv()
 
 
+def destroy_parallel_env():
+    """Tear the process groups down explicitly: drop the current mesh and
+    the fleet's hybrid group (both hold group objects), destroy every
+    process group and collect, so the backend's threads (gloo's loops,
+    NCCL's watchdog) are joined here, not during the interpreter's exit.
+    A group that outlives ``destroy_process_group`` keeps its threads
+    until then."""
+    import gc
+    from .fleet.base.topology import set_hybrid_communicate_group
+    set_mesh(None)
+    set_hybrid_communicate_group(None)
+    gc.collect()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gc.collect()
+
+
 def _free_port():
     import socket
     with socket.socket() as s:

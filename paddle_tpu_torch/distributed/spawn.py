@@ -51,9 +51,8 @@ def _spawn_target(func, args, rank, nprocs, port, options, queue,
         queue.put((rank, "error", traceback.format_exc()))
         raise
     finally:
-        import torch.distributed as dist
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        from . import parallel_env
+        parallel_env.destroy_parallel_env()
 
 
 def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):

@@ -94,6 +94,13 @@ from ..observability import tracing as _tracing
 _hooks = {"call_begin": [], "step": [], "call_end": []}
 
 
+def in_tracing():
+    """True while a step program runs its body: a unit being captured or
+    run as a program step (on the CPU, a step of the program's loop); the
+    counterpart of the reference's "a trace is under way"."""
+    return parallel_env.current_program() is not None
+
+
 def _register(kind, method):
     ref = weakref.WeakMethod(method)
     _hooks[kind] = [r for r in _hooks[kind] if r() is not None] + [ref]

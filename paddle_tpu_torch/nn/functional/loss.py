@@ -1,4 +1,5 @@
-"""cross_entropy (counterpart: ``paddle_tpu/nn/functional/loss.py``).
+"""cross_entropy and binary_cross_entropy_with_logits (counterpart:
+``paddle_tpu/nn/functional/loss.py``).
 
 The hard-label path with softmax: ``ignore_index``, ``weight`` and
 ``reduction`` in mean, sum or none. The logsumexp accumulates in float32
@@ -44,3 +45,29 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"unsupported reduction {reduction!r}")
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    """``-(pos_weight * t * log sigmoid(z) + (1 - t) * log sigmoid(-z))``,
+    times ``weight``, reduced by ``reduction`` (mean, sum or none): the
+    reference's formula, from ``logsigmoid`` both ways."""
+    log_sig = torch.nn.functional.logsigmoid(logit)
+    log_one_minus = torch.nn.functional.logsigmoid(-logit)
+    if pos_weight is not None:
+        loss = -(pos_weight * label * log_sig + (1 - label) * log_one_minus)
+    else:
+        loss = -(label * log_sig + (1 - label) * log_one_minus)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)

@@ -76,7 +76,18 @@ PORTED_MODULES = {
     "paddle_tpu.distributed.restart", "paddle_tpu.distributed.spawn",
     "paddle_tpu.distributed.launch", "paddle_tpu.distributed.pod",
     "paddle_tpu.distributed.fleet.elastic",
-    "paddle_tpu.testing.virtual_pod"}
+    "paddle_tpu.testing.virtual_pod",
+    # CTR and the parameter server (the heterogeneous service and the
+    # graph client wait in ROADMAP item 14)
+    "paddle_tpu.distributed.ps", "paddle_tpu.distributed.ps.client",
+    "paddle_tpu.distributed.ps.server", "paddle_tpu.distributed.ps.retry",
+    "paddle_tpu.distributed.ps.communicator",
+    "paddle_tpu.distributed.ps.embedding",
+    "paddle_tpu.distributed.ps.hbm_cache",
+    "paddle_tpu.distributed.ps.async_cache",
+    "paddle_tpu.distributed.ps.trainer",
+    "paddle_tpu.distributed.fleet.dataset",
+    "paddle_tpu.distributed.fleet.base.role_maker", "paddle_tpu.models.ctr"}
 PORTED_CLASSES = {
     "paddle_tpu.optimizer.optimizer": {"Optimizer", "Adam", "AdamW", "SGD",
                                        "Momentum"},
@@ -94,6 +105,8 @@ PORTED_CLASSES = {
     "paddle_tpu.nn.layer.activation": {"ReLU"},
     "paddle_tpu.nn.layer.container": {"Sequential", "LayerList"},
     "paddle_tpu.nn.functional.norm": {"batch_norm", "layer_norm"},
+    "paddle_tpu.nn.functional.loss": {"cross_entropy",
+                                      "binary_cross_entropy_with_logits"},
     # the transposed convolutions, max_pool2d_with_index and max_unpool2d
     # wait in ROADMAP item 19
     "paddle_tpu.nn.functional.conv": {"conv1d", "conv2d", "conv3d"},
@@ -124,7 +137,7 @@ NOT_PORTED = {
     "paddle_tpu.observability.memory.attribute_program",
     # the tracer and the static graph: ROADMAP item 17
     "paddle_tpu.static.InputSpec",
-    "paddle_tpu.jit.in_tracing", "paddle_tpu.jit.not_to_static",
+    "paddle_tpu.jit.not_to_static",
     "paddle_tpu.recompute.remat_replay", "paddle_tpu.recompute.is_remat_replay",
     "paddle_tpu.amp.amp_guard",
     # the reference's device hop between pipeline stages (jax.device_put);

@@ -302,7 +302,9 @@ def _rank_main(rank, world, workdir):
         with open(Path(workdir) / "port_dp2.pkl", "wb") as f:
             pickle.dump(out, f)
     torch.distributed.barrier()
-    torch.distributed.destroy_process_group()
+    # drops the mesh's groups too, so gloo's threads are joined here and
+    # not at interpreter exit (F11)
+    parallel_env.destroy_parallel_env()
 
 
 @pytest.fixture(scope="module")

@@ -314,12 +314,14 @@ def _degree1_errors():
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.distributed import fleet
     out = {}
-    for name in ("init_server", "run_server", "init_worker", "ps_step",
-                 "stop_worker"):
+    # on a collective fleet the parameter-server entry points raise by name
+    # (no PS runtime), and stop_worker is a no-op, as the reference's
+    for name in ("init_server", "run_server", "init_worker", "ps_step"):
         try:
             getattr(fleet, name)()
-        except NotImplementedError as e:
+        except RuntimeError as e:
             out[name] = str(e)
+    out["stop_worker"] = fleet.stop_worker()
     s = fleet.DistributedStrategy()
     s.amp = True
     try:
@@ -327,6 +329,12 @@ def _degree1_errors():
             parameters=[torch.nn.Parameter(torch.zeros(2))]), s)
     except NotImplementedError as e:
         out["amp"] = str(e)
+    # a_sync selects the PS mode and no meta-optimizer: passed through
+    s = fleet.DistributedStrategy()
+    s.a_sync = True
+    inner = optimizer.AdamW(parameters=[torch.nn.Parameter(torch.zeros(2))])
+    out["a_sync_inner"] = fleet.distributed_optimizer(
+        inner, s)._inner_opt is inner
     try:
         fleet_init(dp=2)
     except ValueError as e:
@@ -376,10 +384,10 @@ def test_degree1_sequence_and_expert_parallel_match_the_dense_forms(
 
 def test_parameter_server_and_unported_switches_raise(degree1):
     errors = degree1["errors"]
-    for name in ("init_server", "run_server", "init_worker", "ps_step",
-                 "stop_worker"):
-        assert f"fleet.{name}" in errors[name] and "not ported" in \
-            errors[name]
+    for name in ("init_server", "run_server", "init_worker", "ps_step"):
+        assert "parameter-server role" in errors[name]
+    assert errors["stop_worker"] is None
     assert "['amp']" in errors["amp"]
+    assert errors["a_sync_inner"] is True
     assert "need a world of 2 ranks" in errors["world"]
     assert errors["recompute"] == [None, "full"]

@@ -111,9 +111,10 @@ def _rank_main(module, task, rank, world, workdir):
         pickle.dump(out, f)
     # tear gloo down before the interpreter does: a group left to exit-time
     # destruction can end the process with "terminate called without an
-    # active exception" (seen once for rank 0 of the dp 2 x mp 2 world)
-    if torch.distributed.is_initialized():
-        torch.distributed.destroy_process_group()
+    # active exception" (seen once for rank 0 of the dp 2 x mp 2 world);
+    # the mesh and the fleet's hybrid group hold groups past
+    # destroy_process_group, so drop them too (F11)
+    parallel_env.destroy_parallel_env()
 
 
 def fleet_init(dp=1, mp=1, pp=1, sharding_degree=1, **strategy_fields):

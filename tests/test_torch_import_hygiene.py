@@ -91,6 +91,22 @@ _RUNTIME = ("paddle_tpu_torch.core.dispatch", "paddle_tpu_torch.core.flags",
             "paddle_tpu_torch.testing.pod_fixture")
 
 
+# CTR and the parameter server: the native service's binding, the PS
+# stack, the fleet's role makers and datasets, the CTR model, the fixture
+_PS = ("paddle_tpu_torch._native", "paddle_tpu_torch.distributed.ps",
+       "paddle_tpu_torch.distributed.ps.client",
+       "paddle_tpu_torch.distributed.ps.server",
+       "paddle_tpu_torch.distributed.ps.retry",
+       "paddle_tpu_torch.distributed.ps.communicator",
+       "paddle_tpu_torch.distributed.ps.embedding",
+       "paddle_tpu_torch.distributed.ps.hbm_cache",
+       "paddle_tpu_torch.distributed.ps.async_cache",
+       "paddle_tpu_torch.distributed.ps.trainer",
+       "paddle_tpu_torch.distributed.fleet.base.role_maker",
+       "paddle_tpu_torch.distributed.fleet.dataset",
+       "paddle_tpu_torch.models.ctr", "paddle_tpu_torch.testing.ps_fixture")
+
+
 def _forbidden(name):
     return name.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
 
@@ -106,7 +122,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
     for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT + _HYBRID \
-            + _ARTIFACT + _RUNTIME:
+            + _ARTIFACT + _RUNTIME + _PS:
         assert f"'{name}'" in every, (name, every)
 
 
@@ -143,3 +159,20 @@ def test_no_file_imports_jax_or_reference():
                           for n in names if _forbidden(n)]
     assert len(files) > 20
     assert not offenders, offenders
+
+
+def test_imports_build_no_native_library():
+    """Importing every module of the package (the PS stack included)
+    neither builds nor loads the native PS service: it builds at first
+    use."""
+    probe = ("import pkgutil, paddle_tpu_torch\n"
+             "for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "
+             "'paddle_tpu_torch.'):\n"
+             "    __import__(m.name)\n"
+             "from paddle_tpu_torch import _native\n"
+             "print(_native.loaded(), _native.build_seconds)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["False", "None"], res.stdout

@@ -49,15 +49,6 @@ DIFFERENT = {
     # torch.nn.Module's forward placeholder of the base classes
     "paddle_tpu.nn.Layer.forward": "torch.nn.Module.forward",
     "paddle_tpu.nn.LayerList.forward": "torch.nn.Module.forward",
-    # the parameter-server mode raises by name (not ported)
-    "paddle_tpu.distributed.fleet.init_server": "parameter server",
-    "paddle_tpu.distributed.fleet.init_worker": "parameter server",
-    "paddle_tpu.distributed.fleet.ps_runtime": "parameter server",
-    "paddle_tpu.distributed.fleet.ps_step": "parameter server",
-    "paddle_tpu.distributed.fleet.run_server": "parameter server",
-    "paddle_tpu.distributed.fleet.save_persistables": "parameter server",
-    "paddle_tpu.distributed.fleet.shutdown_servers": "parameter server",
-    "paddle_tpu.distributed.fleet.stop_worker": "parameter server",
     # a Parameter keeps torch.Tensor's own methods (core.tensor's table of
     # deliberate differences; tests/test_torch_tensor.py)
     "paddle_tpu.Parameter.backward": "torch.Tensor.backward",

@@ -295,7 +295,9 @@ def _rank_main(task, rank, world, workdir):
         with open(Path(workdir) / f"{task}.pkl", "wb") as f:
             pickle.dump(out, f)
     torch.distributed.barrier()
-    torch.distributed.destroy_process_group()
+    # drops the mesh's groups too, so gloo's threads are joined here and
+    # not at interpreter exit (F11)
+    parallel_env.destroy_parallel_env()
 
 
 # -- the tests ----------------------------------------------------------------
