@@ -74,7 +74,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    nodes of the captured graph times the call's replays of it, exactly;
    its trace must show each kernel's CUDA function, at most that often.
 8. Data parallelism and recompute on a one-rank NCCL mesh (the code a
-   larger world runs, at dp = 1): (a) BERT-base with phase 6's recipe
+   larger world runs, at dp = 1): (a) BERT-base (6 of its 12 encoder
+   layers since phase 17 came: ``ZERO_BERT_LAYERS``) with phase 6's recipe
    through ``to_static(one_step, scan_steps=20, dp_axis="dp")`` in nine
    arms, each against its control over two calls, bitwise unless a bound
    is stated: ZeRO-1, ZeRO-2, ZeRO-3 with prefetch on and off and
@@ -273,7 +274,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``testing.ps_fixture`` through the fleet (``init(is_collective=
    False)`` ... ``shutdown_servers``) in sync mode, the workers' dense math
    on the card: losses finite and falling, final dense parameters equal.
-17. One JSON line with every kernel of the paths, then the result line.
+17. The nn layer library (``nn``'s layers and functionals, the
+   schedulers, ``ops.sequence``): (a) Transformer-base (``nn.Transformer()``
+   at its defaults, a shared 37,000 x 512 embedding scaled by sqrt(512)
+   with sinusoid positions and tied to the output projection) on 128
+   seeded sentence pairs a step (lengths in [16, 64], padded to 64), a
+   padding mask and the causal mask, label smoothing 0.1 through
+   ``label_smooth(one_hot(...))`` and a soft-label ``cross_entropy``,
+   ``Adam(0.9, 0.98, 1e-9)`` over ``NoamDecay(512, 4000)``, bf16
+   ``auto_cast``, dropout 0.1: eager steps, then two calls of
+   ``to_static(one_step, scan_steps=4)`` with the scheduler stepped
+   between calls, bitwise against the same eager steps (losses,
+   parameters, moments; the dropout drawn inside the graph); step ms,
+   target tokens/s, MFU (``nmt_flops``), capture ms, one profiled step and
+   call; (b) beam search (beam 4, batch 32, at most 64 steps) of the
+   trained model in float32 through ``BeamSearchDecoder`` and
+   ``dynamic_decode`` over the decoder's (``Cache``, ``StaticCache``)
+   states: the ids and lengths equal the CPU's from the same weights;
+   decode ms and generated tokens/s; (c) a 6-layer ``TransformerEncoder``
+   (d 512, 8 heads) at 8 x 1024 in bf16 without a mask: 6 forward, 6 dQ
+   and 6 dK/dV flash launches a forward-backward, output and gradients
+   within stated bounds of the same layers with an all-zero additive mask
+   (the written-out branch); (d) Zaremba et al.'s large LSTM LM (vocab
+   10,000, 2 x 1500, dropout 0.65, batch 20, unroll 35, SGD 1.0 under
+   ``ClipGradByGlobalNorm(10.0)``): eager steps and two calls of
+   ``to_static(scan_steps=4)`` bitwise, words/s; (e) every newly ported
+   functional and layer on the card against the CPU in float32, and the
+   draws' moments. No flash kernel may launch in (a), (b), (d), (e).
+18. One JSON line with each phase's seconds beside the card's name and
+   power limit, one JSON line with every kernel of the paths, then the
+   result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -281,6 +311,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1559,6 +1590,13 @@ def gpt_kstep(pt, fa, seed, eager_step_ms, failures):
 # which tell the collectives apart (a bucket of r rows reduce-scatters
 # r x 1024 float32 gradients and all-gathers r x 1024 bf16 parameters).
 ZERO_ACCUM = 4               # bench.py --accumulate for the ZeRO-2 arm
+# Phase 8a's thirteen BERT-base arms run 6 of BERT-base's 12 encoder
+# layers (its widths, batch, seq and k unchanged) since the script took
+# phase 17: of two whole runs at 12 layers (NVIDIA H100 80GB HBM3 at
+# 700.00 W both), one took 879.8 s and the other, on a slower host,
+# 1073.5 s, past the 1000 s the script is held to; phase 8a was the
+# largest part (phase 8: 222.7 s of the 879.8).
+ZERO_BERT_LAYERS = 6
 # ZeRO-2/3 accumulation windows fold float32 mean shards of each micro
 # step, where the accumulating control sums the micro steps' gradients on
 # the parameters, in their dtype (the reference's tolerance-level case).
@@ -1797,8 +1835,10 @@ def zero_bert_arms(pt, fa, seed, failures):
     from paddle_tpu_torch.distributed import collective
     from paddle_tpu_torch.models.bert import (BertForPretraining, bert_base,
                                               synthetic_mlm_batch)
-    cfg = bert_base(vocab_size=BERT_VOCAB, hidden_dropout=0.0,
-                    attention_dropout=0.0)
+    cfg = bert_base(vocab_size=BERT_VOCAB, num_layers=ZERO_BERT_LAYERS,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    log(f"  BERT-base at {ZERO_BERT_LAYERS} of its 12 encoder layers "
+        f"(ZERO_BERT_LAYERS), its widths, batch {BERT_BATCH} x {BERT_SEQ}")
     pt.seed(seed + 4)
     base = BertForPretraining(cfg, device="cuda").to("bfloat16")
     start = torch.cat([p.detach().float().reshape(-1)
@@ -6676,6 +6716,904 @@ def phase16(pt, fa, seed, failures):
     return launches
 
 
+# ---- phase 17: the nn layer library ---------------------------------------------
+
+# (a) Transformer-base NMT (Vaswani et al., 2017): nn.Transformer() at its
+# defaults, one shared 37,000 x 512 embedding (the paper's shared BPE
+# vocabulary, section 5.1) scaled by sqrt(512) with sinusoid positions and
+# tied to the output projection; 128 sentence pairs a step, each side's
+# lengths drawn in [16, 64] and padded to 64 with id 0; label smoothing 0.1
+# (section 5.4); Adam(0.9, 0.98, 1e-9) over NoamDecay(512, 4000) (section
+# 5.3); bf16 auto_cast.
+NMT_VOCAB, NMT_D, NMT_BATCH, NMT_LEN = 37_000, 512, 128, (16, 64)
+NMT_PAD, NMT_BOS, NMT_EOS = 0, 1, 2
+NMT_SMOOTHING, NMT_WARMUP = 0.1, 4000
+NMT_K = 4               # inner steps of the k-step program; 2 calls compared
+NMT_TIMED = (5, 3)      # eager steps timed, k-step calls timed
+# (b) beam search over the trained model in float32, card against CPU.
+BEAM, BEAM_BATCH, BEAM_STEPS = 4, 32, 64
+# (c) the flash kernels through MultiHeadAttention: a 6-layer
+# TransformerEncoder (d 512, 8 heads, head dim 64, dropout 0) at 8 x 1024,
+# bf16, no mask, against the same layers with an all-zero additive mask
+# (the written-out branch). The written-out branch rounds its logits and
+# probabilities to bf16, the kernels keep them in float32: the bounds are
+# relative L2, the output's and every gradient's together (the input's and
+# the parameters', but the key projections' biases, whose gradient is
+# exactly zero: softmax cancels a key bias, so both sides hold rounding
+# noise there). The CPU's plain twin of the kernels against the written-out
+# bf16 branch, 6 layers at 1 x 1024: 6.0e-3 and 4.8e-2.
+ENC_LAYERS, ENC_BATCH, ENC_SEQ = 6, 8, 1024
+ENC_OUT_REL, ENC_GRAD_REL = 2e-2, 1e-1
+# (d) the "large" LSTM language model of Zaremba et al., 2014
+# (arXiv:1409.2329): vocab 10,000, Embedding -> 2-layer LSTM(1500,
+# dropout 0.65) -> Linear, batch 20, unroll 35, SGD at 1.0 with
+# ClipGradByGlobalNorm(10.0), float32; each batch starts from zero states.
+LM_VOCAB, LM_HIDDEN, LM_BATCH, LM_UNROLL = 10_000, 1500, 20, 35
+LM_DROPOUT, LM_CLIP, LM_K = 0.65, 10.0, 4
+LM_TIMED = (5, 3)
+# (e) every new layer and functional, card against CPU, float32 (TF32 off):
+# max |card - cpu| / max |cpu| of each output and each gradient.
+NN_FWD_TOL, NN_GRAD_TOL = 1e-5, 1e-4
+NN_DEVICE = "cuda"  # the card; its CPU twin in (b) and (e) is "cpu"
+
+
+def sinusoid(n, d):
+    """The Transformer's position table [n, d]: sin on even, cos on odd
+    columns."""
+    pos = np.arange(n)[:, None]
+    ang = pos / np.power(10000.0, 2 * np.arange(d // 2)[None, :] / d)
+    out = np.zeros((n, d), np.float32)
+    out[:, 0::2], out[:, 1::2] = np.sin(ang), np.cos(ang)
+    return torch.from_numpy(out)
+
+
+def nmt_model(pt, device, **kw):
+    """Transformer-base with a shared, scaled embedding and a tied output
+    projection, from the package's public names."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    class NMT(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            # N(0, d^-1/2): the usual start of a shared embedding scaled
+            # by sqrt(d) (tensor2tensor, fairseq)
+            self.emb = nn.Embedding(NMT_VOCAB, NMT_D, device=device,
+                                    weight_attr=pt.ParamAttr(
+                                        initializer=nn.initializer.Normal(
+                                            0.0, NMT_D ** -0.5)))
+            self.transformer = nn.Transformer(device=device, **kw)
+            self.register_buffer("pos", sinusoid(256, NMT_D).to(device),
+                                 persistable=False)
+
+        def embed(self, ids, start=0):
+            x = self.emb(ids) * NMT_D ** 0.5
+            return x + self.pos[start:start + ids.shape[1]].to(x.dtype)
+
+        def logits(self, h):
+            return F.linear(h, self.emb.weight.T)
+
+        def forward(self, src, tgt_in, src_mask, tgt_mask):
+            h = self.transformer(self.embed(src), self.embed(tgt_in),
+                                 src_mask, tgt_mask, src_mask)
+            return self.logits(h)
+
+    return NMT()
+
+
+def pad_mask(src):
+    """The additive [B, 1, 1, S] mask of the padding."""
+    return torch.where(src == NMT_PAD, -1e9, 0.0)[:, None, None, :]
+
+
+def nmt_batches(seed, n, batch=NMT_BATCH):
+    """n batches of (src [B, 64], tgt [B, 65]): ids in [3, vocab), each
+    side's length drawn in [16, 64] and padded with 0; tgt starts with
+    BOS (its input is tgt[:, :-1], its labels tgt[:, 1:])."""
+    r = np.random.RandomState(seed)
+    lo, hi = NMT_LEN
+    out = []
+    for _ in range(n):
+        src = r.randint(3, NMT_VOCAB, (batch, hi))
+        tgt = r.randint(3, NMT_VOCAB, (batch, hi + 1))
+        tgt[:, 0] = NMT_BOS
+        for row, (ls, lt) in enumerate(zip(r.randint(lo, hi + 1, batch),
+                                           r.randint(lo, hi + 1, batch))):
+            src[row, ls:] = NMT_PAD
+            tgt[row, lt + 1:] = NMT_PAD
+        out.append((src, tgt))
+    return out
+
+
+def nmt_flops(model, src_len, tgt_len, batch):
+    """FLOP of one step over the padded batch: 6 x (the encoder's matrices
+    x source tokens + the decoder's x target tokens + the tied projection
+    d x V x target tokens) + the attention products, 12 x d x (6 S^2 + 6
+    T^2 + 6 T S) x batch (2 x 2 products forward, 3x with the backward)."""
+    t = model.transformer
+    mats = lambda m: sum(p.numel() for n, p in m.named_parameters()  # noqa
+                         if p.dim() == 2)
+    s_tok, t_tok = batch * src_len, batch * tgt_len
+    enc, dec = t.encoder.num_layers, t.decoder.num_layers
+    attn = 12 * NMT_D * batch * (enc * src_len ** 2 + dec * tgt_len ** 2
+                                 + dec * tgt_len * src_len)
+    return (6 * (mats(t.encoder) * s_tok + mats(t.decoder) * t_tok
+                 + NMT_D * NMT_VOCAB * t_tok) + attn)
+
+
+def nmt_loss(pt, logits, labels):
+    """Label smoothing 0.1 as ``label_smooth(one_hot(...))`` into a
+    soft-label cross entropy, the padding weighted out, over the real
+    target tokens."""
+    from paddle_tpu_torch.nn import functional as F
+    with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+        soft = F.label_smooth(F.one_hot(labels, NMT_VOCAB),
+                              epsilon=NMT_SMOOTHING)
+        per = F.cross_entropy(logits, soft, soft_label=True,
+                              reduction="none")
+    weight = (labels != NMT_PAD).float()
+    return (per * weight).sum() / weight.sum()
+
+
+def nmt_step(pt, model, opt, causal):
+    def one_step(src, tgt):
+        with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+            logits = model(src, tgt[:, :-1], pad_mask(src), causal)
+        loss = nmt_loss(pt, logits, tgt[:, 1:])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return one_step
+
+
+def nmt_loss_ms(pt, tgt):
+    """The label-smoothed loss's forward and backward alone, from bf16
+    logits of the step's shape (CUDA events over 5 calls)."""
+    labels = tgt[:, 1:]
+    logits = torch.randn(*labels.shape, NMT_VOCAB, device=labels.device,
+                         dtype=torch.bfloat16, requires_grad=True)
+
+    def run():
+        nmt_loss(pt, logits, labels).backward()
+        logits.grad = None
+
+    if labels.device.type != "cuda":
+        return None
+    return cuda_time_ms(run, 5, warmup=1)
+
+
+def nn_transformer_base(pt, fa, seed, failures):
+    """(a): Transformer-base trained eagerly and through the k-step
+    program, bitwise over two calls with dropout 0.1 drawn inside the
+    graph; returns the trained model and the numbers."""
+    from paddle_tpu_torch import jit, monitor, optimizer
+    from paddle_tpu_torch.observability import tracing
+    pt.seed(seed + 170)
+    base = nmt_model(pt, NN_DEVICE)
+    n_params = sum(p.numel() for p in base.parameters())
+    batches = nmt_batches(seed + 171, NMT_K)
+    real = [int((t[:, 1:] != NMT_PAD).sum()) for _, t in batches]
+    log(f"  Transformer-base: {n_params} parameters (the embedding shared "
+        f"and tied), {NMT_BATCH} pairs a step padded to {NMT_LEN[1]}, "
+        f"real tokens a step: source "
+        f"{int((batches[0][0] != NMT_PAD).sum())}, target {real[0]}")
+    causal = pt.core.tensor.unwrap(
+        pt.nn.Transformer.generate_square_subsequent_mask(NMT_LEN[1],
+                                                          device=NN_DEVICE))
+    dev = [(torch.from_numpy(s).to(NN_DEVICE),
+            torch.from_numpy(t).to(NN_DEVICE)) for s, t in batches]
+
+    def arm(model):
+        sched = optimizer.lr.NoamDecay(d_model=NMT_D,
+                                       warmup_steps=NMT_WARMUP)
+        opt = optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                             epsilon=1e-9, parameters=model.parameters())
+        return nmt_step(pt, model, opt, causal), sched, opt
+
+    eager_model, program_model = copy.deepcopy(base), base
+    eager_step, eager_sched, eager_opt = arm(eager_model)
+    body, sched, opt = arm(program_model)
+    program = jit.to_static(body, scan_steps=NMT_K)
+    stacked = [torch.stack([d[j] for d in dev[:NMT_K]]) for j in (0, 1)]
+    pt.seed(seed + 172)  # the dropout draws of the eager steps
+    want = []
+    for call in range(2):  # the scheduler steps between calls, both sides
+        want += [eager_step(*dev[i]).detach() for i in range(NMT_K)]
+        eager_sched.step()
+    pt.seed(seed + 172)  # the same draws inside the graph
+    got = []
+    tracing.enable(categories=["jit"])  # the capture's jit_compile_ns
+    compile_ns = monitor.stat_get("jit_compile_ns")
+    try:
+        out, peak = first_kstep_call("Transformer-base k-step",
+                                     lambda: program(*stacked))
+    finally:
+        capture_ms = (monitor.stat_get("jit_compile_ns") - compile_ns) / 1e6
+        tracing.disable()
+    got.append(out)
+    sched.step()
+    got.append(program(*stacked))
+    sched.step()
+    compare_runs(f"Transformer-base, dropout 0.1, 2 calls of "
+                 f"scan_steps={NMT_K}", torch.stack(want), torch.cat(got),
+                 eager_model, program_model, failures, eager_opt, opt)
+    # timing: eager steps, then calls of the program
+    flops = nmt_flops(base, NMT_LEN[1], NMT_LEN[1], NMT_BATCH)
+    toks = real[0]
+    _, tel_e, peak_e = timed_eager(lambda: eager_step(*dev[0]),
+                                   NMT_TIMED[0] + 1, 1, toks, flops / toks)
+    eager = log_rate("Transformer-base eager", tel_e, 1, flops / toks,
+                     peak_e, report_profile(
+                         "eager Transformer-base step", profile_retry(
+                             lambda: eager_step(*dev[0]).item()),
+                         failures))
+    calls, tel = timed_kstep(lambda: program(*stacked), NMT_K, NMT_TIMED[1],
+                             toks, flops / toks)
+    prof = report_profile(f"k-step Transformer-base call ({NMT_K} steps)",
+                          profile_retry(lambda: program(*stacked).cpu()),
+                          failures)
+    kstep = log_rate(f"Transformer-base k-step (scan_steps={NMT_K}, CUDA "
+                     f"graph)", tel, NMT_K, flops / toks, peak, prof)
+    losses = torch.cat([g.cpu() for g in got] + calls)
+    ok = bool(torch.isfinite(losses).all())
+    loss_ms = nmt_loss_ms(pt, dev[0][1])
+    log(f"  Transformer-base: FLOP a step {flops:.4e} (the padded batch; "
+        f"formula in nmt_flops), target tokens/s counts the {toks} real "
+        f"target tokens a step; capture {fmt_ms(capture_ms)}; the loss "
+        f"alone (one_hot, label_smooth, the soft-label cross entropy and "
+        f"their backward from bf16 logits) {fmt_ms(loss_ms)} a step; "
+        f"losses finite {ok} (first {float(losses[0]):.4f}, last "
+        f"{float(losses[-1]):.4f})")
+    if not ok:
+        failures.append("phase 17 (a): Transformer-base losses not finite")
+    del eager_model, eager_step, program, body
+    return program_model, {"parameters": n_params, "flop_a_step": flops,
+                           "real_target_tokens": toks, "eager": eager,
+                           "kstep": kstep, "capture_ms": capture_ms,
+                           "loss_ms": loss_ms}
+
+
+def beam_cell(model):
+    """The decoder of ``model`` as a beam-search cell over the states
+    [memory mask, per-layer (Cache, StaticCache)]."""
+    def cell(inputs, states):
+        mask, caches = states
+        step = caches[0][0].k.shape[1]
+        x = inputs * NMT_D ** 0.5 + model.pos[step:step + 1].to(inputs.dtype)
+        out, new = model.transformer.decoder(x[:, None], None, None, mask,
+                                             caches)
+        return out[:, 0], [mask, new]
+    return cell
+
+
+def beam_decode(pt, model, src):
+    """Beam search (BEAM wide, BEAM_STEPS at most) of ``src`` through
+    ``model``'s decoder with its caches: (ids [B, T, beam], scores,
+    lengths)."""
+    nn = pt.nn
+    with torch.no_grad():
+        mask = pad_mask(src)
+        memory = model.transformer.encoder(model.embed(src), mask)
+        caches = [(layer.self_attn.gen_cache(memory),
+                   layer.cross_attn.gen_cache(
+                       memory, type=nn.MultiHeadAttention.StaticCache))
+                  for layer in model.transformer.decoder.layers]
+        dec = nn.BeamSearchDecoder(beam_cell(model), NMT_BOS, NMT_EOS, BEAM,
+                                   embedding_fn=model.emb,
+                                   output_fn=model.logits)
+        (ids, scores), _, lengths = nn.dynamic_decode(
+            dec, [mask, caches], max_step_num=BEAM_STEPS)
+    return ids, scores, lengths
+
+
+def nn_beam(pt, model, seed, failures):
+    """(b): the trained model beam-decodes on the card in float32; the
+    same decode on the CPU from the same weights gives the same ids."""
+    model.eval()
+    src = torch.from_numpy(nmt_batches(seed + 173, 1, BEAM_BATCH)[0][0])
+    beam_decode(pt, model, src.to(NN_DEVICE))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, scores, lengths = beam_decode(pt, model, src.to(NN_DEVICE))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    steps = ids.shape[1]
+    generated = BEAM_BATCH * BEAM * steps
+    t0 = time.perf_counter()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    want = beam_decode(pt, cpu_model, src)
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    same = torch.equal(ids.cpu(), want[0])
+    rows = int((ids.cpu() == want[0]).all(-1).all(-1).sum())
+    score_diff = float((scores.cpu() - want[1]).abs().max())
+    ok = same and torch.equal(lengths.cpu(), want[2])
+    log(f"  beam search (beam {BEAM}, batch {BEAM_BATCH}, at most "
+        f"{BEAM_STEPS} steps), float32: {steps} steps in {ms:.1f} ms on the "
+        f"card ({generated / ms * 1e3:.1f} generated tokens/s, beam x "
+        f"batch x steps); ids equal the CPU's: {same} ({rows} of "
+        f"{BEAM_BATCH} rows), lengths equal, scores max |diff| "
+        f"{score_diff:.3e}; the CPU's decode {cpu_s:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 17 (b): the card's beam-decoded ids differ "
+                        "from the CPU's")
+    return {"decode_ms": ms, "steps": steps,
+            "generated_tokens_per_s": generated / ms * 1e3,
+            "rows_equal": rows, "score_max_abs_diff": score_diff}
+
+
+def nn_flash_encoder(pt, fa, seed, failures):
+    """(c): a 6-layer TransformerEncoder at 8 x 1024 in bf16 without a
+    mask launches 6 forward, 6 dQ and 6 dK/dV flash kernels a
+    forward-backward step, and agrees with the same layers given an
+    all-zero additive mask (the written-out branch)."""
+    from paddle_tpu_torch import nn
+    pt.seed(seed + 174)
+    enc = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+        NMT_D, 8, 2048, dropout=0.0, device=NN_DEVICE), ENC_LAYERS)
+    with torch.no_grad():  # the stack's copies start alike: set them apart
+        for p in enc.parameters():
+            p.add_(0.02 * torch.randn(p.shape, device=NN_DEVICE,
+                                      generator=pt.core.random
+                                      .default_generator(NN_DEVICE)))
+    enc = enc.to("bfloat16")
+    gen = torch.Generator(device=NN_DEVICE)
+    gen.manual_seed(seed + 175)
+    x = torch.randn(ENC_BATCH, ENC_SEQ, NMT_D, device=NN_DEVICE,
+                    generator=gen).to(torch.bfloat16)
+    cot = torch.randn(x.shape, device=NN_DEVICE, generator=gen).to(x.dtype)
+    zero = torch.zeros(1, 1, 1, ENC_SEQ, device=NN_DEVICE, dtype=x.dtype)
+    names = ["input"] + [n for n, _ in enc.named_parameters()]
+
+    def step(mask):
+        xi = x.clone().requires_grad_(True)
+        out = enc(xi, mask)
+        grads = torch.autograd.grad((out.float() * cot.float()).sum(),
+                                    [xi] + enc.parameters())
+        return out, grads
+
+    step(None)  # warm-up
+    fa.reset_launch_counts()
+    out, grads = step(None)
+    counts = flash_launches(fa)
+    want_out, want_grads = step(zero)
+    written = flash_launches(fa)
+    keep = [i for i, n in enumerate(names) if not n.endswith("k_proj.bias")]
+
+    def flat(gs):
+        return torch.cat([gs[i].float().flatten() for i in keep])
+
+    out_rel = rel_l2(out.detach().float().cpu(),
+                     want_out.detach().float().cpu())
+    grad_rel = rel_l2(flat(grads).cpu(), flat(want_grads).cpu())
+    want = {meta["name"]: ENC_LAYERS for meta in KERNELS}
+    ok = (counts == want and written == counts and out_rel <= ENC_OUT_REL
+          and grad_rel <= ENC_GRAD_REL)
+    ms = cuda_time_ms(lambda: step(None), 5, warmup=1)
+    log(f"  seq-{ENC_SEQ} encoder ({ENC_LAYERS} layers, {ENC_BATCH} x "
+        f"{ENC_SEQ}, d {NMT_D}, 8 heads, bf16, no mask): flash launches a "
+        f"forward-backward {counts} (want {ENC_LAYERS} each); with the "
+        f"zero mask none more ({written}); against the written-out branch "
+        f"output rel L2 {out_rel:.3e} (tol {ENC_OUT_REL:g}), gradients rel "
+        f"L2 {grad_rel:.3e} (tol {ENC_GRAD_REL:g}); forward-backward "
+        f"{ms:.3f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 17 (c): the seq-{ENC_SEQ} encoder's flash "
+                        f"launches {counts} or its agreement with the "
+                        f"written-out branch ({out_rel:.3e}, {grad_rel:.3e})")
+    return counts, {"step_ms": ms, "out_rel_l2": out_rel,
+                    "grad_rel_l2": grad_rel}
+
+
+def lm_model(pt, device):
+    """Zaremba et al.'s large LSTM LM from the package's public names."""
+    from paddle_tpu_torch import nn
+
+    class LM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(LM_VOCAB, LM_HIDDEN, device=device)
+            self.lstm = nn.LSTM(LM_HIDDEN, LM_HIDDEN, num_layers=2,
+                                dropout=LM_DROPOUT, device=device)
+            self.out = nn.Linear(LM_HIDDEN, LM_VOCAB, device=device)
+
+        def forward(self, ids):
+            y, _ = self.lstm(self.emb(ids))
+            return self.out(y)
+
+    return LM()
+
+
+def nn_lstm_lm(pt, seed, failures):
+    """(d): the LSTM LM trained eagerly and through the k-step program,
+    bitwise over two calls (dropout 0.65 drawn inside the graph)."""
+    from paddle_tpu_torch import jit, nn, optimizer
+    from paddle_tpu_torch.nn import functional as F
+    pt.seed(seed + 176)
+    base = lm_model(pt, NN_DEVICE)
+    r = np.random.RandomState(seed + 177)
+    ids = torch.from_numpy(r.randint(0, LM_VOCAB, (
+        LM_K, LM_BATCH, LM_UNROLL + 1))).to(NN_DEVICE)
+
+    def arm(model):
+        opt = optimizer.SGD(learning_rate=1.0, parameters=model.parameters(),
+                            grad_clip=nn.ClipGradByGlobalNorm(LM_CLIP))
+
+        def one_step(batch):
+            logits = model(batch[:, :-1])
+            loss = F.cross_entropy(logits.reshape(-1, LM_VOCAB),
+                                   batch[:, 1:].reshape(-1))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return one_step
+
+    eager_model = copy.deepcopy(base)
+    eager_step, body = arm(eager_model), arm(base)
+    program = jit.to_static(body, scan_steps=LM_K)
+    pt.seed(seed + 178)
+    want = [eager_step(ids[i]).detach() for _ in range(2)
+            for i in range(LM_K)]
+    pt.seed(seed + 178)
+    out, peak = first_kstep_call("LSTM LM k-step", lambda: program(ids))
+    got = [out, program(ids)]
+    compare_runs(f"LSTM LM, dropout {LM_DROPOUT}, 2 calls of "
+                 f"scan_steps={LM_K}", torch.stack(want), torch.cat(got),
+                 eager_model, base, failures)
+    words = LM_BATCH * LM_UNROLL
+    # 6 x the matrices' parameters (the embedding is a lookup) x words
+    flops = 6 * sum(p.numel() for n, p in base.named_parameters()
+                    if p.dim() == 2 and not n.startswith("emb")) * words
+    _, tel_e, peak_e = timed_eager(lambda: eager_step(ids[0]),
+                                   LM_TIMED[0] + 1, 1, words, flops / words)
+    eager = log_rate("LSTM LM eager", tel_e, 1, flops / words, peak_e,
+                     report_profile("eager LSTM LM step", profile_retry(
+                         lambda: eager_step(ids[0]).item()), failures))
+    calls, tel = timed_kstep(lambda: program(ids), LM_K, LM_TIMED[1], words,
+                             flops / words)
+    prof = report_profile(f"k-step LSTM LM call ({LM_K} steps)",
+                          profile_retry(lambda: program(ids).cpu()),
+                          failures)
+    kstep = log_rate(f"LSTM LM k-step (scan_steps={LM_K}, CUDA graph)", tel,
+                     LM_K, flops / words, peak, prof)
+    losses = torch.cat([g.cpu() for g in got] + calls)
+    ok = bool(torch.isfinite(losses).all())
+    log(f"  LSTM LM: words/s eager {eager['tokens_per_s']:.1f}, k-step "
+        f"{kstep['tokens_per_s']:.1f} ({words} words a step); recurrence: a "
+        f"loop of torch's fused lstm_cell over {LM_UNROLL} steps x 2 "
+        f"layers; losses finite {ok} (first {float(losses[0]):.4f}, last "
+        f"{float(losses[-1]):.4f})")
+    if not ok:
+        failures.append("phase 17 (d): LSTM LM losses not finite")
+    return {"eager": eager, "kstep": kstep, "flop_a_step": flops}
+
+
+def nn_surface_cases(F, S):
+    """(e)'s functionals: name -> (fn(*tensors), input makers); each
+    maker takes a CPU generator and returns a float32 tensor (its
+    gradient is compared) or an integer one."""
+    def f(*shape, lo=None, hi=None):
+        return lambda g: seeded(g, shape, lo, hi)
+
+    def i(high, *shape):
+        return lambda g: torch.randint(0, high, shape, generator=g)
+
+    def const(t):
+        return lambda g: t
+
+    x = f(3, 4, 5)
+    lengths = const(torch.tensor([4, 1, 3]))
+    cases = {name: (getattr(F, name), [x]) for name in (
+        "relu6", "sigmoid", "silu", "swish", "mish", "selu", "tanhshrink",
+        "hardsigmoid", "hardswish", "softsign", "log_sigmoid", "softmax",
+        "log_softmax")}
+    cases.update({
+        "leaky_relu": (lambda v: F.leaky_relu(v, 0.1), [x]),
+        "elu": (lambda v: F.elu(v, 0.5), [x]),
+        "celu": (lambda v: F.celu(v, 0.7), [x]),
+        "hardshrink": (lambda v: F.hardshrink(v, 0.3), [x]),
+        "softshrink": (lambda v: F.softshrink(v, 0.3), [x]),
+        "hardtanh": (lambda v: F.hardtanh(v, -0.5, 0.7), [x]),
+        "softplus": (lambda v: F.softplus(v, 2.0, 3.0), [x]),
+        "thresholded_relu": (lambda v: F.thresholded_relu(v, 0.4), [x]),
+        "prelu": (F.prelu, [f(2, 3, 4), f(3, lo=0.1, hi=0.5)]),
+        "glu": (lambda v: F.glu(v, 1), [f(2, 6, 3)]),
+        "maxout": (lambda v: F.maxout(v, 3), [f(2, 6, 3)]),
+        "gumbel_softmax_from_noise": (
+            F.activation.gumbel_softmax_from_noise, [x, x]),
+        "alpha_dropout_from_mask": (
+            lambda v, u: F.common.alpha_dropout_from_mask(v, u > 0.3, 0.3),
+            [x, f(3, 4, 5, lo=0.0, hi=1.0)]),
+        "one_hot": (lambda v: F.one_hot(v, 7), [i(9, 4, 3)]),
+        "label_smooth": (lambda v: F.label_smooth(v, epsilon=0.2),
+                         [f(4, 7, lo=0.0, hi=1.0)]),
+        "interpolate_bilinear": (lambda v: F.interpolate(
+            v, size=[7, 5], mode="bilinear"), [f(2, 3, 4, 6)]),
+        "interpolate_bicubic": (lambda v: F.interpolate(
+            v, size=[3, 9], mode="bicubic"), [f(2, 3, 6, 6)]),
+        "interpolate_nearest": (lambda v: F.interpolate(
+            v, scale_factor=2), [f(2, 3, 3, 4)]),
+        "upsample_align_corners": (lambda v: F.upsample(
+            v, size=[5, 7], mode="bilinear", align_corners=True),
+            [f(2, 3, 3, 4)]),
+        "unfold": (lambda v: F.unfold(v, [3, 2], 1, 1), [f(2, 3, 5, 6)]),
+        "cosine_similarity": (F.cosine_similarity, [f(4, 6), f(4, 6)]),
+        "bilinear": (F.bilinear, [f(3, 4), f(3, 5), f(6, 4, 5), f(6)]),
+        "normalize": (F.normalize, [f(3, 6)]),
+        "pixel_shuffle": (lambda v: F.pixel_shuffle(v, 2), [f(2, 8, 3, 3)]),
+        "cross_entropy_soft_smoothing": (lambda v, t: F.cross_entropy(
+            v, t.softmax(-1), soft_label=True, label_smoothing=0.1),
+            [f(6, 7), f(6, 7)]),
+        "cross_entropy_hard_smoothing": (lambda v, t: F.cross_entropy(
+            v, t, label_smoothing=0.1), [f(6, 7), i(7, 6)]),
+        "cross_entropy_probabilities": (lambda v, t: F.cross_entropy(
+            v.softmax(-1), t, use_softmax=False), [f(6, 7), i(7, 6)]),
+        "softmax_with_cross_entropy": (F.softmax_with_cross_entropy,
+                                       [f(5, 6), i(6, 5, 1)]),
+        "nll_loss": (F.nll_loss, [f(6, 5), i(5, 6)]),
+        "mse_loss": (F.mse_loss, [f(4, 5), f(4, 5)]),
+        "l1_loss": (F.l1_loss, [f(4, 5), f(4, 5)]),
+        "smooth_l1_loss": (F.smooth_l1_loss, [f(4, 5), f(4, 5)]),
+        "binary_cross_entropy": (F.binary_cross_entropy, [
+            f(4, 5, lo=0.05, hi=0.95), f(4, 5, lo=0.0, hi=1.0)]),
+        "binary_cross_entropy_with_logits": (
+            F.binary_cross_entropy_with_logits, [f(4, 5), f(4, 5, lo=0.0,
+                                                           hi=1.0)]),
+        "kl_div": (lambda v, t: F.kl_div(v.log_softmax(-1), t.softmax(-1)),
+                   [f(4, 5), f(4, 5)]),
+        "center_loss": (lambda v, c: F.center_loss(
+            v, torch.tensor([0, 2, 2, 3, 0, 0], device=v.device), 4, 0.3,
+            c.detach().clone()), [f(6, 3), f(4, 3)]),
+        "margin_ranking_loss": (lambda a, b, t: F.margin_ranking_loss(
+            a, b, t.sign()), [f(6), f(6), f(6)]),
+        "hinge_embedding_loss": (lambda a, t: F.hinge_embedding_loss(
+            a, t.sign()), [f(6), f(6)]),
+        "cosine_embedding_loss": (lambda a, b, t: F.cosine_embedding_loss(
+            a, b, t.sign()), [f(5, 4), f(5, 4), f(5)]),
+        "triplet_margin_loss": (F.triplet_margin_loss, [f(5, 4), f(5, 4),
+                                                        f(5, 4)]),
+        "square_error_cost": (F.square_error_cost, [f(4, 3), f(4, 3)]),
+        "sigmoid_focal_loss": (F.sigmoid_focal_loss, [
+            f(6, 3), f(6, 3, lo=0.0, hi=1.0)]),
+        "ctc_loss": (lambda v: F.ctc_loss(
+            v, torch.tensor([[1, 2, 2], [3, 1, 0]], device=v.device),
+            torch.tensor([7, 5], device=v.device),
+            torch.tensor([3, 2], device=v.device)), [f(7, 2, 5)]),
+        "rank_loss": (F.rank_loss, [f(5, 1, lo=0.0, hi=1.0), f(5, 1),
+                                    f(5, 1)]),
+        "margin_rank_loss": (F.margin_rank_loss, [f(5, 1), f(5, 1),
+                                                  f(5, 1)]),
+        "huber_loss": (lambda a, b: F.huber_loss(a, b, 0.5), [f(6, 1),
+                                                              f(6, 1)]),
+        "log_loss": (F.log_loss, [f(6, 1, lo=0.05, hi=0.95),
+                                  f(6, 1, lo=0.0, hi=1.0)]),
+        "bpr_loss": (F.bpr_loss, [f(4, 5), i(5, 4, 1)]),
+        "npair_loss": (lambda a, p: F.npair_loss(
+            a, p, torch.tensor([0, 1, 0, 2, 1, 2], device=a.device)),
+            [f(6, 4), f(6, 4)]),
+        "hsigmoid_loss": (lambda v, lab, w, b: F.hsigmoid_loss(
+            v, lab, 6, w, b), [f(5, 4), i(6, 5, 1), f(5, 4), f(5)]),
+        "teacher_student_sigmoid_loss": (F.teacher_student_sigmoid_loss,
+                                         [f(8, 1), f(8, 1)]),
+        "hinge_loss": (F.hinge_loss, [f(6, 1), f(6, 1, lo=0.0, hi=1.0)]),
+        "nce_from_samples": (lambda v, lab, w, b: F.loss.nce_from_samples(
+            v, lab, w, b, torch.tensor([2, 7, 2, 0], device=v.device),
+            torch.full((9,), 1 / 9, device=v.device), 4),
+            [f(4, 3), i(9, 4, 1), f(9, 3), f(9)]),
+        "sampled_softmax_from_samples": (
+            lambda v, lab: F.loss.sampled_softmax_from_samples(
+                v, lab, torch.tensor([1, 7, 5, 3], device=v.device), 4),
+            [f(4, 12), i(12, 4, 1)]),
+        "rms_norm": (F.rms_norm, [f(3, 8), f(8)]),
+        "instance_norm": (F.instance_norm, [f(2, 3, 4, 5), f(3), f(3)]),
+        "group_norm": (lambda v, w, b: F.group_norm(v, 3, w, b),
+                       [f(2, 6, 3, 3), f(6), f(6)]),
+        "sequence_reverse": (lambda v, n: S.sequence_reverse(v, n),
+                             [f(3, 4, 2), lengths]),
+        "sequence_softmax": (S.sequence_softmax, [f(3, 4), lengths]),
+        "sequence_pool_max": (lambda v, n: S.sequence_pool(v, n, "max"),
+                              [f(3, 4, 2), lengths]),
+        "sequence_pool_sqrt": (lambda v, n: S.sequence_pool(v, n, "sqrt"),
+                               [f(3, 4, 2), lengths]),
+        "sequence_last_step": (S.sequence_last_step, [f(3, 4, 2), lengths]),
+        "sequence_mask": (lambda n: S.sequence_mask(n, 5), [lengths]),
+        "sequence_expand": (S.sequence_expand, [f(3, 2), lengths]),
+        "sequence_enumerate": (lambda v: S.sequence_enumerate(v, 3),
+                               [i(9, 3, 5)]),
+        "gather_tree": (S.gather_tree, [i(9, 5, 2, 3), i(3, 5, 2, 3)]),
+        "row_conv": (S.row_conv, [f(3, 4, 2), f(2, 2)]),
+        "sequence_conv": (lambda v, w, n: S.sequence_conv(
+            v, w, 3, lengths=n), [f(3, 4, 2), f(6, 5), lengths]),
+        "sequence_reshape": (lambda v: S.sequence_reshape(v, 4),
+                             [f(3, 4, 6)]),
+        "sequence_scatter": (lambda v, u: S.sequence_scatter(
+            v, torch.tensor([[0, 2], [5, 5], [1, 3]], device=v.device), u),
+            [f(3, 6), f(3, 2)]),
+        "im2sequence": (lambda v: S.im2sequence(v, [2, 3], [1, 2], 1),
+                        [f(2, 3, 5, 6)]),
+        "ctc_align": (lambda v: S.ctc_align(v, None)[0], [i(4, 3, 7)]),
+    })
+    return cases
+
+
+def nn_layer_cases(nn):
+    """(e)'s layers: name -> (maker(device), input makers)."""
+    def f(*shape):
+        return lambda g: seeded(g, shape)
+
+    def i(high, *shape):
+        return lambda g: torch.randint(0, high, shape, generator=g)
+
+    def u(*shape):
+        return lambda g: seeded(g, shape, 0.05, 0.95)
+
+    acts = {n: (lambda d, n=n: getattr(nn, n)(), [f(3, 5)]) for n in (
+        "ReLU6", "Sigmoid", "Tanh", "GELU", "Silu", "Swish", "Mish",
+        "LeakyReLU", "ELU", "SELU", "Hardtanh", "Hardsigmoid", "Hardswish",
+        "Softplus", "Softshrink", "Hardshrink", "Tanhshrink", "Softsign",
+        "LogSigmoid", "Softmax", "LogSoftmax", "ThresholdedReLU")}
+    return dict(acts, **{
+        "PReLU": (lambda d: nn.PReLU(3, device=d), [f(2, 3, 4)]),
+        "Maxout": (lambda d: nn.Maxout(2), [f(2, 4, 3)]),
+        "Flatten": (lambda d: nn.Flatten(), [f(2, 3, 4)]),
+        "Identity": (lambda d: nn.Identity(), [f(2, 3)]),
+        "Upsample": (lambda d: nn.Upsample([5, 7], mode="bilinear"),
+                     [f(2, 3, 4, 4)]),
+        "Pad1D": (lambda d: nn.Pad1D([1, 2], mode="reflect"), [f(2, 3, 5)]),
+        "Pad2D": (lambda d: nn.Pad2D([1, 0, 2, 1]), [f(2, 3, 4, 4)]),
+        "CosineSimilarity": (lambda d: nn.CosineSimilarity(), [f(3, 6),
+                                                               f(3, 6)]),
+        "Bilinear": (lambda d: nn.Bilinear(3, 4, 5, device=d),
+                     [f(2, 3), f(2, 4)]),
+        "PixelShuffle": (lambda d: nn.PixelShuffle(3), [f(1, 9, 2, 2)]),
+        "RMSNorm": (lambda d: nn.RMSNorm(6, device=d), [f(2, 3, 6)]),
+        "GroupNorm": (lambda d: nn.GroupNorm(2, 4, device=d),
+                      [f(2, 4, 3, 3)]),
+        "InstanceNorm1D": (lambda d: nn.InstanceNorm1D(3, device=d),
+                           [f(2, 3, 7)]),
+        "InstanceNorm3D": (lambda d: nn.InstanceNorm3D(2, device=d),
+                           [f(2, 2, 3, 3, 2)]),
+        "CrossEntropyLoss": (lambda d: nn.CrossEntropyLoss(
+            label_smoothing=0.1), [f(5, 4), i(4, 5)]),
+        "MSELoss": (lambda d: nn.MSELoss(), [f(4, 3), f(4, 3)]),
+        "L1Loss": (lambda d: nn.L1Loss(), [f(4, 3), f(4, 3)]),
+        "NLLLoss": (lambda d: nn.NLLLoss(), [f(5, 4), i(4, 5)]),
+        "BCELoss": (lambda d: nn.BCELoss(), [u(3, 4), u(3, 4)]),
+        "BCEWithLogitsLoss": (lambda d: nn.BCEWithLogitsLoss(),
+                              [f(3, 4), f(3, 4)]),
+        "CTCLoss": (lambda d: nn.CTCLoss(), [
+            f(5, 2, 4), lambda g: torch.tensor([[1, 2], [3, 3]]),
+            lambda g: torch.tensor([5, 4]), lambda g: torch.tensor([2, 2])]),
+        "Dropout2D_eval": (lambda d: nn.Dropout2D(0.5).eval(),
+                           [f(2, 3, 4, 4)]),
+        "AlphaDropout_eval": (lambda d: nn.AlphaDropout(0.3).eval(),
+                              [f(3, 4)]),
+        "KLDivLoss": (lambda d: nn.KLDivLoss(), [f(2, 3), f(2, 3)]),
+        "SmoothL1Loss": (lambda d: nn.SmoothL1Loss(), [f(4, 3), f(4, 3)]),
+        "MarginRankingLoss": (lambda d: nn.MarginRankingLoss(),
+                              [f(5), f(5), f(5)]),
+        "Unfold": (lambda d: nn.Unfold([2, 2], strides=2), [f(2, 3, 4, 4)]),
+        "UpsamplingBilinear2D": (lambda d: nn.UpsamplingBilinear2D(
+            scale_factor=2), [f(1, 2, 3, 3)]),
+        "UpsamplingNearest2D": (lambda d: nn.UpsamplingNearest2D([5, 4]),
+                                [f(1, 2, 3, 3)]),
+        "CosineEmbeddingLoss": (lambda d: nn.CosineEmbeddingLoss(),
+                                [f(4, 3), f(4, 3), f(4)]),
+        "TripletMarginLoss": (lambda d: nn.TripletMarginLoss(),
+                              [f(4, 3), f(4, 3), f(4, 3)]),
+        "SpectralNorm": (lambda d: nn.SpectralNorm([6, 4], device=d),
+                         [f(6, 4)]),
+        "SimpleRNN": (lambda d: nn.SimpleRNN(4, 6, 2, device=d),
+                      [f(3, 5, 4)]),
+        "LSTM_bidirect": (lambda d: nn.LSTM(4, 6, 2, "bidirect", device=d),
+                          [f(3, 5, 4)]),
+        "GRU": (lambda d: nn.GRU(4, 6, device=d), [f(3, 5, 4)]),
+        "SimpleRNNCell": (lambda d: nn.SimpleRNNCell(4, 6, device=d),
+                          [f(3, 4), f(3, 6)]),
+        "LSTMCell": (lambda d: nn.LSTMCell(4, 6, device=d), [f(3, 4)]),
+        "GRUCell": (lambda d: nn.GRUCell(4, 6, device=d), [f(3, 4),
+                                                            f(3, 6)]),
+        "RNN": (lambda d: nn.RNN(nn.GRUCell(4, 6, device=d)), [f(3, 5, 4)]),
+        "BiRNN": (lambda d: nn.BiRNN(nn.LSTMCell(4, 6, device=d),
+                                     nn.LSTMCell(4, 6, device=d)),
+                  [f(3, 5, 4)]),
+        "MultiHeadAttention": (lambda d: nn.MultiHeadAttention(
+            16, 4, device=d), [f(2, 5, 16), f(2, 7, 16), f(2, 7, 16)]),
+        "TransformerEncoderLayer": (lambda d: nn.TransformerEncoderLayer(
+            16, 4, 32, dropout=0.0, normalize_before=True, device=d),
+            [f(2, 5, 16)]),
+        "TransformerDecoderLayer": (lambda d: nn.TransformerDecoderLayer(
+            16, 4, 32, dropout=0.0, device=d), [f(2, 4, 16), f(2, 5, 16)]),
+        "Transformer": (lambda d: nn.Transformer(
+            16, 4, 2, 2, 32, dropout=0.0, device=d),
+            [f(2, 5, 16), f(2, 4, 16)]),
+    })
+
+
+def compared_parameters(layer):
+    """The parameters whose gradients (e) compares: all but the key
+    projections' biases, whose gradient is exactly zero (softmax cancels
+    a key bias), so the card and the CPU each hold rounding noise there."""
+    return [p for n, p in layer.named_parameters()
+            if not n.endswith("k_proj.bias")]
+
+
+def first_output(out):
+    """A layer's output, or the first of its (output, states)."""
+    while isinstance(out, (tuple, list)):
+        out = out[0]
+    return out
+
+
+def nn_card_vs_cpu(pt, seed, failures):
+    """(e): every newly ported functional and layer once on the card
+    against the CPU, float32: each output and the gradients of sum(out *
+    c) for every float input and parameter."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import sequence as S
+    gen = torch.Generator()
+    worst, bad, n = (0.0, ""), [], 0
+
+    def run(fn, inputs, device, params=()):
+        ins = [x.detach().clone().to(device).requires_grad_(
+            x.is_floating_point()) for x in inputs]
+        out = first_output(fn(*ins))
+        if not out.is_floating_point():
+            return [out]
+        cot = torch.linspace(-1.0, 1.0, out.numel()).reshape(out.shape)
+        wrt = [x for x in ins if x.requires_grad] + [
+            p for p in params if p.requires_grad]
+        if not wrt:
+            return [out]
+        grads = torch.autograd.grad((out * cot.to(device)).sum(), wrt,
+                                    allow_unused=True)
+        return [out] + [g for g in grads if g is not None]
+
+    def check(name, cpu, card):
+        nonlocal worst, n
+        n += 1
+        errs = [max_rel(a, b) if a.is_floating_point()
+                else float(not torch.equal(a.cpu(), b)) for a, b in
+                zip(card, cpu)]
+        tols = [NN_FWD_TOL] + [NN_GRAD_TOL] * (len(errs) - 1)
+        if len(card) != len(cpu) or any(e > t for e, t in zip(errs, tols)):
+            bad.append(f"{name} {[f'{e:.2e}' for e in errs]}")
+        worst = max(worst, (max(errs), name))
+
+    for name, (fn, makers) in nn_surface_cases(F, S).items():
+        gen.manual_seed(seed + n)
+        inputs = [b(gen) for b in makers]
+        check(name, run(fn, inputs, "cpu"), run(fn, inputs, NN_DEVICE))
+    for name, (build, makers) in nn_layer_cases(nn).items():
+        gen.manual_seed(seed + n)
+        inputs = [b(gen) for b in makers]
+        pt.seed(seed + n)
+        layer = build("cpu")
+        card = copy.deepcopy(layer).to(NN_DEVICE)
+        check(name, run(layer, inputs, "cpu", compared_parameters(layer)),
+              run(card, inputs, NN_DEVICE, compared_parameters(card)))
+    ok = not bad
+    log(f"  {n} new functionals and layers on the card against the CPU, "
+        f"float32: worst max rel {worst[0]:.3e} ({worst[1]}; tol "
+        f"{NN_FWD_TOL:g} outputs, {NN_GRAD_TOL:g} gradients) "
+        f"{'ok' if ok else 'FAIL: ' + '; '.join(bad)}")
+    if not ok:
+        failures.append(f"phase 17 (e): {len(bad)} functionals or layers "
+                        f"disagree with the CPU: {'; '.join(bad)[:400]}")
+    return {"cases": n, "worst_max_rel": worst[0], "worst_case": worst[1]}
+
+
+def gumbel_moments(F, rows, n, device):
+    """gumbel_softmax's draws at zero logits, held by their moments: the
+    argmax of each row is uniform over its ``n`` classes (hard), and
+    ``log y`` less its row mean is ``g - mean(g)`` for the row's standard
+    Gumbel draws ``g``, whose variance is ``pi^2/6 (1 - 1/n)`` and skewness
+    ``1.13955 (1 - 2/n) / sqrt(1 - 1/n)``. A missing, untransformed or
+    sign-flipped draw fails one of them. Returns (worst class frequency's
+    distance from 1/n, variance, its want, skewness, its want)."""
+    hard = F.gumbel_softmax(torch.zeros(rows, n, device=device), hard=True)
+    freq = hard.argmax(-1).bincount(minlength=n).double() / rows
+    c = torch.log(F.gumbel_softmax(torch.zeros(rows, n, device=device)))
+    c = (c - c.mean(-1, keepdim=True)).double()
+    var = float(c.var())
+    skew = float((c - c.mean()).pow(3).mean()) / max(var, 1e-12) ** 1.5
+    want_var = math.pi ** 2 / 6 * (1 - 1 / n)
+    want_skew = 1.13955 * (1 - 2 / n) / math.sqrt(1 - 1 / n)
+    return (float((freq - 1 / n).abs().max()), var, want_var, skew,
+            want_skew)
+
+
+def nn_draws(pt, failures):
+    """(e), the draws on the card: dropout2d drops whole channels at its
+    rate, alpha_dropout keeps the mean and variance, gumbel_softmax's
+    draws have the Gumbel distribution's moments."""
+    from paddle_tpu_torch.nn import functional as F
+    x = torch.ones(200, 200, 6, device=NN_DEVICE)
+    y = F.dropout2d(x[..., None], p=0.3)[..., 0]
+    per_channel = (y.amin(-1) == y.amax(-1)).all()
+    dropped = float((y[..., 0] == 0).float().mean())
+    z = F.alpha_dropout(torch.randn(400, 400, device=NN_DEVICE), p=0.2)
+    # 20,000 rows of 50: a class's frequency has sd 0.001, the variance's
+    # estimate about 0.004 and the skewness's about 0.01
+    freq_err, var, want_var, skew, want_skew = gumbel_moments(
+        F, 20000, 50, NN_DEVICE)
+    ok = (bool(per_channel) and abs(dropped - 0.3) < 0.03
+          and abs(float(z.mean())) < 0.03 and abs(float(z.std()) - 1) < 0.03
+          and freq_err < 0.005 and abs(var - want_var) < 0.05
+          and abs(skew - want_skew) < 0.1)
+    log(f"  draws on the card: dropout2d drops {dropped:.4f} of the "
+        f"channels whole (p 0.3), alpha_dropout mean {float(z.mean()):.4f} "
+        f"std {float(z.std()):.4f}; gumbel_softmax over 20000 x 50 zeros: "
+        f"hard argmax class frequency within {freq_err:.5f} of 1/50 (tol "
+        f"0.005), centred log-output variance {var:.4f} (want "
+        f"{want_var:.4f}, tol 0.05), skewness {skew:.4f} (want "
+        f"{want_skew:.4f}, tol 0.1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 17 (e): a draw on the card is off its "
+                        "moments")
+
+
+def phase17(pt, fa, seed, failures):
+    """Phase 17: the nn layer library on the card. A part that raises is
+    a failure and the next one still runs. Returns each part's flash
+    launches."""
+    import traceback
+    log("phase 17: the nn layer library: Transformer-base trained and "
+        "beam-decoded, the flash kernels through MultiHeadAttention, the "
+        "large LSTM LM, every new layer card vs CPU")
+    t_phase = time.perf_counter()
+    out, launches, trained = {}, {}, {}
+
+    def base():
+        trained["model"], res = nn_transformer_base(pt, fa, seed, failures)
+        return res
+
+    def beam():
+        if "model" not in trained:
+            raise RuntimeError("no trained model: (a) failed")
+        return nn_beam(pt, trained.pop("model"), seed, failures)
+
+    def encoder():
+        counts, res = nn_flash_encoder(pt, fa, seed, failures)
+        launches["nn_encoder_seq1024_step"] = counts
+        return res
+
+    parts = (("transformer_base", base, 0), ("beam_decode", beam, 0),
+             ("encoder_seq1024", encoder, None),
+             ("lstm_lm", lambda: nn_lstm_lm(pt, seed, failures), 0),
+             ("card_vs_cpu", lambda: (nn_draws(pt, failures),
+                                      nn_card_vs_cpu(pt, seed,
+                                                     failures))[1], 0))
+    for key, part, want in parts:
+        t0 = time.perf_counter()
+        fa.reset_launch_counts()
+        try:
+            out[key] = part()
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            traceback.print_exc()
+            failures.append(f"phase 17 ({key}) raised {type(e).__name__}: "
+                            f"{e}")
+        if want is not None:  # the parts below the flash gate
+            counts = flash_launches(fa)
+            launches[f"nn_{key}"] = counts
+            ok = not any(counts.values())
+            log(f"  -- {key}: flash launches {counts} (none expected: "
+                f"seq below {1024}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"phase 17 ({key}) launched flash kernels "
+                                f"{counts}")
+        log(f"  -- {key}: {time.perf_counter() - t0:.1f} s")
+        free_cuda()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 17: {out['seconds']:.1f} s; {card_line()}")
+    log(json.dumps({"nn_library": out}, default=str))
+    return launches
+
+
 def gpt_small_model(pt, seed):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
     pt.seed(seed)
@@ -6785,7 +7723,7 @@ def parse_phases(text):
     return phases | {1}
 
 
-LAST_PHASE = 16
+LAST_PHASE = 17
 TIMING_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "max_abs_err")
 
@@ -6816,14 +7754,29 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     failures = []
+    t_start = time.perf_counter()
+    seconds = {}  # each phase's wall seconds, by label
+    clock = {"label": None, "t0": None}
 
-    def on(n, what):
+    def close_phase():
+        if clock["label"] is not None:
+            s = time.perf_counter() - clock["t0"]
+            seconds[clock["label"]] = s
+            log(f"phase {clock['label']}: {s:.1f} s; {card_line()}")
+            clock["label"] = None
+
+    def on(n, what, label=None):
+        """Whether phase ``n`` runs; the previous phase's clock stops and,
+        if it runs, this one's starts."""
+        close_phase()
         if n in phases:
+            clock["label"], clock["t0"] = label or str(n), time.perf_counter()
             return True
         log(f"phase {n}: skipped ({what}; --phases {args.phases})")
         return False
 
     # ---- 1. device and build
+    on(1, "device and build")
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -6871,8 +7824,8 @@ def main():
 
     # ---- 5 and 6. BERT-base, float32 card vs CPU, then eager and k-step
     bert_rates = None
-    if on(5, "BERT-base float32 card vs CPU, with phase 6") | on(
-            6, "BERT-base bench recipe, with phase 5"):
+    if on(5 if 5 in phases else 6, "BERT-base, phases 5 and 6 together",
+          label="5-6"):
         bert_rates = bert(pt, fa, args.seed, failures)
 
     # ---- 7. GPT-small through the k-step program
@@ -6938,6 +7891,14 @@ def main():
     if on(16, "CTR through the parameter server"):
         ps_launches = phase16(pt, fa, args.seed, failures)
 
+    # ---- 17. the nn layer library
+    nn_launches = {}
+    if on(17, "the nn layer library"):
+        nn_launches = phase17(pt, fa, args.seed, failures)
+    close_phase()
+    log(json.dumps({"phase_seconds": seconds, "total_seconds":
+                    time.perf_counter() - t_start, "card": card_line()}))
+
     # ---- kernels line and result (a skipped phase's entries are null)
     timings = [flash, flash_bwd["dq"], flash_bwd["dkv"]]
     by_path = [{"serving": served_launches}, {}, {}]
@@ -6970,7 +7931,9 @@ def main():
                 **{f"runtime_{path}": counts.get(name)
                    for path, counts in runtime_launches.items()},
                 **{path: counts.get(name)
-                   for path, counts in ps_launches.items()}),
+                   for path, counts in ps_launches.items()},
+                **{path: counts.get(name)
+                   for path, counts in nn_launches.items()}),
             gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,

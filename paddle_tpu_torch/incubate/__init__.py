@@ -1,6 +1,8 @@
 """Incubating APIs (counterpart: ``paddle_tpu/incubate``): the epoch-loop
-``auto_checkpoint`` and the Switch ``MoELayer``."""
+``auto_checkpoint``, the Switch ``MoELayer`` and ``softmax`` (the
+functional's)."""
+from ..nn.functional import softmax  # noqa: F401
 from . import auto_checkpoint, moe  # noqa: F401
 from .moe import MoELayer  # noqa: F401
 
-__all__ = ["auto_checkpoint", "moe", "MoELayer"]
+__all__ = ["auto_checkpoint", "moe", "MoELayer", "softmax"]

@@ -1,5 +1,10 @@
-"""batch_norm and layer_norm (counterpart:
-``paddle_tpu/nn/functional/norm.py``)."""
+"""batch_norm, layer_norm, rms_norm, instance_norm and group_norm
+(counterpart: ``paddle_tpu/nn/functional/norm.py``). Each is on the
+reference's AMP block and downcast lists: under ``auto_cast`` it computes
+in float32 and returns the AMP dtype when an input came in it. The last
+three normalise with the population variance over their axes (instance
+norm: each sample's channel over its spatial axes; group norm: each
+sample's channel group), as the reference writes them out."""
 import torch
 
 from ...amp.auto_cast import cast_inputs, downcast_dtype
@@ -71,4 +76,52 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
     out = torch.nn.functional.layer_norm(x, list(normalized_shape), weight,
                                          bias, epsilon)
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def _scale_shift(out, weight, bias, shape):
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def rms_norm(x, weight=None, epsilon=1e-6):
+    """``x / sqrt(mean(x^2) + epsilon)`` over the last axis, times
+    ``weight``."""
+    out_dtype = downcast_dtype("rms_norm", x, weight)
+    x, weight = cast_inputs("rms_norm", x, weight)
+    out = x / torch.sqrt(x.square().mean(-1, keepdim=True) + epsilon)
+    if weight is not None:
+        out = out * weight
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def _normalise(v, axes, epsilon):
+    var, mean = torch.var_mean(v, axes, correction=0, keepdim=True)
+    return (v - mean) / torch.sqrt(var + epsilon)
+
+
+def instance_norm(x, weight=None, bias=None, epsilon=1e-5,
+                  data_format="NCHW"):
+    """Each sample's channel over its spatial axes (channels on axis 1,
+    whatever ``data_format`` says, as the reference reads it)."""
+    out_dtype = downcast_dtype("instance_norm", x, weight, bias)
+    x, weight, bias = cast_inputs("instance_norm", x, weight, bias)
+    out = _normalise(x, tuple(range(2, x.dim())), epsilon)
+    out = _scale_shift(out, weight, bias, (1, -1) + (1,) * (x.dim() - 2))
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
+               data_format="NCHW"):
+    """Each sample's group of ``C / num_groups`` channels over the group
+    and the spatial axes (channels on axis 1)."""
+    out_dtype = downcast_dtype("group_norm", x, weight, bias)
+    x, weight, bias = cast_inputs("group_norm", x, weight, bias)
+    n, c = x.shape[0], x.shape[1]
+    g = x.reshape(n, num_groups, c // num_groups, *x.shape[2:])
+    out = _normalise(g, tuple(range(2, g.dim())), epsilon).reshape(x.shape)
+    out = _scale_shift(out, weight, bias, (1, -1) + (1,) * (x.dim() - 2))
     return out if out_dtype is None else out.to(out_dtype)

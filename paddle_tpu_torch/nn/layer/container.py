@@ -1,4 +1,4 @@
-"""Sequential and LayerList (counterpart:
+"""Sequential, LayerList, LayerDict and ParameterList (counterpart:
 ``paddle_tpu/nn/layer/container.py``)."""
 import torch
 
@@ -52,3 +52,68 @@ class LayerList(Layer, torch.nn.ModuleList):
 
     def extend(self, layers):
         return torch.nn.ModuleList.extend(self, layers)
+
+
+class LayerDict(Layer):
+    """Sublayers by name, in insertion order."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers:
+            self.update(sublayers)
+
+    def __getitem__(self, key):
+        return self._modules[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __delitem__(self, key):
+        del self._modules[key]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules)
+
+    def keys(self):
+        return self._modules.keys()
+
+    def values(self):
+        return self._modules.values()
+
+    def items(self):
+        return self._modules.items()
+
+    def update(self, sublayers):
+        """Add ``(name, layer)`` pairs from a dict or a list of pairs."""
+        items = sublayers.items() if isinstance(sublayers, dict) \
+            else sublayers
+        for k, v in items:
+            self.add_sublayer(k, v)
+
+
+class ParameterList(Layer):
+    """Parameters named ``"0"``, ``"1"``, ... as in the reference."""
+
+    def __init__(self, parameters=None):
+        super().__init__()
+        for p in parameters or ():
+            self.append(p)
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx)]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+    def append(self, parameter):
+        if not isinstance(parameter, torch.nn.Parameter):
+            raise TypeError(f"ParameterList holds Parameters, not "
+                            f"{type(parameter).__name__}")
+        self.add_parameter(str(len(self._parameters)), parameter)
+        return self

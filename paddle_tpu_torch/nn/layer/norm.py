@@ -1,5 +1,8 @@
-"""LayerNorm and the BatchNorm layers (counterpart:
-``paddle_tpu/nn/layer/norm.py``)."""
+"""LayerNorm, RMSNorm, GroupNorm, the instance norms and the BatchNorm
+layers (counterpart: ``paddle_tpu/nn/layer/norm.py``). As in the
+reference, ``InstanceNorm1D``, ``2D`` and ``3D`` are one class (it
+normalises over whatever spatial axes its input has); ``SyncBatchNorm``
+is not ported (ROADMAP item 19)."""
 import torch
 
 from ...core.device import resolve_device
@@ -29,6 +32,61 @@ class LayerNorm(Layer):
 
     def extra_repr(self):
         return f"normalized_shape={self._normalized_shape}"
+
+
+class RMSNorm(Layer):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None, device=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            [hidden_size], attr=weight_attr, device=device,
+            default_initializer=I.Constant(1.0))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self._epsilon)
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, device=None):
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [num_channels], attr=weight_attr, device=device,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(
+            [num_channels], attr=bias_attr, is_bias=True, device=device)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self.weight, self.bias,
+                            self._epsilon, self._data_format)
+
+
+class InstanceNorm2D(Layer):
+    """Scale (ones) and shift (zeros) per channel; ``momentum`` is taken
+    and unused, as in the reference (no running statistics)."""
+
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, device=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            [num_features], attr=weight_attr, device=device,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(
+            [num_features], attr=bias_attr, is_bias=True, device=device)
+
+    def forward(self, x):
+        return F.instance_norm(x, self.weight, self.bias, self._epsilon)
+
+
+InstanceNorm1D = InstanceNorm2D
+InstanceNorm3D = InstanceNorm2D
 
 
 class _BatchNormBase(Layer):

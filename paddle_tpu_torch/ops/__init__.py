@@ -13,8 +13,11 @@ out, so a model's inside never meets ``Tensor``.
 Under an op observer (``core.dispatch``) each op is one op under its
 reference name; ``call_op``/``call_op_nograd`` run any function that way.
 
-Not ported with this module: ``ops/misc_tail.py``, ``ctr_tail.py``,
-``tdm.py`` and ``sequence.py`` (ROADMAP items 17 and 14).
+``sequence`` holds the LoD sequence ops and the decoding tail
+(``gather_tree``, ``edit_distance``, ``ctc_align``), under
+``ops.sequence`` as in the reference. Not ported with this module:
+``ops/misc_tail.py``, ``ctr_tail.py`` and ``tdm.py`` (ROADMAP items 17 and
+14).
 """
 import types
 
@@ -22,7 +25,7 @@ import torch
 
 from ..core.dispatch import call_op, call_op_nograd  # noqa: F401
 from ..core.tensor import Parameter, Tensor, unwrap
-from . import extras, manipulation, math, random  # noqa: F401
+from . import extras, manipulation, math, random, sequence  # noqa: F401
 from .extras import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403

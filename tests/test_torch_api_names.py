@@ -87,26 +87,32 @@ PORTED_MODULES = {
     "paddle_tpu.distributed.ps.async_cache",
     "paddle_tpu.distributed.ps.trainer",
     "paddle_tpu.distributed.fleet.dataset",
-    "paddle_tpu.distributed.fleet.base.role_maker", "paddle_tpu.models.ctr"}
+    "paddle_tpu.distributed.fleet.base.role_maker", "paddle_tpu.models.ctr",
+    # the nn layer library: activations, the common layers, containers,
+    # losses, the RNNs and beam search, the Transformer, the layer tail,
+    # their functionals and initializers, the schedulers, and the LoD
+    # sequence ops
+    "paddle_tpu.nn.layer.activation", "paddle_tpu.nn.layer.common",
+    "paddle_tpu.nn.layer.container", "paddle_tpu.nn.layer.loss",
+    "paddle_tpu.nn.layer.rnn", "paddle_tpu.nn.layer.transformer",
+    "paddle_tpu.nn.layer.extras", "paddle_tpu.nn.functional.activation",
+    "paddle_tpu.nn.functional.common", "paddle_tpu.nn.functional.loss",
+    "paddle_tpu.nn.functional.norm", "paddle_tpu.nn.initializer",
+    "paddle_tpu.optimizer.lr", "paddle_tpu.ops.sequence"}
 PORTED_CLASSES = {
     "paddle_tpu.optimizer.optimizer": {"Optimizer", "Adam", "AdamW", "SGD",
                                        "Momentum"},
-    "paddle_tpu.optimizer.lr": {"LRScheduler", "LinearWarmup",
-                                "CosineAnnealingDecay", "PiecewiseDecay"},
     "paddle_tpu.nn.layer.layers": {"Layer"},
     "paddle_tpu.nn.layer.conv": {"Conv1D", "Conv2D", "Conv3D"},
+    # SyncBatchNorm waits in ROADMAP item 19 (ResNet under ZeRO)
     "paddle_tpu.nn.layer.norm": {"BatchNorm", "BatchNorm1D", "BatchNorm2D",
                                  "BatchNorm3D", "LayerNorm",
-                                 "LocalResponseNorm"},
+                                 "LocalResponseNorm", "RMSNorm", "GroupNorm",
+                                 "InstanceNorm2D"},
     "paddle_tpu.nn.layer.pooling": {
         "MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
         "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
         "AdaptiveMaxPool2D"},
-    "paddle_tpu.nn.layer.activation": {"ReLU"},
-    "paddle_tpu.nn.layer.container": {"Sequential", "LayerList"},
-    "paddle_tpu.nn.functional.norm": {"batch_norm", "layer_norm"},
-    "paddle_tpu.nn.functional.loss": {"cross_entropy",
-                                      "binary_cross_entropy_with_logits"},
     # the transposed convolutions, max_pool2d_with_index and max_unpool2d
     # wait in ROADMAP item 19
     "paddle_tpu.nn.functional.conv": {"conv1d", "conv2d", "conv3d"},

@@ -107,6 +107,20 @@ _PS = ("paddle_tpu_torch._native", "paddle_tpu_torch.distributed.ps",
        "paddle_tpu_torch.models.ctr", "paddle_tpu_torch.testing.ps_fixture")
 
 
+# the nn layer library: the layers and functionals, the schedulers and the
+# LoD sequence ops
+_NN = ("paddle_tpu_torch.nn.layer.activation",
+       "paddle_tpu_torch.nn.layer.common", "paddle_tpu_torch.nn.layer.container",
+       "paddle_tpu_torch.nn.layer.loss", "paddle_tpu_torch.nn.layer.norm",
+       "paddle_tpu_torch.nn.layer.rnn", "paddle_tpu_torch.nn.layer.transformer",
+       "paddle_tpu_torch.nn.layer.extras",
+       "paddle_tpu_torch.nn.functional.activation",
+       "paddle_tpu_torch.nn.functional.common",
+       "paddle_tpu_torch.nn.functional.loss",
+       "paddle_tpu_torch.nn.functional.norm", "paddle_tpu_torch.nn.initializer",
+       "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.ops.sequence")
+
+
 def _forbidden(name):
     return name.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
 
@@ -122,7 +136,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
     for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT + _HYBRID \
-            + _ARTIFACT + _RUNTIME + _PS:
+            + _ARTIFACT + _RUNTIME + _PS + _NN:
         assert f"'{name}'" in every, (name, every)
 
 

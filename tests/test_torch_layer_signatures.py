@@ -49,6 +49,9 @@ DIFFERENT = {
     # torch.nn.Module's forward placeholder of the base classes
     "paddle_tpu.nn.Layer.forward": "torch.nn.Module.forward",
     "paddle_tpu.nn.LayerList.forward": "torch.nn.Module.forward",
+    "paddle_tpu.nn.LayerDict.forward": "torch.nn.Module.forward",
+    "paddle_tpu.nn.ParameterList.forward": "torch.nn.Module.forward",
+    "paddle_tpu.nn.RNNCellBase.forward": "torch.nn.Module.forward",
     # a Parameter keeps torch.Tensor's own methods (core.tensor's table of
     # deliberate differences; tests/test_torch_tensor.py)
     "paddle_tpu.Parameter.backward": "torch.Tensor.backward",
@@ -76,11 +79,15 @@ def _pairs():
         ref, port = _get("paddle_tpu", name), _get("paddle_tpu_torch", name)
         if callable(ref) and port is not None:
             yield name, ref, port
+    from paddle_tpu.ops import sequence as ref_seq
     from paddle_tpu.vision import ops as ref_ops
+    from paddle_tpu_torch.ops import sequence as port_seq
     from paddle_tpu_torch.vision import ops as port_ops
-    for name in ref_ops.__all__:
-        yield (f"paddle_tpu.vision.ops.{name}", getattr(ref_ops, name),
-               getattr(port_ops, name))
+    for prefix, ref_mod, port_mod in (("vision.ops", ref_ops, port_ops),
+                                      ("ops.sequence", ref_seq, port_seq)):
+        for name in sorted(set(ref_mod.__all__) | set(port_mod.__all__)):
+            yield (f"paddle_tpu.{prefix}.{name}", getattr(ref_mod, name),
+                   getattr(port_mod, name))
 
 
 def test_ported_signatures_take_the_reference_names():
@@ -115,6 +122,39 @@ def test_the_imperative_surface_is_compared():
                  "paddle_tpu.nn.functional.grid_sample",
                  "paddle_tpu.nn.LocalResponseNorm"):
         assert name in names, name
+
+
+NN_LIBRARY = [
+    "paddle_tpu.nn.MultiHeadAttention", "paddle_tpu.nn.MultiHeadAttention"
+    ".gen_cache", "paddle_tpu.nn.Transformer", "paddle_tpu.nn.Transformer"
+    ".generate_square_subsequent_mask", "paddle_tpu.nn.LSTM",
+    "paddle_tpu.nn.GRU.forward", "paddle_tpu.nn.SimpleRNNCell",
+    "paddle_tpu.nn.BeamSearchDecoder.step", "paddle_tpu.nn.dynamic_decode",
+    "paddle_tpu.nn.RNN", "paddle_tpu.nn.SpectralNorm", "paddle_tpu.nn.PReLU",
+    "paddle_tpu.nn.Bilinear", "paddle_tpu.nn.LayerDict",
+    "paddle_tpu.nn.ParameterList.append", "paddle_tpu.nn.GroupNorm",
+    "paddle_tpu.nn.InstanceNorm3D", "paddle_tpu.nn.CrossEntropyLoss",
+    "paddle_tpu.nn.CTCLoss.forward", "paddle_tpu.nn.functional.interpolate",
+    "paddle_tpu.nn.functional.cross_entropy", "paddle_tpu.nn.functional.nce",
+    "paddle_tpu.nn.functional.gumbel_softmax",
+    "paddle_tpu.nn.functional.group_norm",
+    "paddle_tpu.nn.initializer.KaimingNormal",
+    "paddle_tpu.optimizer.lr.NoamDecay",
+    "paddle_tpu.optimizer.lr.ReduceOnPlateau.step",
+    "paddle_tpu.ops.sequence.gather_tree",
+    "paddle_tpu.ops.sequence.sequence_pool",
+    "paddle_tpu.ops.sequence.RaggedBatch"]
+
+
+@pytest.mark.parametrize("name", NN_LIBRARY)
+def test_the_nn_library_is_compared(name):
+    """The nn layer library's callables (a sample of each module) are
+    among the compared pairs, with the reference's names."""
+    pairs = {n: (ref, port) for n, ref, port in _pairs()}
+    assert name in pairs
+    ref, port = pairs[name]
+    assert [p for p in _params(port) if p not in EXTRA
+            or p in _params(ref)] == _params(ref)
 
 
 def test_the_allow_list_names_only_real_differences():
