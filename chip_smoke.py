@@ -98,7 +98,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    out inputs the kernels do not take.
 9. Step checkpoints (``checkpoint.CheckpointManager``) on the one-rank
    mesh, written to the card's machine's disk under the checkout: (a)
-   BERT-base with phase 6's recipe through ``to_static(one_step,
+   BERT-base (6 of its 12 encoder layers since phase 18 came:
+   ``CKPT_BERT_LAYERS``) with phase 6's recipe through ``to_static(one_step,
    scan_steps=20, dp_axis="dp")``, replicated, ZeRO-1, ZeRO-3 with prefetch
    and ZeRO-2 with ``accumulate_steps=4``: call 1, a save, everything
    freed, fresh objects from another seed, a restore and call 2, whose
@@ -301,7 +302,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``to_static(scan_steps=4)`` bitwise, words/s; (e) every newly ported
    functional and layer on the card against the CPU in float32, and the
    draws' moments. No flash kernel may launch in (a), (b), (d), (e).
-18. One JSON line with each phase's seconds beside the card's name and
+18. The rest of the parameter server (no hand-written kernel on these
+   paths: each flash kernel's launches are counted and must be 0): (a) TDM
+   retrieval at UserBehavior's size (Zhu et al., KDD 2018): a
+   ``TreeIndex`` over item ids 1..4,162,024 (branch 2, height 23), its
+   feeds checked on a 1/64 subtree against a per-node recomputation; the
+   two-tower score of the JAX package's TDM test (987,994 users, node and
+   user embeddings 24 wide, Adam) on 4 seeded batches of 1,024 (user,
+   item) pairs from ``tdm_sampler`` (up to 6 negatives a layer), cycled
+   for 20 steps; one step against the CPU, the losses falling; beam
+   retrieval (beam 200) down the tree through ``tdm_child`` for 32 users,
+   the children scored on the card, the ids against the CPU's; (b)
+   GraphSAGE (Hamilton et al., NeurIPS 2017) through the graph PS at
+   Reddit's size: 232,965 nodes with 602 float32 features, 41 planted
+   classes, edges at the paper's average degree of 492 loaded through
+   ``add_edges``; two mean aggregators (samples 25 and 10 through
+   ``sample_khop``, 128 wide, self and neighbour halves concatenated),
+   batch 512, Adam at 0.01, features pulled for unique ids: the sampler
+   against ``deterministic_sample_indices`` on 1,000 nodes, one step
+   against the CPU, 10 steps with the card's idle share; (c) the
+   heterogeneous PS at bench_ctr's accelerator size: a host worker's
+   ``SparseEmbedding`` over the PS (vocab 2,000,000, dim 64, 16 slots,
+   batch 1024, Zipf-1.2 ids of seed 3) ships [1024, 1024] activations
+   through ``HeterClient`` to a ``start_heter_server`` trainer whose deep
+   tower (512, 256) runs forward, backward and SGD on the card, 30
+   requests, bitwise against a control that calls the tower directly; (d)
+   the seven CTR tail ops with their gradients, card against CPU; (e)
+   ``HbmEmbeddingCache`` sharded over a one-rank NCCL mesh axis at phase
+   16 (b)'s sizes, bitwise the unsharded cache.
+19. One JSON line with each phase's seconds beside the card's name and
    power limit, one JSON line with every kernel of the paths, then the
    result line.
 
@@ -1597,6 +1626,13 @@ ZERO_ACCUM = 4               # bench.py --accumulate for the ZeRO-2 arm
 # 1073.5 s, past the 1000 s the script is held to; phase 8a was the
 # largest part (phase 8: 222.7 s of the 879.8).
 ZERO_BERT_LAYERS = 6
+# Phase 9a's four BERT-base arms run 6 of its 12 encoder layers too (its
+# widths, batch, seq and k unchanged) since the script took phase 18: the
+# whole script from a checkout of that slice ran 956.5 s of command (NVIDIA
+# H100 80GB HBM3, 700.00 W), past the 950 s kept under the 1000 s limit;
+# phase 9 was 129.0 s of it, most of that the 12-layer arms' programs,
+# saves and restores.
+CKPT_BERT_LAYERS = 6
 # ZeRO-2/3 accumulation windows fold float32 mean shards of each micro
 # step, where the accumulating control sums the micro steps' gradients on
 # the parameters, in their dtype (the reference's tolerance-level case).
@@ -2464,8 +2500,10 @@ def ckpt_bert_resume(pt, seed, failures):
     uninterrupted run's, bitwise."""
     import shutil
     from paddle_tpu_torch.models.bert import bert_base
-    cfg = bert_base(vocab_size=BERT_VOCAB, hidden_dropout=0.0,
-                    attention_dropout=0.0)
+    cfg = bert_base(vocab_size=BERT_VOCAB, num_layers=CKPT_BERT_LAYERS,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    log(f"  BERT-base at {CKPT_BERT_LAYERS} of its 12 encoder layers "
+        f"(CKPT_BERT_LAYERS), its widths, batch {BERT_BATCH} x {BERT_SEQ}")
     call1 = bert_batches(seed, KSTEP, 50)
     call2 = bert_batches(seed, KSTEP, 90)
     arms = [("replicated control", {}), ("ZeRO-1", dict(stage=1)),
@@ -7614,6 +7652,849 @@ def phase17(pt, fa, seed, failures):
     return launches
 
 
+# ---- phase 18: the rest of the parameter server -----------------------------
+
+# (a) TDM (Zhu et al., "Learning Tree-based Deep Model for Recommender
+# Systems", KDD 2018) at the size of Alibaba's UserBehavior log: its item and
+# user counts, node and user embeddings 24 wide (the paper's setup), branch
+# 2. This script's choices: batches of 1,024 seeded (user, item) pairs, up
+# to 6 negatives a layer capped at the layer's size - 1, Adam at 0.05 (the
+# JAX package's TDM test's rate), 20 steps over 4 fixed batches, beam 200.
+TDM_ITEMS, TDM_USERS, TDM_DIM, TDM_BRANCH = 4_162_024, 987_994, 24, 2
+TDM_BATCH, TDM_BATCHES, TDM_STEPS, TDM_NEG, TDM_LR = 1024, 4, 20, 6, 0.05
+TDM_BEAM, TDM_QUERIES = 200, 32
+TDM_SUBTREE_LAYER = 6   # the last of its 2^6 subtrees: the ragged edge
+# (b) GraphSAGE (Hamilton et al., "Inductive Representation Learning on
+# Large Graphs", NeurIPS 2017) at the Reddit graph's size: nodes, features,
+# classes and the average degree (section 4.1); two mean aggregators with
+# samples 25 and 10, 128 wide, batch 512, Adam at 0.01 (the authors'
+# supervised defaults). Labels are planted: each class adds a seeded
+# centroid to its nodes' features. Degrees are log-normal (sigma 1) around
+# the mean; destinations uniform.
+SAGE_NODES, SAGE_FEAT, SAGE_CLASSES, SAGE_DEGREE = 232_965, 602, 41, 492
+SAGE_FANOUT, SAGE_DIM, SAGE_BATCH, SAGE_LR = (25, 10), 128, 512, 0.01
+SAGE_STEPS, SAGE_CHECK_NODES = 10, 1000
+SAGE_NODE_CHUNK, SAGE_EDGE_CHUNK = 20_000, 1 << 23
+SAGE_LOAD_BUDGET_S = 45.0
+# (c) the heterogeneous PS at bench_ctr's accelerator size (phase 14's
+# CTR_VOCAB, CTR_DIM, CTR_SLOTS, CTR_BATCH, CTR_HIDDEN; ids as phase 16
+# (c)'s), the tower's update SGD at CTR_SGD_LR, the sparse table's too.
+HETER_REQUESTS = 30
+# One step card against CPU (a, b): the loss and the gradients, each
+# device's own, within REST_STEP_REL (max |card - cpu| / max |cpu|), and
+# the parameters after the Adam step, both devices stepping from the card's
+# gradient, within it too. (From each its own gradient, Adam's first step
+# moves an element by lr * g / (|g| + eps): an element whose gradient is
+# near eps, or rounding noise, moves by a share of the rate that the
+# rounding picks, so that comparison would hold the rounding, not the
+# step.)
+REST_STEP_REL = 1e-5
+# (d) the CTR tail ops, card against CPU, float32 (TF32 off).
+TAIL_REL = 1e-5
+REST_DEVICE = "cuda"  # the card; the CPU twins are "cpu"
+
+
+def rest_sync():
+    if REST_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def rest_check(label, ok, failures, detail=""):
+    log(f"  {label}{': ' + detail if detail else ''} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 18 {label}")
+    return ok
+
+
+def step_gap(card, cpu):
+    """``card``/``cpu``: [(gradient, parameter after the step)] of one
+    step. Returns the gradients' and the parameters' max rel."""
+    return (max(max_rel(gc, gp) for (gc, _), (gp, _) in zip(card, cpu)),
+            max(max_rel(pc, pp) for (_, pc), (_, pp) in zip(card, cpu)))
+
+
+def tdm_subtree_check(tree, travel, info, failures):
+    """The feeds of the last subtree below layer TDM_SUBTREE_LAYER against
+    the JAX package's per-node algorithm run node by node over the tree's
+    scalar accessors."""
+    b = tree.branch
+    root = tree.get_layer_codes(TDM_SUBTREE_LAYER)[-1]
+    first_leaf = (b ** (tree.height - 1) - 1) // (b - 1)
+    codes, frontier = [root], [root]
+    while frontier:
+        frontier = [k for c in frontier for k in tree.get_children_codes(c)]
+        codes += frontier
+    bad_info = bad_travel = 0
+    for code in codes:
+        (emb,) = tree.get_nodes([code])
+        item = code - first_leaf + 1 if code >= first_leaf else 0
+        (parent,) = tree.get_nodes([(code - 1) // b]) if code > 0 else (0,)
+        row = [item, tree.layer_of(code), parent]
+        row += tree.get_nodes(tree.get_children_codes(code))
+        row += [0] * (3 + b - len(row))
+        bad_info += int(info[emb].tolist() != row)
+        if item:
+            path = tree.get_nodes(tree.get_travel_codes(item, 1))[::-1]
+            bad_travel += int(travel[item].tolist() != path)
+    leaves = sum(1 for c in codes if c >= first_leaf)
+    return rest_check(
+        f"(a) the last 1/{b ** TDM_SUBTREE_LAYER} subtree ({len(codes)} "
+        f"nodes, {leaves} leaves): tree_info and travel rows against a "
+        f"per-node recomputation", bad_info == 0 and bad_travel == 0,
+        failures, f"{bad_info} tree_info rows and {bad_travel} travel rows "
+        f"differ")
+
+
+def tdm_model(pt, n_emb, device, state=None):
+    pt.seed(4)
+    node = pt.nn.Embedding(n_emb, TDM_DIM, device=device)
+    user = pt.nn.Embedding(TDM_USERS + 1, TDM_DIM, device=device)
+    if state is not None:
+        with torch.no_grad():
+            node.weight.copy_(state[0])
+            user.weight.copy_(state[1])
+    opt = pt.optimizer.Adam(parameters=[node.weight, user.weight],
+                            learning_rate=TDM_LR)
+    return node, user, opt
+
+
+def tdm_loss(pt, node, user, users, out, labels, mask):
+    """The two-tower score of the JAX package's TDM test: the user's and
+    the node's embeddings dotted, BCE over the sampler's labels, masked."""
+    from paddle_tpu_torch.core.tensor import unwrap
+    from paddle_tpu_torch.nn import functional as F
+    u = unwrap(user(users))
+    nodes = unwrap(node(out))
+    logits = (nodes * u.unsqueeze(1)).sum(-1)
+    m = mask.float()
+    return (unwrap(F.binary_cross_entropy_with_logits(
+        logits, labels.float(), reduction="none")) * m).sum() / m.sum()
+
+
+def tdm_retrieve(pt, info, first, node_w, user_w, uids):
+    """Beam search (beam TDM_BEAM) down the tree through ``tdm_child`` for
+    the users ``uids`` at once, scored on ``node_w``'s device in float64
+    (exact products of float32, so the card's and the CPU's orders agree):
+    the retrieved leaf ids [Q, TDM_BEAM]."""
+    from paddle_tpu_torch.core.tensor import unwrap
+    dev = node_w.device
+    u = user_w[torch.as_tensor(uids, device=dev)].double()
+    frontier = torch.as_tensor(first, device=dev)[None, :].expand(
+        len(uids), -1).contiguous()
+    while True:
+        child, leaf = (unwrap(v).reshape(len(uids), -1) for v in
+                       pt.ops.tdm_child(frontier, info, TDM_BRANCH))
+        valid = child != 0
+        scores = (node_w[child].double() * u[:, None, :]).sum(-1)
+        scores = torch.where(valid, scores, torch.full_like(scores,
+                                                            -math.inf))
+        top = scores.topk(min(TDM_BEAM, child.shape[1]), dim=1).indices
+        keep = child.gather(1, top)
+        if bool((leaf.gather(1, top).bool() | ~valid.gather(1, top)).all()):
+            return keep
+        frontier = keep
+
+
+def rest_tdm(pt, seed, failures):
+    """(a): TDM at UserBehavior's size."""
+    from paddle_tpu_torch.core.tensor import unwrap
+    from paddle_tpu_torch.distributed.fleet import TreeIndex
+    t0 = time.perf_counter()
+    tree = TreeIndex.from_items(np.arange(1, TDM_ITEMS + 1), TDM_BRANCH)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    travel = tree.travel_array(1)
+    layer_flat, offsets = tree.layer_array(1)
+    info = tree.tree_info_array()
+    arrays_s = time.perf_counter() - t0
+    n_emb = tree.emb_id_count()
+    log(f"  (a) TreeIndex over {TDM_ITEMS} items, branch {TDM_BRANCH}: "
+        f"height {tree.height}, {n_emb - 1} embedding ids; from_items "
+        f"{build_s:.3f} s, travel/layer/tree_info arrays {arrays_s:.3f} s")
+    tdm_subtree_check(tree, travel, info, failures)
+    counts = np.diff(offsets).tolist()
+    negs = [min(TDM_NEG, c - 1) for c in counts]
+    rng = np.random.RandomState(seed + 1800)
+    users = rng.randint(1, TDM_USERS + 1, (TDM_BATCHES, TDM_BATCH))
+    items = rng.randint(1, TDM_ITEMS + 1, (TDM_BATCHES, TDM_BATCH))
+    batches, sample_s = [], []
+    for i in range(TDM_BATCHES):
+        t0 = time.perf_counter()
+        got = pt.ops.tdm_sampler(torch.as_tensor(items[i][:, None],
+                                                 device=REST_DEVICE),
+                                 negs, counts, travel,
+                                 layer_flat, layer_offsets=offsets,
+                                 seed=seed + i)
+        out, labels, mask = (unwrap(v) for v in got)
+        rest_sync()
+        sample_s.append(time.perf_counter() - t0)
+        batches.append((torch.as_tensor(users[i], device=REST_DEVICE), out,
+                        labels, mask))
+    width = batches[0][1].shape[1]
+    _u, out, labels, _m = batches[0]
+    positives = out[labels.bool()].view(TDM_BATCH, -1).cpu().numpy()
+    rest_check(f"(a) tdm_sampler: {TDM_BATCH} x {width} ids a batch on the "
+               f"card, int64, every row's positives its item's travel path",
+               all(b[1].device.type == REST_DEVICE
+                   and b[1].dtype == torch.int64 for b in batches)
+               and np.array_equal(positives, travel[items[0]]),
+               failures, f"{np.mean(sample_s) * 1e3:.1f} ms a batch "
+               f"(negatives {negs[:3]}... up to {TDM_NEG})")
+    node, user, opt = tdm_model(pt, n_emb, REST_DEVICE)
+    table_bytes = sum(p.numel() * p.element_size()
+                      for p in (node.weight, user.weight))
+    # one step on the card and on the CPU from the same weights
+    cpu_node, cpu_user, cpu_opt = tdm_model(
+        pt, n_emb, "cpu", (node.weight.detach().cpu(),
+                           user.weight.detach().cpu()))
+    ub, out, labels, mask = batches[0]
+    rows_n = torch.unique(out)
+    rows_u = torch.unique(ub)
+    steps, card_grads = {}, None
+    for dev, (nd, us, op) in ((REST_DEVICE, (node, user, opt)),
+                              ("cpu", (cpu_node, cpu_user, cpu_opt))):
+        t0 = time.perf_counter()
+        loss = tdm_loss(pt, nd, us, ub.to(dev), out.to(dev),
+                        labels.to(dev), mask.to(dev))
+        loss.backward()
+        grads = [nd.weight.grad[rows_n.to(dev)].clone(),
+                 us.weight.grad[rows_u.to(dev)].clone()]
+        with torch.no_grad():
+            if card_grads is None:
+                card_grads = [p.grad.cpu() for p in (nd.weight, us.weight)]
+            else:  # the CPU steps from the card's gradient
+                for p, grad in zip((nd.weight, us.weight), card_grads):
+                    p.grad.copy_(grad)
+        op.step()
+        op.clear_grad()
+        steps[dev] = (float(loss.detach()), [
+            (g, p.detach()[r.to(dev)].clone()) for g, p, r in
+            zip(grads, (nd.weight, us.weight), (rows_n, rows_u))],
+            time.perf_counter() - t0)
+    del cpu_node, cpu_user, cpu_opt
+    loss_rel = abs(steps[REST_DEVICE][0] - steps["cpu"][0]) / abs(
+        steps["cpu"][0])
+    g_rel, p_rel = step_gap(steps[REST_DEVICE][1], steps["cpu"][1])
+    rest_check(f"(a) one step card vs CPU ({rows_n.numel()} node rows and "
+               f"{rows_u.numel()} user rows touched)",
+               max(loss_rel, g_rel, p_rel) <= REST_STEP_REL, failures,
+               f"loss rel {loss_rel:.3e}, touched rows' gradients rel "
+               f"{g_rel:.3e}, the rows after Adam from the card's gradient "
+               f"rel {p_rel:.3e} (tol {REST_STEP_REL:g}); CPU step "
+               f"{steps['cpu'][2]:.2f} s")
+    losses = [steps[REST_DEVICE][0]]
+    rest_sync()
+    t0 = time.perf_counter()
+    for step in range(1, TDM_STEPS):
+        ub, out, labels, mask = batches[step % TDM_BATCHES]
+        loss = tdm_loss(pt, node, user, ub, out, labels, mask)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    step_ms = (time.perf_counter() - t0) * 1e3 / (TDM_STEPS - 1)
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    rest_check(f"(a) {TDM_STEPS} steps over {TDM_BATCHES} batches: losses "
+               f"finite, the last 4's mean below the first 4's",
+               bool(np.isfinite(losses).all()) and last < first, failures,
+               f"{first:.4f} -> {last:.4f}")
+    uids = rng.randint(1, TDM_USERS + 1, TDM_QUERIES)
+    first_ids = tree.get_nodes(tree.get_children_codes(0))
+    with torch.no_grad():
+        tdm_retrieve(pt, info, first_ids, node.weight, user.weight, uids[:2])
+        rest_sync()
+        t0 = time.perf_counter()
+        got = tdm_retrieve(pt, info, first_ids, node.weight, user.weight,
+                           uids)
+        rest_sync()
+        retrieve_ms = (time.perf_counter() - t0) * 1e3
+        want = tdm_retrieve(pt, info, first_ids, node.weight.cpu(),
+                            user.weight.cpu(), uids)
+    leaf_ok = bool((info[got.cpu().numpy().ravel(), 0] != 0).all())
+    rest_check(f"(a) beam {TDM_BEAM} retrieval for {TDM_QUERIES} users: "
+               f"{TDM_BEAM} leaves each, the ids equal the CPU's",
+               torch.equal(got.cpu(), want) and leaf_ok
+               and tuple(got.shape) == (TDM_QUERIES, TDM_BEAM), failures,
+               f"{retrieve_ms:.1f} ms, {retrieve_ms / TDM_QUERIES:.2f} ms a "
+               f"user")
+    res = {"from_items_s": build_s, "arrays_s": arrays_s,
+           "height": tree.height, "emb_ids": n_emb - 1,
+           "sampler_ms_per_batch": float(np.mean(sample_s)) * 1e3,
+           "sample_width": width, "step_ms": step_ms,
+           "steps_per_s": 1e3 / step_ms, "loss_first4": first,
+           "loss_last4": last, "retrieve_ms": retrieve_ms,
+           "retrieve_ms_per_user": retrieve_ms / TDM_QUERIES,
+           "table_bytes": table_bytes, "adam_state_bytes": 2 * table_bytes,
+           "card_vs_cpu": {"loss_rel": loss_rel, "grad_rel": g_rel,
+                           "param_rel": p_rel}}
+    log(f"  (a) TDM: tree {build_s:.3f} s + arrays {arrays_s:.3f} s; "
+        f"sampler {res['sampler_ms_per_batch']:.1f} ms a batch of "
+        f"{TDM_BATCH} x {width}; device step {step_ms:.2f} ms "
+        f"({res['steps_per_s']:.1f} steps/s, the loss read each step); "
+        f"retrieval {res['retrieve_ms_per_user']:.2f} ms a user; tables "
+        f"{table_bytes / 1e9:.3f} GB (+ {2 * table_bytes / 1e9:.3f} GB of "
+        f"Adam moments); {card_line()}")
+    del node, user, opt, batches
+    return res
+
+
+def sage_graph(seed):
+    """Reddit-sized synthetic graph: features [N, F] with a planted class
+    centroid, labels [N], log-normal degrees around SAGE_DEGREE, their
+    offsets and uniform destinations (edges grouped by source)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, SAGE_CLASSES, SAGE_NODES)
+    centroids = rng.standard_normal((SAGE_CLASSES, SAGE_FEAT),
+                                    dtype=np.float32)
+    feats = rng.standard_normal((SAGE_NODES, SAGE_FEAT), dtype=np.float32)
+    feats += centroids[labels]
+    deg = np.exp(np.log(SAGE_DEGREE) - 0.5 + rng.standard_normal(SAGE_NODES))
+    deg = np.clip(np.rint(deg), 1, SAGE_NODES - 1).astype(np.int64)
+    offsets = np.concatenate([[0], np.cumsum(deg)])
+    dst = rng.integers(0, SAGE_NODES, offsets[-1], dtype=np.uint64)
+    return feats, labels, deg, offsets, dst
+
+
+class SageModel:
+    """Two GraphSAGE mean aggregators (concat of the self and neighbour
+    halves, no bias, ReLU after the first), the output L2-normalised and a
+    dense layer to the classes: the authors' supervised model."""
+
+    def __init__(self, pt, device, state=None):
+        pt.seed(5)
+        nn = pt.nn
+        D = SAGE_DIM
+        self.layers = nn.LayerList([
+            nn.Linear(SAGE_FEAT, D, bias_attr=False, device=device),
+            nn.Linear(SAGE_FEAT, D, bias_attr=False, device=device),
+            nn.Linear(2 * D, D, bias_attr=False, device=device),
+            nn.Linear(2 * D, D, bias_attr=False, device=device),
+            nn.Linear(2 * D, SAGE_CLASSES, device=device)])
+        if state is not None:
+            with torch.no_grad():
+                for p, v in zip(self.params(), state):
+                    p.copy_(v)
+        self.opt = pt.optimizer.Adam(parameters=self.params(),
+                                     learning_rate=SAGE_LR)
+
+    def params(self):
+        return list(self.layers.parameters())
+
+    def loss(self, x0, x1, x2, y):
+        s1, n1, s2, n2, pred = self.layers
+        B, k1, k2 = x0.shape[0], SAGE_FANOUT[0], SAGE_FANOUT[1]
+        h0 = torch.relu(torch.cat([s1(x0), n1(x1.view(B, k1, -1).mean(1))],
+                                  -1))
+        h1 = torch.relu(torch.cat([s1(x1), n1(x2.view(B * k1, k2, -1)
+                                               .mean(1))], -1))
+        out = torch.cat([s2(h0), n2(h1.view(B, k1, -1).mean(1))], -1)
+        out = out / out.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        return torch.nn.functional.cross_entropy(pred(out), y)
+
+
+def sage_batch(g, rng, labels, step):
+    """One batch: the nodes, their 2-hop samples, the unique ids' features
+    pulled once; returns the host arrays and the sample and pull seconds."""
+    batch = rng.choice(SAGE_NODES, SAGE_BATCH, replace=False).astype(
+        np.uint64)
+    t0 = time.perf_counter()
+    hops = g.sample_khop(batch, SAGE_FANOUT, seed=100 + step)
+    t1 = time.perf_counter()
+    ids = np.concatenate([batch, hops[0][0].ravel(), hops[1][0].ravel()])
+    uniq, inv = np.unique(ids, return_inverse=True)
+    feats = g.node_feat(uniq)
+    t2 = time.perf_counter()
+    return (feats, inv, labels[batch.astype(np.int64)], uniq.size,
+            t1 - t0, t2 - t1)
+
+
+def sage_inputs(feats, inv, y, device):
+    x = torch.from_numpy(feats).to(device).index_select(
+        0, torch.from_numpy(inv).to(device))
+    B, k1 = SAGE_BATCH, SAGE_FANOUT[0]
+    return (x[:B], x[B:B + B * k1], x[B + B * k1:],
+            torch.from_numpy(y).to(device))
+
+
+def rest_graphsage(pt, seed, failures):
+    """(b): GraphSAGE through the graph PS at Reddit's size."""
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.distributed.ps.graph import \
+        deterministic_sample_indices
+    t0 = time.perf_counter()
+    feats, labels, deg, offsets, dst = sage_graph(seed + 1810)
+    gen_s = time.perf_counter() - t0
+    srv = ps.PsServer([ps.TableConfig(7, "graph", SAGE_FEAT)], port=0)
+    cli = ps.PsClient([f"127.0.0.1:{srv.start()}"])
+    g = ps.GraphPsClient(cli, 7, SAGE_FEAT)
+    try:
+        t0 = time.perf_counter()
+        ids = np.arange(SAGE_NODES, dtype=np.uint64)
+        for a in range(0, SAGE_NODES, SAGE_NODE_CHUNK):
+            g.add_nodes(ids[a:a + SAGE_NODE_CHUNK],
+                        feats[a:a + SAGE_NODE_CHUNK])
+        nodes_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cuts = np.searchsorted(offsets, np.arange(
+            SAGE_EDGE_CHUNK, offsets[-1], SAGE_EDGE_CHUNK))
+        bounds = [0, *sorted(set(int(c) for c in cuts)), SAGE_NODES]
+        for a, b in zip(bounds, bounds[1:]):
+            if a < b:
+                g.add_edges(np.repeat(ids[a:b], deg[a:b]),
+                            dst[offsets[a]:offsets[b]])
+        edges_s = time.perf_counter() - t0
+        n_edges = int(offsets[-1])
+        budget = ("within" if nodes_s + edges_s <= SAGE_LOAD_BUDGET_S
+                  else "OVER")
+        rest_check(f"(b) graph loaded: {SAGE_NODES} nodes x {SAGE_FEAT} "
+                   f"features, {n_edges} edges (mean degree "
+                   f"{n_edges / SAGE_NODES:.1f})",
+                   g.node_count() == SAGE_NODES, failures,
+                   f"generated {gen_s:.1f} s; nodes {nodes_s:.1f} s, edges "
+                   f"{edges_s:.1f} s ({n_edges / edges_s / 1e6:.2f} M edges/s"
+                   f"; {budget} the {SAGE_LOAD_BUDGET_S:g} s budget)")
+        rng = np.random.RandomState(seed + 1811)
+        check = rng.choice(SAGE_NODES, SAGE_CHECK_NODES, replace=False)
+        nbrs, _w, cnt = g.sample_neighbors(check, SAGE_FANOUT[0], seed=77)
+        bad = 0
+        for i, v in enumerate(check):
+            idx = deterministic_sample_indices(77, int(v), int(deg[v]),
+                                               SAGE_FANOUT[0])
+            want = dst[offsets[v]:offsets[v + 1]][idx]
+            bad += int(cnt[i] != len(idx)
+                       or not np.array_equal(nbrs[i, :len(idx)], want))
+        rest_check(f"(b) the server's samples of {SAGE_CHECK_NODES} nodes "
+                   f"(k {SAGE_FANOUT[0]}) equal deterministic_sample_indices",
+                   bad == 0, failures, f"{bad} differ")
+        # one step on the card and on the CPU from the same weights
+        model = SageModel(pt, REST_DEVICE)
+        twin = SageModel(pt, "cpu", [p.detach().cpu()
+                                     for p in model.params()])
+        feats_b, inv, y, _n, _s, _p = sage_batch(g, rng, labels, 0)
+        steps, card_grads = {}, None
+        for dev, m in ((REST_DEVICE, model), ("cpu", twin)):
+            loss = m.loss(*sage_inputs(feats_b, inv, y, dev))
+            loss.backward()
+            grads = [p.grad.clone() for p in m.params()]
+            with torch.no_grad():
+                if card_grads is None:
+                    card_grads = [g.cpu() for g in grads]
+                else:  # the CPU steps from the card's gradient
+                    for p, grad in zip(m.params(), card_grads):
+                        p.grad.copy_(grad)
+            m.opt.step()
+            m.opt.clear_grad()
+            steps[dev] = (float(loss.detach()), [
+                (gr, p.detach().clone()) for gr, p in zip(grads,
+                                                          m.params())])
+        loss_rel = abs(steps[REST_DEVICE][0] - steps["cpu"][0]) / abs(
+            steps["cpu"][0])
+        g_rel, p_rel = step_gap(steps[REST_DEVICE][1], steps["cpu"][1])
+        rest_check("(b) one step card vs CPU", max(loss_rel, g_rel, p_rel)
+                   <= REST_STEP_REL, failures,
+                   f"loss rel {loss_rel:.3e}, gradients rel {g_rel:.3e}, "
+                   f"parameters after Adam from the card's gradient rel "
+                   f"{p_rel:.3e} (tol {REST_STEP_REL:g})")
+        del twin
+        losses, sample_s, pull_s, uniq = [steps[REST_DEVICE][0]], [], [], []
+        dev_ms = []
+
+        def steps_fn():
+            for step in range(1, SAGE_STEPS):
+                fb, inv_b, yb, n_u, s_s, p_s = sage_batch(g, rng, labels,
+                                                          step)
+                sample_s.append(s_s)
+                pull_s.append(p_s)
+                uniq.append(n_u)
+                t0 = time.perf_counter()
+                loss = model.loss(*sage_inputs(fb, inv_b, yb, REST_DEVICE))
+                loss.backward()
+                model.opt.step()
+                model.opt.clear_grad()
+                losses.append(float(loss.detach()))
+                dev_ms.append((time.perf_counter() - t0) * 1e3)
+
+        t0 = time.perf_counter()
+        prof = profile_step(steps_fn)
+        wall = time.perf_counter() - t0
+        idle = None if prof is None else 1 - prof[1] / prof[0]
+        first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+        rest_check(f"(b) {SAGE_STEPS} steps: losses finite, the last 3's "
+                   f"mean below the first 3's",
+                   bool(np.isfinite(losses).all()) and last < first,
+                   failures, f"{first:.4f} -> {last:.4f}")
+        rest_check("(b) the profiler saw the steps' device work",
+                   prof is not None, failures)
+        res = {"generate_s": gen_s, "load_nodes_s": nodes_s,
+               "load_edges_s": edges_s, "edges": n_edges,
+               "edges_per_s": n_edges / edges_s,
+               "sample_ms": float(np.mean(sample_s)) * 1e3,
+               "pull_ms": float(np.mean(pull_s)) * 1e3,
+               "unique_ids": float(np.mean(uniq)),
+               "pull_mb": float(np.mean(uniq)) * SAGE_FEAT * 4 / 1e6,
+               "device_step_ms": float(np.mean(dev_ms)),
+               "steps_s": wall, "idle": idle,
+               "nodes_per_s": SAGE_BATCH * (SAGE_STEPS - 1) / wall,
+               "loss_first3": first, "loss_last3": last,
+               "card_vs_cpu": {"loss_rel": loss_rel, "grad_rel": g_rel,
+                               "param_rel": p_rel}}
+        log(f"  (b) GraphSAGE: load {nodes_s + edges_s:.1f} s "
+            f"({res['edges_per_s'] / 1e6:.2f} M edges/s); a batch: sampling "
+            f"{res['sample_ms']:.1f} ms, feature pull {res['pull_ms']:.1f} "
+            f"ms ({res['unique_ids']:.0f} unique ids, {res['pull_mb']:.0f} "
+            f"MB), device step (host to device copy, gather, forward, "
+            f"backward, Adam) {res['device_step_ms']:.1f} ms; "
+            f"{SAGE_STEPS - 1} profiled steps {wall:.2f} s, idle share "
+            f"{idle if idle is None else round(idle, 4)}, "
+            f"{res['nodes_per_s']:.0f} nodes/s; {card_line()}")
+        del model
+        return res
+    finally:
+        ps_close(srv, cli)
+
+
+def heter_tower(pt, seed):
+    """bench_ctr's deep tower on the card with its SGD update, and the
+    handler that runs forward, backward and the update per request."""
+    from paddle_tpu_torch.nn import functional as F
+    pt.seed(seed)
+    dims = [CTR_SLOTS * CTR_DIM, *CTR_HIDDEN]
+    layers = pt.nn.LayerList([pt.nn.Linear(a, b, device=REST_DEVICE)
+                              for a, b in zip(dims, dims[1:])]
+                             + [pt.nn.Linear(dims[-1], 1, device=REST_DEVICE)])
+    opt = pt.optimizer.SGD(parameters=layers.parameters(),
+                           learning_rate=CTR_SGD_LR)
+    times = []
+
+    def handler(acts, labels):
+        t0 = time.perf_counter()
+        a = torch.from_numpy(acts).to(REST_DEVICE).requires_grad_()
+        h = a
+        for fc in layers[:-1]:
+            h = torch.relu(fc(h))
+        loss = F.binary_cross_entropy_with_logits(
+            layers[-1](h), torch.from_numpy(labels).to(REST_DEVICE))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        out = float(loss.detach()), a.grad.cpu().numpy()
+        times.append((t0, time.perf_counter()))
+        return out
+
+    return layers, handler, times
+
+
+def heter_worker(ps, cli, table_id, batches, exchange):
+    """The host worker's sparse stage over ``batches``; ``exchange(acts,
+    labels)`` reaches the tower. Returns the losses and per request the
+    (lookup, exchange, push) seconds and the exchange's start and end."""
+    from paddle_tpu_torch.distributed.ps.communicator import SyncCommunicator
+    from paddle_tpu_torch.distributed.ps.embedding import flush_sparse_grads
+    comm = SyncCommunicator(cli, n_workers=1)
+    emb = ps.SparseEmbedding([CTR_VOCAB, CTR_DIM], table_id=table_id,
+                             init_range=0.05, device="cpu")
+    emb.bind(comm)
+    losses, spans = [], []
+    for ids, label in batches:
+        t0 = time.perf_counter()
+        acts = emb(torch.from_numpy(ids)).reshape(CTR_BATCH,
+                                                  CTR_SLOTS * CTR_DIM)
+        t1 = time.perf_counter()
+        loss, dacts = exchange(acts.detach().numpy(), label)
+        t2 = time.perf_counter()
+        acts.backward(torch.from_numpy(dacts))
+        flush_sparse_grads(comm)
+        comm.step()
+        t3 = time.perf_counter()
+        losses.append(loss)
+        spans.append((t1 - t0, t2 - t1, t3 - t2, t1, t2))
+    comm.stop()
+    return losses, spans
+
+
+def rest_heter(pt, seed, failures):
+    """(c): the heterogeneous PS at bench_ctr's accelerator size."""
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.distributed.ps.embedding import reset_registry
+    from paddle_tpu_torch.models import ctr
+    batches = ctr.synthetic_ctr_batches(HETER_REQUESTS, batch_size=CTR_BATCH,
+                                        slots=CTR_SLOTS, vocab=CTR_VOCAB,
+                                        seed=PSCTR_SEED)
+    tables = [ps.TableConfig(t, "sparse", CTR_DIM, "sgd", lr=CTR_SGD_LR,
+                             init_range=0.05, seed=1000)
+              for t in (1000, 1001)]
+    srv, cli = ps_server(ps, tables)
+    reset_registry()
+    tower, handler, times = heter_tower(pt, seed + 1820)
+    twin, twin_handler, _ = heter_tower(pt, seed + 1820)
+    hsrv, port = ps.start_heter_server(handler)
+    client = ps.HeterClient(f"127.0.0.1:{port}")
+    try:
+        with deterministic_algorithms():
+            t0 = time.perf_counter()
+            losses, spans = heter_worker(ps, cli, 1000, batches,
+                                         client.send_and_recv)
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want, direct = heter_worker(ps, cli, 1001, batches, twin_handler)
+            direct_wall = time.perf_counter() - t0
+        keys = np.unique(np.concatenate([b[0].ravel() for b in batches]))
+        rows_same = np.array_equal(cli.pull_sparse(1000, keys),
+                                   cli.pull_sparse(1001, keys))
+        params_same = all(torch.equal(a, b) for a, b in
+                          zip(tower.parameters(), twin.parameters()))
+        rest_check(f"(c) {HETER_REQUESTS} requests through the heter "
+                   f"channel bitwise the tower called directly: losses, "
+                   f"dense parameters, the server's {keys.size} rows",
+                   losses == want and params_same and rows_same
+                   and bool(np.isfinite(losses).all()), failures,
+                   f"losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    finally:
+        client.stop_server()
+        client.close()
+        hsrv.stop()
+        ps_close(srv, cli)
+        reset_registry()
+    sp = np.asarray([s[:3] for s in spans]) * 1e3
+    out_ms = [(h0 - s[3]) * 1e3 for s, (h0, _h1) in zip(spans, times)]
+    back_ms = [(s[4] - h1) * 1e3 for s, (_h0, h1) in zip(spans, times)]
+    trainer_ms = [(h1 - h0) * 1e3 for h0, h1 in times]
+    res = {"requests_per_s": HETER_REQUESTS / wall,
+           "ms_per_request": wall * 1e3 / HETER_REQUESTS,
+           "sparse_lookup_ms": float(sp[:, 0].mean()),
+           "sparse_push_ms": float(sp[:, 2].mean()),
+           "wire_out_ms": float(np.mean(out_ms)),
+           "trainer_ms": float(np.mean(trainer_ms)),
+           "wire_back_ms": float(np.mean(back_ms)),
+           "direct_ms_per_request": direct_wall * 1e3 / HETER_REQUESTS,
+           "direct_tower_ms": float(np.mean([d[1] for d in direct])) * 1e3,
+           "frame_mb": CTR_BATCH * CTR_SLOTS * CTR_DIM * 4 / 1e6}
+    log(f"  (c) heter: {res['requests_per_s']:.2f} requests/s, "
+        f"{res['ms_per_request']:.1f} ms a request: sparse lookup "
+        f"{res['sparse_lookup_ms']:.1f} ms, wire to the trainer "
+        f"{res['wire_out_ms']:.1f} ms, trainer {res['trainer_ms']:.1f} ms, "
+        f"wire back {res['wire_back_ms']:.1f} ms, sparse backward and push "
+        f"{res['sparse_push_ms']:.1f} ms ({res['frame_mb']:.1f} MB of "
+        f"activations each way); the control calling the tower directly "
+        f"{res['direct_ms_per_request']:.1f} ms a request; {card_line()}")
+    return res
+
+
+def tail_cases(pt, gen):
+    """(name, fn, inputs, indices of the differentiated inputs) at the
+    sizes this phase checks."""
+    def f(*shape):
+        return seeded(gen, shape)
+
+    def i(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen)
+
+    ro = torch.zeros(4096, 7, dtype=torch.int32)
+    ro[:, 0] = i(0, 4, 4096).int()
+    ro[:, 1::2] = i(0, 4, 4096, 3).int()
+    ro[:, 2::2] = i(0, 4096, 4096, 3).int()
+    tokens = i(1, 5000, 256, 32)
+    tokens[:, 24:] = 0
+    edges = torch.zeros(16, 64, 2, dtype=torch.int32)
+    for b in range(16):
+        for n in range(int(i(8, 64, 1))):
+            edges[b, n] = torch.tensor([int(i(1, n + 2, 1)), n + 2])
+    return [
+        ("rank_attention", lambda x, r, p: pt.ops.rank_attention(
+            x, r, p, max_rank=3), [f(4096, 64), ro, f(64 * 9, 64)], [0, 2]),
+        ("search_pyramid_hash", lambda t, w: pt.ops.search_pyramid_hash(
+            t, w, num_emb=128, space_len=100_000, pyramid_layer=4,
+            rand_len=16, seed=3), [tokens, f(100_000, 16)], [1]),
+        ("tree_conv", lambda n, e, w: pt.ops.tree_conv(n, e, w, max_depth=3),
+         [f(16, 64, 64), edges, f(64, 3, 32, 4)], [0, 2]),
+        ("var_conv_2d", lambda x, r, c, w: pt.ops.var_conv_2d(
+            x, r, c, w, 8, 16), [f(32, 8, 64, 64), i(1, 65, 32),
+                                 i(1, 65, 32), f(16, 8, 3, 3)], [0, 3]),
+        ("bilateral_slice", lambda x, g, gr: pt.ops.bilateral_slice(
+            x, g, gr, True), [f(4, 3, 256, 256),
+                              seeded(gen, (4, 256, 256), 0.0, 1.0),
+                              f(4, 12, 8, 16, 16)], [0, 1, 2])]
+
+
+def rest_ctr_tail(pt, seed, failures):
+    """(d): the seven CTR tail ops with their gradients, card against
+    CPU."""
+    from paddle_tpu_torch.core.tensor import unwrap
+    gen = torch.Generator()
+    gen.manual_seed(seed + 1830)
+    res = {}
+    for name, fn, inputs, diff in tail_cases(pt, gen):
+        runs = {}
+        for dev in (REST_DEVICE, "cpu"):
+            xs = [x.to(dev).requires_grad_(k in diff)
+                  for k, x in enumerate(inputs)]
+            t0 = time.perf_counter()
+            out = unwrap(fn(*xs))
+            cot = seeded(torch.Generator().manual_seed(seed), out.shape).to(
+                dev)
+            grads = torch.autograd.grad((out * cot).sum(),
+                                        [xs[k] for k in diff])
+            if dev == REST_DEVICE:
+                rest_sync()
+            runs[dev] = ([out, *grads], (time.perf_counter() - t0) * 1e3)
+        rel = max(max_rel(a, b) for a, b in zip(runs[REST_DEVICE][0],
+                                                  runs["cpu"][0]))
+        rest_check(f"(d) {name} {list(inputs[0].shape)}: output and "
+                   f"{len(diff)} gradients card vs CPU", rel <= TAIL_REL,
+                   failures, f"max rel {rel:.3e} (tol {TAIL_REL:g}); card "
+                   f"{runs[REST_DEVICE][1]:.1f} ms with the host half, CPU "
+                   f"{runs['cpu'][1]:.1f} ms")
+        res[name] = {"max_rel": rel, "card_ms": runs[REST_DEVICE][1],
+                     "cpu_ms": runs["cpu"][1]}
+    x = seeded(gen, (4096, 64)).to(REST_DEVICE).requires_grad_()
+    out = unwrap(pt.ops.shuffle_batch(x))
+    cot = seeded(gen, (4096, 64)).to(REST_DEVICE)
+    (gx,) = torch.autograd.grad((out * cot).sum(), [x])
+    perm_ok = (torch.equal(out.detach().sort(0).values, x.detach().sort(
+        0).values) and torch.equal(gx.sort(0).values, cot.sort(0).values)
+        and not torch.equal(out.detach(), x.detach()))
+    rest_check("(d) shuffle_batch [4096, 64] on the card: the output's and "
+               "the gradient's rows a permutation of the input's and the "
+               "cotangent's", perm_ok, failures)
+    tags = torch.randint(0, 20, (4096, 4), generator=gen)
+    ins = seeded(gen, (4096, 64))
+    filt = torch.tensor([1, 5, 7])
+    card = [unwrap(v) for v in pt.ops.filter_by_instag(
+        ins.to(REST_DEVICE), tags.to(REST_DEVICE), filt.to(REST_DEVICE))]
+    cpu = [unwrap(v) for v in pt.ops.filter_by_instag(ins, tags, filt)]
+    rest_check(f"(d) filter_by_instag [4096, 64]: {cpu[0].shape[0]} rows "
+               f"kept, equal to the CPU's",
+               all(a.device.type == REST_DEVICE and torch.equal(a.cpu(), b)
+                   for a, b in zip(card, cpu)), failures)
+    return res
+
+
+def rest_sharded_cache(pt, seed, failures):
+    """(e): the cache sharded over a one-rank NCCL mesh axis at phase 16
+    (b)'s sizes against the unsharded cache: two fused passes (one CUDA
+    graph each) with SGD, and five eager lookup/apply steps with Adam."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import parallel_env, ps
+    if not dist.is_initialized():
+        parallel_env.init_parallel_env(device=REST_DEVICE)
+    mesh = parallel_env.make_mesh({"mp": 1})
+    tables = [ps.TableConfig(t, "sparse", HBM_DIM, "sgd", lr=HBM_LR,
+                             init_range=0.1, seed=1000)
+              for t in (1001, 1002, 1003, 1004)]
+    rng = np.random.RandomState(seed + 1840)
+    batches = [rng.randint(0, HBM_VOCAB, HBM_BATCH).astype(np.int64)
+               for _ in range(HBM_STEPS)]
+    all_ids = np.concatenate(batches)
+    srv, cli = ps_server(ps, tables)
+    res = {}
+    try:
+        def cache(t, opt, **kw):
+            return ps.HbmEmbeddingCache(cli, t, HBM_DIM, HBM_CAPACITY,
+                                        optimizer=opt, lr=HBM_LR,
+                                        device=REST_DEVICE, **kw)
+
+        plain, shard = cache(1001, "sgd"), cache(1002, "sgd", mesh=mesh,
+                                                 mesh_axis="mp")
+
+        def emb_loss(e):
+            return e.sum()
+
+        losses, ms = {}, {}
+        with deterministic_algorithms():
+            for name, c in (("plain", plain), ("sharded", shard)):
+                c.build_pass(all_ids)
+                first = c.run_fused_pass(batches, emb_loss)
+                rest_sync()
+                t0 = time.perf_counter()
+                second = c.run_fused_pass(batches, emb_loss)
+                ms[name] = (time.perf_counter() - t0) * 1e3 / HBM_STEPS
+                losses[name] = (first, second)
+        same = (all(np.array_equal(a, b) for a, b in
+                    zip(losses["plain"], losses["sharded"]))
+                and torch.equal(plain.table, shard.table))
+        plain.end_pass()
+        shard.end_pass()
+        keys = np.fromiter(plain._slots, np.uint64)
+        rows_same = np.array_equal(cli.pull_sparse(1001, keys),
+                                   cli.pull_sparse(1002, keys))
+        rest_check(f"(e) sharded over a one-rank NCCL axis: two fused passes "
+                   f"of {HBM_STEPS} x {HBM_BATCH} ids (SGD) bitwise the "
+                   f"unsharded cache: losses, table, the server's "
+                   f"{keys.size} rows after end_pass", same and rows_same
+                   and shard.table.shape[0] == HBM_CAPACITY, failures,
+                   f"{ms['plain']:.3f} ms a batch unsharded, "
+                   f"{ms['sharded']:.3f} ms sharded (masks and an "
+                   f"all-reduce a gather)")
+        del plain, shard
+        pa, sa = cache(1003, "adam"), cache(1004, "adam", mesh=mesh,
+                                            mesh_axis="mp")
+        adam_same = True
+        with deterministic_algorithms():
+            for ids in batches[:5]:
+                outs = []
+                for c in (pa, sa):
+                    out = c.lookup(torch.from_numpy(ids).to(REST_DEVICE))
+                    (out * out).sum().backward()
+                    c.apply_grads()
+                    outs.append(out.detach())
+                adam_same &= torch.equal(*outs)
+        adam_same &= all(torch.equal(getattr(pa, k), getattr(sa, k))
+                         for k in ("table", "m", "v", "t"))
+        rest_check("(e) five eager lookup/apply steps with Adam: the "
+                   "sharded cache bitwise the unsharded one (lookups, "
+                   "table, moments, steps)", adam_same, failures)
+        res = {"plain_ms_per_batch": ms["plain"],
+               "sharded_ms_per_batch": ms["sharded"],
+               "rows_written_back": int(keys.size)}
+        del pa, sa
+    finally:
+        ps_close(srv, cli)
+    return res
+
+
+def phase18(pt, fa, seed, failures):
+    """Phase 18: the rest of the parameter server. A part that raises is a
+    failure and the next one still runs. Returns each part's flash
+    launches."""
+    import traceback
+    log("phase 18: the rest of the parameter server: TDM retrieval at "
+        "UserBehavior's size, GraphSAGE through the graph PS at Reddit's, "
+        "the heterogeneous PS at bench_ctr's, the CTR tail ops card vs CPU, "
+        "the cache sharded over a mesh axis")
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    for key, part in (("tdm", lambda: rest_tdm(pt, seed, failures)),
+                      ("graphsage", lambda: rest_graphsage(pt, seed,
+                                                           failures)),
+                      ("heter", lambda: rest_heter(pt, seed, failures)),
+                      ("ctr_tail", lambda: rest_ctr_tail(pt, seed,
+                                                         failures)),
+                      ("sharded_cache", lambda: rest_sharded_cache(
+                          pt, seed, failures))):
+        t0 = time.perf_counter()
+        fa.reset_launch_counts()
+        try:
+            out[key] = part()
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            traceback.print_exc()
+            failures.append(f"phase 18 ({key}) raised {type(e).__name__}: "
+                            f"{e}")
+        counts = flash_launches(fa)
+        launches[f"ps_rest_{key}"] = counts
+        ok = not any(counts.values())
+        log(f"  -- {key}: flash launches {counts} (none expected) "
+            f"{'ok' if ok else 'FAIL'}; {time.perf_counter() - t0:.1f} s")
+        if not ok:
+            failures.append(f"phase 18 ({key}) launched flash kernels "
+                            f"{counts}")
+        free_cuda()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 18: {out['seconds']:.1f} s; {card_line()}")
+    log(json.dumps({"ps_rest": out}, default=str))
+    return launches
+
+
 def gpt_small_model(pt, seed):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
     pt.seed(seed)
@@ -7723,7 +8604,7 @@ def parse_phases(text):
     return phases | {1}
 
 
-LAST_PHASE = 17
+LAST_PHASE = 18
 TIMING_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "max_abs_err")
 
@@ -7895,6 +8776,11 @@ def main():
     nn_launches = {}
     if on(17, "the nn layer library"):
         nn_launches = phase17(pt, fa, args.seed, failures)
+
+    # ---- 18. the rest of the parameter server
+    rest_launches = {}
+    if on(18, "the rest of the parameter server"):
+        rest_launches = phase18(pt, fa, args.seed, failures)
     close_phase()
     log(json.dumps({"phase_seconds": seconds, "total_seconds":
                     time.perf_counter() - t_start, "card": card_line()}))
@@ -7933,7 +8819,9 @@ def main():
                 **{path: counts.get(name)
                    for path, counts in ps_launches.items()},
                 **{path: counts.get(name)
-                   for path, counts in nn_launches.items()}),
+                   for path, counts in nn_launches.items()},
+                **{path: counts.get(name)
+                   for path, counts in rest_launches.items()}),
             gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,

@@ -57,6 +57,7 @@
 #include <vector>
 
 #include <arpa/inet.h>
+#include <malloc.h>
 #include <netinet/in.h>
 #include <netinet/tcp.h>
 #include <sys/socket.h>
@@ -1049,10 +1050,14 @@ void handle_conn(PsServer* ps, int fd, size_t conn_idx) {
           const uint64_t* src = (const uint64_t*)payload;
           const uint64_t* dst = (const uint64_t*)(payload + n * 8);
           const float* w = (const float*)(payload + n * 16);
-          for (uint64_t i = 0; i < n; ++i) {
+          // edges often come grouped by source: one lookup and one
+          // exactly-sized append a run of equal sources
+          for (uint64_t i = 0, j; i < n; i = j) {
+            for (j = i + 1; j < n && src[j] == src[i]; ++j) {
+            }
             GraphNode& nd = t.node(src[i]);
-            nd.nbr.push_back(dst[i]);
-            nd.w.push_back(w[i]);
+            nd.nbr.insert(nd.nbr.end(), dst + i, dst + j);
+            nd.w.insert(nd.w.end(), w + i, w + j);
           }
           ok = 1;
         }
@@ -1325,6 +1330,11 @@ PT_API int32_t pt_ps_start(int32_t port) {
   if (!g_ps) g_ps = new PsServer();
   PsServer* ps = g_ps;
   if (ps->running.load()) return ps->port;
+  // The tables grow by many small allocations on the connection threads.
+  // Where mapping memory in is costly (a gVisor sandbox), growing a heap a
+  // few pages at a time dominated the load of a Reddit-sized graph; grow
+  // the heaps in 64 MB steps (tools/graph_load_probe.py measures both).
+  mallopt(M_TOP_PAD, 64 << 20);
   ps->listen_fd = socket(AF_INET, SOCK_STREAM, 0);
   if (ps->listen_fd < 0) return -1;
   int one = 1;

@@ -10,8 +10,11 @@ and a Communicator (sync / async / geo) that mirrors
 `communicator.h:197-497`. The dense forward and backward run in torch on
 the worker's device (the card unless the model was built on the CPU); only
 the parameter exchange rides host sockets. ``CachedSparseEmbedding`` serves
-a table from a device-resident cache (``hbm_cache``) with a prefetch and
-write-back pipeline (``async_cache``).
+a table from a device-resident cache (``hbm_cache``, row-sharded over a
+mesh axis's ranks when given one) with a prefetch and write-back pipeline
+(``async_cache``). ``graph`` is the client of the service's graph tables
+(``GraphPsClient``) and ``heter`` the heterogeneous channel between host
+workers and a trainer on the card (``HeterClient``, ``HeterServer``).
 
 Typical flow (mirrors reference fleet PS usage):
 
@@ -24,10 +27,6 @@ Typical flow (mirrors reference fleet PS usage):
         fleet.init_worker(model)
         ... loss.backward(); opt.step() [geo] ...; fleet.ps_step(opt)
         fleet.stop_worker()
-
-Not ported: ``heter.py`` (``HeterClient``, ``HeterServer``,
-``start_heter_server``) and ``graph.py`` (``GraphPsClient``; the native
-service already holds the graph tables).
 """
 from .client import PsClient
 from .communicator import (AsyncCommunicator, GeoCommunicator,
@@ -36,10 +35,12 @@ from .embedding import (SparseEmbedding, distributed_lookup_table,
                         flush_sparse_grads, reset_registry, sparse_tables)
 from .server import OPT_ADAM, OPT_SGD, OPT_SUM, PsServer, TableConfig
 from .trainer import DownpourTrainer, DownpourWorker  # noqa: F401
+from .heter import HeterClient, HeterServer, start_heter_server  # noqa: F401
 from .hbm_cache import (CachedSparseEmbedding, HbmEmbeddingCache,  # noqa: F401
                         PsTpuTrainer)
 from .async_cache import (CachePrefetcher, WindowPlan,  # noqa: F401
                           WriteBackQueue)
+from .graph import GraphPsClient  # noqa: F401
 
 
 def bind_model(model, communicator, bind_embeddings=True):

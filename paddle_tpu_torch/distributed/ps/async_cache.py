@@ -136,6 +136,12 @@ class CachePrefetcher:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self._single = not isinstance(caches, (list, tuple))
         self.caches = [caches] if self._single else list(caches)
+        if any(getattr(c, "sharded", False) for c in self.caches):
+            raise ValueError(
+                "a cache sharded over a mesh axis plans its windows on the "
+                "consumer thread (every rank must take the same slot "
+                "decisions in the same order): plan_window directly, or "
+                "train with prefetch=False")
         self.bucket = bucket
         self._in = queue.Queue()
         self._out = queue.Queue(maxsize=int(depth))

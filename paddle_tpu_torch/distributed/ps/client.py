@@ -23,6 +23,7 @@ from ...testing import faults as _faults
 from .retry import RetryPolicy
 
 MAGIC = 0x31535450  # b"PTS1": protocol magic/version (ps_service.cc kMagic)
+_JOIN_BYTES = 1 << 16  # payloads up to this size go out in one send
 TRACE_FLAG = 0x80  # op | 0x80: payload prefixed with u64 trace|u64 span
 
 OP_PULL_DENSE = 1
@@ -167,14 +168,16 @@ class PsClient:
         # RPC telemetry: per-op round-trips + payload bytes both ways
         # (the brpc-side latency/qps vars of the reference's PSClient)
         op_name = _OP_NAMES.get(op, str(op))
+        nbytes = sum(memoryview(p).nbytes for p in (
+            payload if isinstance(payload, (list, tuple)) else [payload]))
         t0 = _obs.now_ns()
         with _obs.trace_span(f"ps/{op_name}", cat="ps", table=table,
-                             server=server, bytes_out=len(payload)):
+                             server=server, bytes_out=nbytes):
             reply = self._call_impl(server, op, table, n, payload,
                                     idempotent, io_timeout)
         _obs.count("ps_client_calls")
         _obs.count(f"ps_client_{op_name}_calls")
-        _obs.count("ps_client_bytes_out", len(payload) + 21)  # hdr+frame
+        _obs.count("ps_client_bytes_out", nbytes + 21)  # hdr+frame
         _obs.count("ps_client_bytes_in", len(reply))
         _obs.count("ps_client_rtt_ns", _obs.now_ns() - t0)
         return reply
@@ -182,6 +185,11 @@ class PsClient:
     def _call_impl(self, server, op, table, n, payload=b"",
                    idempotent=False, io_timeout=None):
         op_name = _OP_NAMES.get(op, str(op))
+        # ``payload`` is bytes or a list of buffers sent back to back (a
+        # large one goes out without being joined into one copy)
+        parts = [memoryview(p).cast("B") for p in (
+            payload if isinstance(payload, (list, tuple)) else [payload])]
+        plen = sum(p.nbytes for p in parts)
 
         def build_msg():
             # trace propagation: with tracing on, each ATTEMPT's span
@@ -191,12 +199,15 @@ class PsClient:
             # the one (or deduped) server apply under one trace
             ctx = (_obs.trace_context() if _obs.enabled("ps") else None)
             if ctx is not None:
-                body = struct.pack("<IBIQ", MAGIC, op | TRACE_FLAG,
+                head = struct.pack("<IBIQ", MAGIC, op | TRACE_FLAG,
                                    table, n) + \
-                    struct.pack("<QQ", ctx[0], ctx[1]) + payload
+                    struct.pack("<QQ", ctx[0], ctx[1])
             else:
-                body = struct.pack("<IBIQ", MAGIC, op, table, n) + payload
-            return struct.pack("<I", len(body)) + body
+                head = struct.pack("<IBIQ", MAGIC, op, table, n)
+            head = struct.pack("<I", len(head) + plen) + head
+            if plen <= _JOIN_BYTES:
+                return [b"".join([head, *parts])]
+            return [head, *parts]
 
         # idempotent calls clamp socket I/O to the call deadline (a
         # connected-but-stalled server must not hold the caller past the
@@ -228,7 +239,8 @@ class PsClient:
                         s = self._sock(server)
                         try:
                             s.settimeout(io_timeout)
-                            s.sendall(msg)
+                            for part in msg:
+                                s.sendall(part)
                             hdr = self._recv_exact(s, 4)
                             (rlen,) = struct.unpack("<I", hdr)
                             return self._recv_exact(s, rlen) if rlen else b""
@@ -271,13 +283,16 @@ class PsClient:
 
     @staticmethod
     def _recv_exact(s, n):
-        buf = bytearray()
-        while len(buf) < n:
-            chunk = s.recv(n - len(buf))
-            if not chunk:
+        """``n`` bytes from ``s``, received in place into one buffer."""
+        buf = bytearray(n)
+        view = memoryview(buf)
+        got = 0
+        while got < n:
+            k = s.recv_into(view[got:], n - got)
+            if not k:
                 raise ConnectionError("ps server closed connection")
-            buf.extend(chunk)
-        return bytes(buf)
+            got += k
+        return buf
 
     # -- dense ------------------------------------------------------------
     def _dense_server(self, table):

@@ -52,8 +52,19 @@ Cache observability rides the global monitor registry (monitor.py):
 ``hbm_cache_writeback_rows``. Eviction has the reference's
 telemetry-driven adaptive watermark (``free_target`` / ``evict_ahead``).
 
-Not ported: ``mesh=``/``mesh_axis=`` row sharding over more than one rank
-(it raises by name).
+Row sharding (``mesh=``, ``mesh_axis=``): the reference places one global
+table on the devices of one process; here a mesh axis is ranks, each
+driving its own device. Every rank of the axis sees the same batches and
+runs the same planner, so the host index (slots, LRU order, free list) is
+the same on every rank. Rank ``r`` holds the ``capacity / n`` rows of its
+block ``[r * capacity / n, (r + 1) * capacity / n)`` of the slot space. A
+lookup gathers the rows it owns, zeroes the others and sums over the
+axis's group (exact: every other term is zero); each rank updates,
+installs, pulls, evicts and writes back only its own rows, so each row is
+pushed once. The losses are bitwise those of the unsharded cache. The
+planner must run in the same order on every rank: window plans are made
+on the consumer thread (a ``CachePrefetcher`` refuses a sharded cache),
+and the adaptive watermark is agreed over the group (its largest value).
 """
 import time
 from collections import OrderedDict
@@ -98,23 +109,24 @@ class _ScanLookup(torch.autograd.Function):
     leaf that requires grad, so the backward runs."""
 
     @staticmethod
-    def forward(ctx, anchor, table, delta, slots, inv):
-        ctx.delta = delta
+    def forward(ctx, anchor, cache, slots, inv):
+        ctx.cache = cache
         ctx.save_for_backward(slots, inv)
-        rows = table.index_select(0, slots)
+        rows = cache._gather(cache.table, slots)
         return rows.index_select(0, inv.reshape(-1)).reshape(
-            *inv.shape, table.shape[1])
+            *inv.shape, cache.dim)
 
     @staticmethod
     def backward(ctx, grad):
         slots, inv = ctx.saved_tensors
-        delta = ctx.delta
+        cache = ctx.cache
+        delta = cache.delta
         g = grad.reshape(-1, delta.shape[1]).to(delta.dtype)
         rows = torch.zeros((slots.shape[0], delta.shape[1]),
                            dtype=delta.dtype, device=delta.device)
         rows.index_add_(0, inv.reshape(-1), g)
-        delta.index_add_(0, slots, rows)
-        return None, None, None, None, None
+        cache._add(delta, slots, rows)
+        return None, None, None, None
 
 
 class HbmEmbeddingCache:
@@ -122,7 +134,9 @@ class HbmEmbeddingCache:
     card unless ``"cpu"``).
 
     ``capacity`` counts device rows; row 0 is reserved as the padding
-    scratch slot, so ``capacity - 1`` keys can be resident.
+    scratch slot, so ``capacity - 1`` keys can be resident. With ``mesh``
+    and ``mesh_axis`` the rows are sharded over the axis's ranks (the
+    module's docstring): each rank holds ``capacity / n`` of them.
     """
 
     def __init__(self, client, table_id, dim, capacity, optimizer="sgd",
@@ -131,10 +145,19 @@ class HbmEmbeddingCache:
                  pull_chunk=1 << 16, device=None):
         if capacity < 2:
             raise ValueError("capacity must be >= 2 (row 0 is scratch)")
-        if mesh is not None or mesh_axis is not None:
-            raise NotImplementedError(
-                "HbmEmbeddingCache(mesh=, mesh_axis=): row sharding of the "
-                "cache over a mesh axis above one rank is not ported")
+        self._sharded, self._group = False, None  # the mesh axis's group
+        self._lo, self._rows = 0, capacity
+        if mesh is not None and mesh_axis is not None:
+            from .. import parallel_env
+            group = parallel_env.axis_group(mesh, mesh_axis)
+            n = parallel_env.axis_degree(mesh, mesh_axis)
+            if capacity % n:
+                raise ValueError(
+                    f"capacity {capacity} must divide the mesh axis "
+                    f"{mesh_axis!r} ({n} devices)")
+            self._sharded, self._group = True, group
+            self._rows = capacity // n
+            self._lo = parallel_env.axis_rank(mesh, mesh_axis) * self._rows
         if optimizer not in ("sgd", "adam"):
             raise ValueError(f"unsupported cache optimizer {optimizer!r}")
         self.client = client
@@ -151,16 +174,17 @@ class HbmEmbeddingCache:
             return torch.zeros(shape, dtype=torch.float32,
                                device=self.device)
 
-        self._table = zeros(capacity, dim)
-        self.staged = zeros(capacity, dim)
+        rows = self._rows  # this rank's block (all of them unsharded)
+        self._table = zeros(rows, dim)
+        self.staged = zeros(rows, dim)
         if optimizer == "adam":
-            self.m = zeros(capacity, dim)
-            self.v = zeros(capacity, dim)
-            self.t = zeros(capacity)
+            self.m = zeros(rows, dim)
+            self.v = zeros(rows, dim)
+            self.t = zeros(rows)
         # the window delta store that scan_lookup's backward accumulates
         # into: made here, on the constructing thread and its stream, so
         # that no planner thread ever allocates or fills a device tensor
-        self.delta = zeros(capacity, dim)
+        self.delta = zeros(rows, dim)
         self._anchor = torch.zeros((), device=self.device,
                                    requires_grad=True)
         self._fused_progs = {}        # (fn, shapes) -> program
@@ -189,9 +213,95 @@ class HbmEmbeddingCache:
 
     @property
     def table(self):
-        """The device table, ``(capacity, dim)`` float32: one tensor for
-        the cache's life, updated in place (never rebound)."""
+        """The device table, ``(capacity, dim)`` float32 (this rank's
+        ``(capacity / n, dim)`` block when sharded): one tensor for the
+        cache's life, updated in place (never rebound)."""
         return self._table
+
+    @property
+    def sharded(self):
+        return self._sharded
+
+    # -- this rank's rows (all of them unsharded) -------------------------
+    def _owned(self, slots):
+        """Host slots: the mask of those this rank holds, and their
+        indices in its block."""
+        slots = np.asarray(slots, np.int64)
+        return ((slots >= self._lo) & (slots < self._lo + self._rows),
+                slots - self._lo)
+
+    def _local(self, sj):
+        """Device slots ``sj``: their indices in this rank's block (0 for
+        the others) and the mask of those it holds."""
+        own = (sj >= self._lo) & (sj < self._lo + self._rows)
+        return torch.where(own, sj - self._lo, torch.zeros_like(sj)), own
+
+    @staticmethod
+    def _lanes(mask, vals):
+        return mask.view(-1, *([1] * (vals.dim() - 1)))
+
+    def _gather(self, t, sj):
+        """Rows ``sj`` of ``t`` on every rank: sharded, each rank's own
+        rows with the others zeroed, summed over the axis's group."""
+        if not self.sharded:
+            return t.index_select(0, sj)
+        from .. import collective
+        loc, own = self._local(sj)
+        rows = t.index_select(0, loc)
+        rows = torch.where(self._lanes(own, rows), rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+        return collective.all_reduce(rows, group=self._group)
+
+    def _take(self, t, sj):
+        """Rows ``sj`` of ``t`` where this rank holds them (sharded, the
+        other lanes read an arbitrary row: only writes masked to this
+        rank's lanes may use them)."""
+        if not self.sharded:
+            return t.index_select(0, sj)
+        return t.index_select(0, self._local(sj)[0])
+
+    def _add(self, t, sj, vals):
+        """``t[sj] += vals`` for the rows this rank holds."""
+        if not self.sharded:
+            t.index_add_(0, sj, vals)
+            return
+        loc, own = self._local(sj)
+        t.index_add_(0, loc, torch.where(
+            self._lanes(own, vals), vals,
+            torch.zeros((), dtype=vals.dtype, device=vals.device)))
+
+    def _copy(self, t, sj, vals):
+        """``t[sj] = vals`` for the rows this rank holds. Sharded, the
+        other lanes repeat an owned lane's write (one target, one value,
+        so the duplicates cannot race); with no owned lane, every lane
+        writes row 0 of the block its own value. Static shapes, no host
+        read: legal under capture."""
+        if not self.sharded:
+            t.index_copy_(0, sj, vals)
+            return
+        if sj.numel() == 0:
+            return
+        loc, own = self._local(sj)
+        lane = torch.arange(sj.shape[0], device=sj.device)
+        donor = torch.where(own, lane, torch.full_like(lane, -1)).amax()
+        src = torch.where(own, lane, donor.clamp(min=0))
+        dst = loc.index_select(0, src)
+        out = torch.where(donor >= 0, vals.index_select(0, src),
+                          t.index_select(0, dst))
+        t.index_copy_(0, dst, out)
+
+    def _agree(self, n):
+        """The largest of the ranks' ``n`` (sharded; ``n`` itself
+        unsharded): decisions the planner takes from timings must be the
+        same on every rank."""
+        if not self.sharded:
+            return n
+        from .. import collective
+        v = torch.tensor([int(n)], dtype=torch.int64, device=self.device)
+        collective.all_reduce(v, op=collective.ReduceOp.MAX,
+                              group=self._group)
+        return int(v.item())
 
     # -- host -> device ---------------------------------------------------
     def _to_device(self, arr):
@@ -219,34 +329,60 @@ class HbmEmbeddingCache:
 
     # -- the device rules (ps_service.cc's server rules) ------------------
     def _install(self, slots_p, rows_p):
-        sj = self._slots_tensor(slots_p)
+        """Rows ``rows_p`` (host) into slots ``slots_p``, the ones this
+        rank holds."""
+        own, loc = self._owned(slots_p)
+        if not own.any():
+            return
+        if not own.all():
+            rows_p = rows_p[own]
+        sj = self._slots_tensor(loc[own])
         rj = self._to_device(rows_p)
         self.table.index_copy_(0, sj, rj)
         self.staged.index_copy_(0, sj, rj)
 
-    def _delta_rows(self, slots):
-        sj = self._slots_tensor(np.asarray(slots, np.int32))
-        return self._to_host(self.table.index_select(0, sj)
-                             - self.staged.index_select(0, sj))
+    def _write_back(self, slots, keys):
+        """Push ``trained - staged`` of the rows ``slots`` (keys ``keys``)
+        that this rank holds."""
+        own, loc = self._owned(slots)
+        if not own.any():
+            return
+        sj = self._slots_tensor(loc[own])
+        delta = self.table.index_select(0, sj) - self.staged.index_select(
+            0, sj)
+        self._push_delta(np.asarray(keys)[own], self._to_host(delta))
+
+    def _pull_rows(self, keys, slots, chunk=None):
+        """The server's rows of ``keys`` bound for ``slots``: pulled for
+        the slots this rank holds, zeros for the others."""
+        own, _ = self._owned(slots)
+        rows = np.zeros((keys.size, self.dim), np.float32)
+        want = keys[own]
+        if want.size:
+            step = chunk or want.size
+            rows[own] = np.concatenate(
+                [self.client.pull_sparse(self.table_id, want[i:i + step])
+                 for i in range(0, want.size, step)])
+        return rows
 
     def _update(self, sj, g):
         """The optimizer on rows ``sj`` (int64, on the device; padded lanes
         at scratch row 0, with zero gradient) with gradient ``g``."""
         if self.optimizer == "sgd":
-            self.table.index_add_(0, sj, g * -self.lr)
+            self._add(self.table, sj, g * -self.lr)
             return
         b1, b2 = self.beta1, self.beta2
-        self.t.index_add_(0, sj, torch.ones_like(sj, dtype=torch.float32))
-        ts = self.t.index_select(0, sj)[:, None]
+        self._add(self.t, sj, torch.ones_like(sj, dtype=torch.float32))
+        ts = self._take(self.t, sj)[:, None]
         c1, c2 = (_f32(np.float32(1) - np.float32(b)) for b in (b1, b2))
-        mn = self.m.index_select(0, sj) * b1 + g * c1
-        vn = self.v.index_select(0, sj) * b2 + g * c2 * g
-        self.m.index_copy_(0, sj, mn)
-        self.v.index_copy_(0, sj, vn)
+        mn = self._take(self.m, sj) * b1 + g * c1
+        vn = self._take(self.v, sj) * b2 + g * c2 * g
+        self._copy(self.m, sj, mn)
+        self._copy(self.v, sj, vn)
         bc1 = 1.0 - torch.pow(b1, ts)
         bc2 = 1.0 - torch.pow(b2, ts)
-        self.table.index_add_(
-            0, sj, (mn / bc1) * -self.lr / (torch.sqrt(vn / bc2) + self.eps))
+        self._add(self.table, sj,
+                  (mn / bc1) * -self.lr / (torch.sqrt(vn / bc2) + self.eps))
 
     # -- vectorized residency ---------------------------------------------
     @staticmethod
@@ -321,7 +457,7 @@ class HbmEmbeddingCache:
             self._flush_installs()  # prefetched rows become readable
             slots = self._ensure(uniq.astype(np.uint64))
             slots_p = _padded(slots)
-            rows_p = self.table.index_select(0, self._slots_tensor(slots_p))
+            rows_p = self._gather(self.table, self._slots_tensor(slots_p))
             slice_t = rows_p.detach().requires_grad_(grad)
             if grad:
                 self._pending.append((slots, slots_p, slice_t))
@@ -391,7 +527,7 @@ class HbmEmbeddingCache:
 
         def body(slots_k, inv_k, lab_k):
             with torch.enable_grad():
-                rows = self.table.index_select(0, slots_k).requires_grad_()
+                rows = self._gather(self.table, slots_k).requires_grad_()
                 e = rows.index_select(0, inv_k.reshape(-1)).reshape(
                     *shape, dim)
                 loss = emb_loss_fn(e, lab_k) if has_labels \
@@ -461,16 +597,17 @@ class HbmEmbeddingCache:
         with self._mu:
             self._flush_installs()
             dirty = np.nonzero(self._dirty)[0]
-            if dirty.size:
-                keys = self._key_of[dirty]
-                sj = self._slots_tensor(dirty.astype(np.int32))
+            own, loc = self._owned(dirty)
+            if own.any():
+                keys = self._key_of[dirty[own]]
+                sj = self._slots_tensor(loc[own])
                 base = self.staged.index_select(0, sj)
                 delta = self.table.index_select(0, sj) - base
                 self._push_delta(keys, self._to_host(delta))
                 self.table.index_copy_(0, sj, base + delta)
                 self.staged.copy_(self.table)  # re-baseline on device
-                self._dirty[:] = False
-            monitor.stat_add("hbm_cache_writeback_rows", int(dirty.size))
+            self._dirty[:] = False
+            monitor.stat_add("hbm_cache_writeback_rows", int(own.sum()))
         if flush and self.writeback is not None:
             self.writeback.flush()
         return int(dirty.size)
@@ -489,8 +626,8 @@ class HbmEmbeddingCache:
         inside a ``to_static(..., scan_steps=k)`` body. The gradient
         ``index_add_``\\ s into the delta store; call :meth:`drain_window`
         after the window."""
-        return _ScanLookup.apply(self._anchor, self.table, self.delta,
-                                 unwrap(slots).long(), unwrap(inv).long())
+        return _ScanLookup.apply(self._anchor, self, unwrap(slots).long(),
+                                 unwrap(inv).long())
 
     def plan_window(self, ids, bucket=None):
         """Host half of a scan window's lookups: dedupe the ``[k, ...]``
@@ -619,17 +756,14 @@ class HbmEmbeddingCache:
                     self.writeback.has_pending(self.table_id, miss_keys):
                 self.writeback.flush()
             tp = time.perf_counter()
-            rows_l = [self.client.pull_sparse(
-                          self.table_id, miss_keys[i:i + self.pull_chunk])
-                      for i in range(0, miss_keys.size, self.pull_chunk)]
+            rows = self._pull_rows(miss_keys, miss_slots, self.pull_chunk)
             pull_s = time.perf_counter() - tp
             pull_ms = pull_s * 1e3 / max(
                 1, -(-miss_keys.size // self.pull_chunk))
             self._pull_ms_ema = pull_ms if self._pull_ms_ema is None \
                 else 0.7 * self._pull_ms_ema + 0.3 * pull_ms
             with self._mu:
-                self._pending_install.append(
-                    (miss_slots, np.concatenate(rows_l)))
+                self._pending_install.append((miss_slots, rows))
         touched = np.unique(slots_a)
         touched = touched[touched != 0].astype(np.int32)
         inv_a = np.stack(inv_l).reshape((k,) + ids_np.shape[1:])
@@ -659,15 +793,15 @@ class HbmEmbeddingCache:
             self._flush_installs()
             if plan is not None:
                 touched = plan.touched_slots
-            else:
+            else:  # this rank's rows whose store is nonzero
                 nz = np.nonzero(self._to_host(
-                    (self.delta != 0.0).any(dim=1)))[0]
+                    (self.delta != 0.0).any(dim=1)))[0] + self._lo
                 touched = nz[nz != 0].astype(np.int32)
             n = int(touched.size)
             if n:
                 sj = self._slots_tensor(_padded(touched))
                 # padded lanes read scratch row 0, whose store is zero
-                self._update(sj, self.delta.index_select(0, sj))
+                self._update(sj, self._take(self.delta, sj))
                 self._dirty[touched] = True
                 self._dirty[0] = False  # scratch row never written back
             self.delta.zero_()
@@ -734,15 +868,18 @@ class HbmEmbeddingCache:
             # read-your-writes: the queued delta reaches the PS before
             # the re-pull (the sync path; plan_window pulls unlocked)
             self.writeback.flush()
+        # the slots the keys will take (the free list's end), so that a
+        # sharded rank pulls only the rows it holds
+        slots = np.asarray(self._free[len(self._free) - keys.size:][::-1],
+                           np.int32)
         t0 = time.perf_counter()
         # the sync fault-in path holds the cache lock across the pull by
         # design; plan_window is the unlocked path
-        rows = self.client.pull_sparse(self.table_id, keys)
+        rows = self._pull_rows(keys, slots)
         pull_ms = (time.perf_counter() - t0) * 1e3
         self._pull_ms_ema = pull_ms if self._pull_ms_ema is None else \
             0.7 * self._pull_ms_ema + 0.3 * pull_ms
-        slots = np.array([self._free.pop() for _ in range(keys.size)],
-                         np.int32)
+        del self._free[len(self._free) - keys.size:]
         for k, s in zip(keys.tolist(), slots.tolist()):
             self._slots[int(k)] = int(s)
             self._key_of[s] = k
@@ -801,7 +938,7 @@ class HbmEmbeddingCache:
                 self._pending_evict.append((dv, self._key_of[dv].copy()))
                 monitor.stat_add("hbm_cache_deferred_evict", int(dv.size))
             else:
-                self._push_delta(self._key_of[dv], self._delta_rows(dv))
+                self._write_back(dv, self._key_of[dv])
             self._dirty[dv] = False
         self._free.extend(int(s) for s in victims)
         monitor.stat_add("hbm_cache_evict", len(victims))
@@ -815,7 +952,7 @@ class HbmEmbeddingCache:
         with self._mu:
             if self._pending_evict:
                 for dv, keys in self._pending_evict:
-                    self._push_delta(keys, self._delta_rows(dv))
+                    self._write_back(dv, keys)
                 self._pending_evict = []
             if self._pending_copy:
                 # one fused move: every gather reads the rows before any
@@ -825,10 +962,10 @@ class HbmEmbeddingCache:
                 dst = np.concatenate([d for _s, d in self._pending_copy])
                 sj = self._slots_tensor(_padded(src))
                 dj = self._slots_tensor(_padded(dst))
-                rows, base = (self.table.index_select(0, sj),
-                              self.staged.index_select(0, sj))
-                self.table.index_copy_(0, dj, rows)
-                self.staged.index_copy_(0, dj, base)
+                rows, base = (self._gather(self.table, sj),
+                              self._gather(self.staged, sj))
+                self._copy(self.table, dj, rows)
+                self._copy(self.staged, dj, base)
                 for s in dst.tolist():
                     self._pending_install_slots.discard(int(s))
                 self._pending_copy = []
@@ -886,7 +1023,7 @@ class HbmEmbeddingCache:
         """Evict LRU rows down to :meth:`free_target` ahead of demand
         (best-effort). Returns the number of rows freed."""
         with self._mu:
-            need = self.free_target() - len(self._free)
+            need = self._agree(self.free_target()) - len(self._free)
             if need <= 0:
                 return 0
             return self._evict(need, set(), strict=False)

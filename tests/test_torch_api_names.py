@@ -77,8 +77,8 @@ PORTED_MODULES = {
     "paddle_tpu.distributed.launch", "paddle_tpu.distributed.pod",
     "paddle_tpu.distributed.fleet.elastic",
     "paddle_tpu.testing.virtual_pod",
-    # CTR and the parameter server (the heterogeneous service and the
-    # graph client wait in ROADMAP item 14)
+    # CTR and the parameter server, with the graph client, the
+    # heterogeneous channel, the TDM tree index and ops and the CTR op tail
     "paddle_tpu.distributed.ps", "paddle_tpu.distributed.ps.client",
     "paddle_tpu.distributed.ps.server", "paddle_tpu.distributed.ps.retry",
     "paddle_tpu.distributed.ps.communicator",
@@ -88,6 +88,9 @@ PORTED_MODULES = {
     "paddle_tpu.distributed.ps.trainer",
     "paddle_tpu.distributed.fleet.dataset",
     "paddle_tpu.distributed.fleet.base.role_maker", "paddle_tpu.models.ctr",
+    "paddle_tpu.distributed.ps.heter", "paddle_tpu.distributed.ps.graph",
+    "paddle_tpu.ops.ctr_tail", "paddle_tpu.ops.tdm",
+    "paddle_tpu.distributed.fleet.index_dataset",
     # the nn layer library: activations, the common layers, containers,
     # losses, the RNNs and beam search, the Transformer, the layer tail,
     # their functionals and initializers, the schedulers, and the LoD

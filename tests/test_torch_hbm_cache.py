@@ -1,7 +1,7 @@
 """The port's device-resident embedding cache against the reference's, on
-the CPU: every case of ``tests/test_hbm_cache.py`` but the 8-device mesh
-one (row sharding waits), each run through both packages' caches on the
-same ids, each cache against its own package's server.
+the CPU: every case of ``tests/test_hbm_cache.py``, each run through both
+packages' caches on the same ids, each cache against its own package's
+server.
 
 - The host index (slots, LRU order, free list, dirty rows, counters) is
   equal to the reference's exactly; device rows within ``RTOL`` (float32
@@ -14,27 +14,44 @@ same ids, each cache against its own package's server.
 - The fused pass (one ``to_static(body, scan_steps=K)`` program) against
   the eager lookup/apply path within ``RTOL``, and bitwise against the
   same body run eagerly batch by batch.
+- The cache row-sharded over a mesh axis of 2 and 4 gloo ranks (processes
+  that run this file as a script, with a ``file://`` rendezvous under the
+  test's temporary directory; each rank with its own server, as every
+  rank of the axis sees the same batches): its losses bitwise those of
+  the unsharded cache, and within ``LOSS_RTOL`` of the reference's cache
+  sharded over its 8-device mesh; ``capacity / n`` rows on each rank, and
+  after ``end_pass`` each row pushed once, by the rank that holds it.
 """
 import gc
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-import paddle_tpu as paddle
-from paddle_tpu import monitor as ref_monitor
-from paddle_tpu.distributed import ps as ref_ps
-from paddle_tpu.distributed.ps.communicator import \
-    SyncCommunicator as RefSync
-from paddle_tpu.distributed.ps.embedding import \
-    reset_registry as ref_reset
+if __name__ == "__main__":
+    # a rank of the sharded run (the end of this file) runs the port alone
+    paddle = None
+else:
+    import paddle_tpu as paddle
+    from paddle_tpu import monitor as ref_monitor
+    from paddle_tpu.distributed import ps as ref_ps
+    from paddle_tpu.distributed.ps.communicator import \
+        SyncCommunicator as RefSync
+    from paddle_tpu.distributed.ps.embedding import \
+        reset_registry as ref_reset
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import bridge, monitor
 from paddle_tpu_torch.distributed import ps
 from paddle_tpu_torch.distributed.ps.communicator import SyncCommunicator
 from paddle_tpu_torch.distributed.ps.embedding import (deterministic_init,
                                                        flush_sparse_grads,
-                                                       reset_registry)
+                                                       reset_registry,
+                                                       server_init_rows)
 from paddle_tpu_torch.nn import functional as F
 
 VOCAB, DIM = 50, 4
@@ -277,15 +294,20 @@ def _fc_init():
                       table_id=1000).fc.state_dict().items()}
 
 
-def _port_run(cached, steps, init):
+def _port_run(cached, steps, init, mesh=None, out=None):
+    """The port's CTR model, trained ``steps`` batches; ``mesh`` shards
+    the cache over its ``mp`` axis. ``out`` gets the cache's slots, its
+    table's row count and the server's rows of every key after
+    ``end_pass``."""
     reset_registry()
     srv = ps.PsServer(_ctr_tables(ps), port=0)
     cli = ps.PsClient([f"127.0.0.1:{srv.start()}"])
     try:
         if cached:
+            shard = {} if mesh is None else dict(mesh=mesh, mesh_axis="mp")
             model = _make_ctr(pt, ps.CachedSparseEmbedding, capacity=56,
                               optimizer="sgd", lr=0.1, table_id=1000,
-                              device="cpu")
+                              device="cpu", **shard)
         else:
             model = _make_ctr(pt, ps.SparseEmbedding, table_id=1000)
         bridge.load_reference_state(model.fc, init)
@@ -303,7 +325,13 @@ def _port_run(cached, steps, init):
             comm.step()
             losses.append(float(loss.detach()))
         if cached:
-            model.emb.cache.end_pass()
+            cache = model.emb.cache
+            cache.end_pass()
+            if out is not None:
+                out.update(slots=dict(cache._slots),
+                           table_rows=cache.table.shape[0],
+                           rows=cli.pull_sparse(1000, np.arange(
+                               VOCAB, dtype=np.uint64)))
         return np.asarray(losses)
     finally:
         cli.stop_servers()
@@ -311,14 +339,15 @@ def _port_run(cached, steps, init):
         srv.stop()
 
 
-def _ref_cached_run(steps, init):
+def _ref_cached_run(steps, init, mesh=None):
     from paddle_tpu.distributed.ps.embedding import flush_sparse_grads as fl
     ref_reset()
     srv = ref_ps.PsServer(_ctr_tables(ref_ps), port=0)
     cli = ref_ps.PsClient([f"127.0.0.1:{srv.start()}"])
     try:
+        shard = {} if mesh is None else dict(mesh=mesh, mesh_axis="mp")
         model = _make_ctr(paddle, ref_ps.CachedSparseEmbedding, capacity=56,
-                          optimizer="sgd", lr=0.1, table_id=1000)
+                          optimizer="sgd", lr=0.1, table_id=1000, **shard)
         model.fc.set_state_dict(init)
         comm = RefSync(cli, n_workers=1)
         ref_ps.bind_model(model, comm)
@@ -411,9 +440,103 @@ def test_fused_pass_requires_staging():
 
 
 def test_mesh_row_sharding_raises_by_name():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ps.HbmEmbeddingCache(None, 1000, DIM, 16, mesh=object(),
+    from paddle_tpu_torch.distributed.parallel_env import Mesh
+    with pytest.raises(ValueError, match="capacity 16 must divide the mesh "
+                       "axis 'mp' \\(3 devices\\)"):
+        ps.HbmEmbeddingCache(None, 1000, DIM, 16, mesh=Mesh({"mp": 3}),
                              mesh_axis="mp", device="cpu")
+    with pytest.raises(ValueError, match="no axis 'mp'"):
+        ps.HbmEmbeddingCache(None, 1000, DIM, 16, mesh=Mesh({"dp": 2}),
+                             mesh_axis="mp", device="cpu")
+
+
+# -- the cache row-sharded over a mesh axis of gloo ranks ---------------------
+
+SHARD_STEPS = 30
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _shard_rank(rank, world, workdir):
+    """One rank of the sharded run: the mesh, then ``_port_run`` with the
+    cache sharded over its ``mp`` axis."""
+    torch.set_num_threads(1)
+    from paddle_tpu_torch.distributed import parallel_env
+    parallel_env.init_parallel_env(
+        device="cpu", init_method=f"file://{workdir}/rendezvous_{world}",
+        world_size=world, rank=rank)
+    mesh = parallel_env.make_mesh({"mp": world})
+    init = dict(np.load(Path(workdir) / "init.npz"))
+    out = {}
+    out["losses"] = _port_run(True, SHARD_STEPS, init, mesh=mesh, out=out)
+    with open(Path(workdir) / f"shard_{world}_{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.barrier()
+    # drops the mesh's groups too, so gloo's threads are joined here and
+    # not at interpreter exit (F11)
+    parallel_env.destroy_parallel_env()
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory):
+    """Each world's ranks, one world after the other; {world: [rank
+    results]}."""
+    from paddle_tpu_torch import _native
+    _native.lib()  # built once here, not by every rank at once
+    workdir = tmp_path_factory.mktemp("hbm_shard")
+    np.savez(workdir / "init.npz", **_fc_init())
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               PYTHONFAULTHANDLER="1")
+    out = {}
+    for world in (2, 4):
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, str(rank), str(world), str(workdir)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for rank in range(world)]
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+        assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+        out[world] = []
+        for r in range(world):
+            with open(workdir / f"shard_{world}_{r}.pkl", "rb") as f:
+                out[world].append(pickle.load(f))
+    return out
+
+
+@pytest.fixture(scope="module")
+def unsharded_run():
+    from paddle_tpu import distributed as ref_dist
+    init = _fc_init()
+    out = {}
+    losses = _port_run(True, SHARD_STEPS, init, out=out)
+    ref = _ref_cached_run(SHARD_STEPS, init,
+                          mesh=ref_dist.make_mesh({"mp": 8}))
+    return losses, out, ref
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_row_sharded_cache_is_bitwise_the_unsharded_one(
+        world, sharded_runs, unsharded_run):
+    losses, control, ref = unsharded_run
+    ranks = sharded_runs[world]
+    per = 56 // world
+    for r, got in enumerate(ranks):
+        np.testing.assert_array_equal(got["losses"], losses)
+        assert got["table_rows"] == per
+        assert got["slots"] == control["slots"]  # one planner everywhere
+    np.testing.assert_allclose(ranks[0]["losses"], ref, rtol=LOSS_RTOL)
+    assert np.mean(losses[-5:]) < np.mean(losses[:5])
+    # each rank's server got the trained rows of its own slots and no
+    # other: each row pushed once, by the rank that holds it
+    fresh = ranks[0]["rows"].copy()
+    for key, slot in control["slots"].items():
+        owner = slot // per
+        np.testing.assert_array_equal(ranks[owner]["rows"][key],
+                                      control["rows"][key])
+        others = [ranks[r]["rows"][key] for r in range(world) if r != owner]
+        assert all(np.array_equal(o, others[0]) for o in others)
+        fresh[key] = others[0]
+    np.testing.assert_array_equal(
+        fresh, server_init_rows(1000, np.arange(VOCAB, dtype=np.uint64),
+                                DIM, 0.1))
 
 
 def _ref_two_passes(init, keys):
@@ -486,3 +609,7 @@ def test_two_passes_with_a_warm_cache():
                                ref_losses[0] + ref_losses[1],
                                rtol=LOSS_RTOL)
     np.testing.assert_allclose(rows, ref_rows, rtol=RTOL, atol=ATOL)
+
+
+if __name__ == "__main__":
+    _shard_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

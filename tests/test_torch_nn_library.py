@@ -842,3 +842,20 @@ def test_generic_rnn_over_a_cell_matches_reference(with_lengths,
     np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(outs[1][1], outs[0][1], rtol=GRAD_RTOL,
                                atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("form", ["functional", "layer"])
+def test_maxout_at_a_negative_axis_is_the_reference_at_its_axis(form):
+    """The port's ``axis=-1`` counts from the end (upstream Paddle's
+    meaning); the reference reshapes across the leading axes there
+    (ROADMAP queue 3, F12), so it is held to the reference's
+    ``axis=x.ndim - 1``."""
+    x = _f(np.random.RandomState(21), 2, 3, 3, 6)
+    if form == "functional":
+        want = RF.maxout(paddle.to_tensor(x), 2, axis=x.ndim - 1)
+        got = F.maxout(torch.from_numpy(x), 2, axis=-1)
+    else:
+        want = rnn.Maxout(2, axis=x.ndim - 1)(paddle.to_tensor(x))
+        got = tnn.Maxout(2, axis=-1)(torch.from_numpy(x))
+    assert tuple(got.shape) == (2, 3, 3, 3)
+    np.testing.assert_array_equal(_np(got), _np(want))
