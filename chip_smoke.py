@@ -330,7 +330,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the seven CTR tail ops with their gradients, card against CPU; (e)
    ``HbmEmbeddingCache`` sharded over a one-rank NCCL mesh axis at phase
    16 (b)'s sizes, bitwise the unsharded cache.
-19. One JSON line with each phase's seconds beside the card's name and
+19. The high-level training loop (``hapi``, ``io``, ``vision.transforms``,
+   ``metric``; no hand-written kernel on these paths: each flash kernel's
+   launches are counted and must be 0): (a) config 1, LeNet on the
+   synthetic MNIST (4096 images, batch 64, 2 epochs, Adam) through
+   ``Model(net).prepare(opt, CrossEntropyLoss(), Accuracy()).fit`` on two
+   forked workers over the shared-memory rings, the first steps' losses
+   against the same fit on the CPU, the accuracy above a floor, evaluate,
+   predict and a save/load round trip predicting bitwise; (b) ResNet-50 at
+   224, batch 64, float32, Momentum, fit by six workers running
+   ``RandomCrop``, ``RandomHorizontalFlip``, ``ToTensor`` and ``Normalize``
+   on seeded uint8 HWC images of 256-320 px, evaluated through ``Resize``
+   and ``CenterCrop``: images/s of the whole fit, the steady step, the
+   consumer's wait a batch and its share, the ring's MB/s, ``Resize`` ms an
+   image, the captured graphs; (c) VGG-16 and MobileNetV2 at 224, batch
+   64: fit steps, a predict, the first forward loss against the CPU; (d)
+   ResNet-50 after ``convert_sync_batchnorm`` under ``DataParallel`` with
+   ``Momentum`` under ZeRO-1 in the k-step program on a one-rank NCCL
+   group, bitwise plain BatchNorm with the replicated ``Momentum``, and
+   ``SyncBatchNorm``'s all-reduce path forced at one rank in a replayed
+   CUDA graph against BatchNorm; (e) the transposed convolutions and
+   ``max_pool2d_with_index``/``max_unpool2d`` after a ReLU (ties), card
+   against CPU with their gradients, the mask equal.
+20. One JSON line with each phase's seconds beside the card's name and
    power limit, one JSON line with every kernel of the paths, then the
    result line.
 
@@ -8495,6 +8517,588 @@ def phase18(pt, fa, seed, failures):
     return launches
 
 
+# ---- phase 19: the high-level training loop ----------------------------------
+#
+# Phase 19's sizes and tolerances, fixed before its first run.
+# (a) config 1 (BASELINE.md): LeNet on the synthetic MNIST (4096 images),
+# batch 64, 2 epochs, Adam 1e-3, through Model.fit on two ring workers; the
+# first HAPI_CPU_STEPS losses against the same fit on the CPU (the same
+# weights and order, cuDNN deterministic, TF32 off) within HAPI_LOSS_REL
+# each (float32 in another summation order; Adam moves a parameter by about
+# the rate whatever its gradient's size, so the gap can grow a little a
+# step); evaluate's accuracy at least HAPI_ACC_FLOOR (the synthetic bars
+# are separable); a save/load round trip predicts bitwise.
+# (b) ResNet-50 at 224, batch 64, float32 (hapi ignores amp_configs, as
+# the reference does), Momentum at PaddleClas's 0.1 scaled by 64 / 256
+# with L2Decay(1e-4), fed by
+# HAPI_WORKERS workers from seeded uint8 HWC images of IMG_SIDE_RANGE px:
+# RandomCrop(224), RandomHorizontalFlip, ToTensor, Normalize to train (the
+# batches copied to the card one ahead, prefetch_to_device) and
+# Resize(256), CenterCrop(224) to evaluate; losses finite. (a) also holds
+# an epoch with prefetch_to_device bitwise the plain copy's.
+# (c) VGG-16 and MobileNetV2 at 224, batch 64: HAPI_ZOO_STEPS fit steps and
+# a predict; the first step's forward loss on HAPI_ZOO_CPU_BATCH images
+# (train mode, dropout 0) against the CPU within ZOO_LOSS_REL.
+# (d) ResNet-50 (convert_sync_batchnorm, DataParallel) with Momentum under
+# ZeRO-1 in to_static(scan_steps=SYNC_K, dp_axis="dp") on a one-rank NCCL
+# group, two calls, bitwise against plain BatchNorm with the replicated
+# Momentum (at one rank SyncBatchNorm is BatchNorm, as torch's own is); and
+# SyncBatchNorm's collective path forced at one rank inside a replayed CUDA
+# graph against BatchNorm: output, gradients and running buffers within
+# SYNC_BN_REL (E[x^2] - E[x]^2 against cuDNN's variance, float32).
+# (e) the new ops on the card against the CPU, float32: output and every
+# gradient within NEW_OPS_REL (max |diff| / max |ref|), or, where the CPU's
+# own float32 result is farther than that from float64, the card's
+# distance from float64 within VISION_F64_FACTOR x the CPU's (phase 11's
+# rule: the first run failed one case at 1.575e-05 against 1e-05, a
+# transposed convolution whose weight gradient sums 200,704 products); the
+# max-pool mask equal.
+HAPI_DEVICE = "cuda"  # the card; the CPU twins are "cpu"
+HAPI_LENET_EPOCHS, HAPI_BATCH = 2, 64
+HAPI_CPU_STEPS = 5
+HAPI_LOSS_REL = 1e-3
+HAPI_ACC_FLOOR = 0.9
+HAPI_WORKERS = 6
+IMG_SIDE_RANGE = (256, 320)
+HAPI_RESNET_STEPS = 12
+HAPI_EVAL_IMAGES = 128
+HAPI_ZOO_STEPS = 3
+HAPI_ZOO_CPU_BATCH = 2
+ZOO_LOSS_REL = 1e-4
+SYNC_K = 2
+SYNC_BN_REL = 1e-4
+NEW_OPS_REL = 1e-5
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
+
+
+def step_clock():
+    """A hapi callback that keeps each training step's end time and
+    loss."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            self.ends, self.losses = [], []
+
+        def on_batch_end(self, mode, step, logs=None):
+            if mode == "train":
+                self.ends.append(time.perf_counter())
+                self.losses.append(logs["loss"])
+
+        def steady_ms(self, skip=2):
+            """The median step after the first ``skip`` (the capture)."""
+            gaps = np.diff(self.ends[skip:])
+            return float(np.median(gaps) * 1e3) if len(gaps) else None
+
+    return StepClock()
+
+
+class ImageSet:
+    """Seeded uint8 HWC images of decoded-ImageNet sizes (sides in
+    IMG_SIDE_RANGE), 1000 classes: views of one seeded pixel pool, made in
+    bulk; ``transform`` runs where the sample is read (a worker)."""
+
+    def __init__(self, n, seed, transform):
+        rng = np.random.RandomState(seed)
+        lo, hi = IMG_SIDE_RANGE
+        self.sides = rng.randint(lo, hi + 1, (n, 2))
+        self.pool = rng.randint(0, 256, (hi * hi * 3 * 4,), dtype=np.uint8)
+        self.offs = rng.randint(0, hi * hi * 3 * 3, n)
+        self.labels = rng.randint(0, 1000, n).astype(np.int64)
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.labels)
+
+    def image(self, i):
+        h, w = self.sides[i]
+        return self.pool[self.offs[i]:self.offs[i] + h * w * 3].reshape(
+            h, w, 3)
+
+    def __getitem__(self, i):
+        return self.transform(self.image(i)), self.labels[i]
+
+
+def hapi_lenet(pt, seed, failures, tmp):
+    """(a): config 1 through Model.fit on the ring workers."""
+    from paddle_tpu_torch import hapi, io, metric, nn, optimizer
+    from paddle_tpu_torch.vision import datasets
+    from paddle_tpu_torch.vision.models import LeNet
+    data = datasets.MNIST(mode="train")
+    pt.seed(seed + 1900)
+    net = LeNet(device=HAPI_DEVICE)
+    start = copy.deepcopy(net).to("cpu")
+
+    def model_of(network):
+        m = hapi.Model(network)
+        m.prepare(optimizer.Adam(learning_rate=1e-3,
+                                 parameters=network.parameters()),
+                  nn.CrossEntropyLoss(), metric.Accuracy())
+        return m
+
+    res = {}
+    with cudnn_mode(deterministic=True):
+        model = model_of(net)
+        clock = step_clock()
+        loader = io.DataLoader(data, batch_size=HAPI_BATCH, shuffle=True,
+                               num_workers=2, places=HAPI_DEVICE)
+        np.random.seed(seed + 1901)
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=HAPI_LENET_EPOCHS, verbose=0,
+                  callbacks=[clock])
+        fit_s = time.perf_counter() - t0
+        # the CPU twin: the same weights, the same draws (two workers draw
+        # the epoch's seed and then its order, as on the card)
+        cpu = model_of(start)
+        cpu_loader = io.DataLoader(data, batch_size=HAPI_BATCH, shuffle=True,
+                                   num_workers=2, places="cpu")
+        np.random.seed(seed + 1901)
+        cpu_losses = []
+        for x, y in cpu_loader:
+            cpu_losses.append(cpu.train_batch([x], [y])[0][0])
+            if len(cpu_losses) == HAPI_CPU_STEPS:
+                break
+        ev = model.evaluate(data, batch_size=HAPI_BATCH, verbose=0)
+        pred = model.predict(data, batch_size=256, stack_outputs=True)[0]
+        path = f"{tmp}/lenet"
+        model.save(path)
+        pt.seed(seed + 1902)
+        again = model_of(LeNet(device=HAPI_DEVICE))
+        again.load(path)
+        pred2 = again.predict(data, batch_size=256, stack_outputs=True)[0]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(
+        clock.losses[:HAPI_CPU_STEPS], cpu_losses)]
+    ok = max(gaps) <= HAPI_LOSS_REL
+    log(f"  (a) LeNet: {len(clock.losses)} steps in {fit_s:.3f} s "
+        f"({len(clock.losses) * HAPI_BATCH / fit_s:.1f} images/s, steady "
+        f"step {clock.steady_ms():.3f} ms); the first {HAPI_CPU_STEPS} losses "
+        f"{[round(v, 6) for v in clock.losses[:HAPI_CPU_STEPS]]} vs the CPU's "
+        f"{[round(v, 6) for v in cpu_losses]}: max rel {max(gaps):.3e} "
+        f"(tol {HAPI_LOSS_REL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 19 (a): LeNet's losses disagree with the CPU")
+    acc = ev.get("acc")
+    ok = acc is not None and acc >= HAPI_ACC_FLOOR and np.isfinite(
+        clock.losses).all() and clock.losses[-1] < clock.losses[0]
+    log(f"  (a) evaluate {ev} (accuracy floor {HAPI_ACC_FLOOR}); losses "
+        f"{clock.losses[0]:.4f} -> {clock.losses[-1]:.4f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 19 (a): LeNet did not learn ({ev})")
+    # prefetch_to_device: pinned copies one batch ahead on a side stream,
+    # the same batches as the plain copy
+    epochs = []
+    for ahead in (False, True):
+        np.random.seed(seed + 1903)
+        epochs.append(list(io.DataLoader(
+            data, batch_size=HAPI_BATCH, shuffle=True, num_workers=2,
+            places=HAPI_DEVICE, prefetch_to_device=ahead)))
+    ahead_ok = len(epochs[0]) == len(epochs[1]) == len(data) // HAPI_BATCH \
+        and all(b[0].is_cuda and torch.equal(a[0], b[0])
+                and torch.equal(a[1], b[1])
+                for a, b in zip(*epochs))
+    log(f"  (a) an epoch with prefetch_to_device (pinned, side stream, one "
+        f"batch ahead) equals the plain copy's: {ahead_ok} "
+        f"{'ok' if ahead_ok else 'FAIL'}")
+    if not ahead_ok:
+        failures.append("phase 19 (a): prefetch_to_device changed the "
+                        "batches")
+    same = pred.shape == (len(data), 10) and np.array_equal(pred, pred2)
+    log(f"  (a) predict {pred.shape}; save/load round trip predicts "
+        f"bitwise: {same} {'ok' if same else 'FAIL'}; captures "
+        f"{model.captures()}; ring {loader.last_stats}")
+    if not same:
+        failures.append("phase 19 (a): the loaded LeNet predicts otherwise")
+    res.update(fit_s=fit_s, steps=len(clock.losses),
+               steady_step_ms=clock.steady_ms(), eval=ev,
+               loss_gap=max(gaps), captures=model.captures())
+    return res
+
+
+def ring_report(label, loader, fit_s):
+    st = loader.last_stats or {}
+    n = max(st.get("batches", 0), 1)
+    wait_s = st.get("wait_ns", 0) / 1e9
+    mb_s = st.get("bytes", 0) / 1e6 / max(st.get("read_ns", 1) / 1e9, 1e-9)
+    log(f"  {label}: ring {st.get('batches')} batches, "
+        f"{st.get('bytes', 0) / 1e6:.1f} MB read at {mb_s:.1f} MB/s; the "
+        f"consumer waited {wait_s / n * 1e3:.3f} ms a batch, "
+        f"{wait_s / fit_s:.4f} of the fit's time")
+    return {"ring_mb_s": mb_s, "wait_ms_per_batch": wait_s / n * 1e3,
+            "wait_share": wait_s / fit_s, "ring": st}
+
+
+def hapi_resnet(pt, seed, failures, vision):
+    """(b): ResNet-50 through Model.fit at 224, fed by ring workers."""
+    import os
+    from paddle_tpu_torch import hapi, io, metric, nn, optimizer
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+    train_tf = T.Compose([T.RandomCrop(224), T.RandomHorizontalFlip(),
+                          T.ToTensor(), T.Normalize(IMAGENET_MEAN,
+                                                    IMAGENET_STD)])
+    eval_tf = T.Compose([T.Resize(256), T.CenterCrop(224), T.ToTensor(),
+                         T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    t0 = time.perf_counter()
+    train = ImageSet(HAPI_RESNET_STEPS * HAPI_BATCH, seed + 1910, train_tf)
+    evals = ImageSet(HAPI_EVAL_IMAGES, seed + 1911, eval_tf)
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(16):
+        T.Resize(256)(evals.image(i))
+    resize_ms = (time.perf_counter() - t0) / 16 * 1e3
+    pt.seed(seed + 1912)
+    net = resnet50(device=HAPI_DEVICE)
+    model = hapi.Model(net)
+    model.prepare(optimizer.Momentum(
+        learning_rate=0.1 * HAPI_BATCH / 256, momentum=0.9,
+        parameters=net.parameters(),
+        weight_decay=pt.L2Decay(1e-4)), nn.CrossEntropyLoss(),
+        metric.Accuracy(topk=(1, 5)), amp_configs={"level": "O1"})
+    clock = step_clock()
+    loader = io.DataLoader(train, batch_size=HAPI_BATCH, shuffle=True,
+                           num_workers=HAPI_WORKERS, places=HAPI_DEVICE,
+                           prefetch_to_device=True)
+    with cudnn_mode(deterministic=False):
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=1, verbose=0, callbacks=[clock])
+        fit_s = time.perf_counter() - t0
+        ev = model.evaluate(evals, batch_size=HAPI_BATCH, num_workers=2,
+                            verbose=0)
+    ok = np.isfinite(clock.losses).all() and np.isfinite(ev["loss"]).all()
+    steady = clock.steady_ms()
+    steady_rate = HAPI_BATCH / steady * 1e3
+    kstep = ((vision or {}).get("resnet50") or {}).get("kstep") or {}
+    log(f"  (b) ResNet-50: {HAPI_WORKERS} workers (os.cpu_count() "
+        f"{os.cpu_count()}); images made in {made:.2f} s; {len(clock.losses)} "
+        f"steps in {fit_s:.3f} s = {len(clock.losses) * HAPI_BATCH / fit_s:.1f}"
+        f" images/s of the whole fit (the workers' fork, the first batch and "
+        f"the first step's capture included); steady step {steady:.3f} ms = "
+        f"{steady_rate:.1f} images/s (float32) against phase 11's bf16 "
+        f"k-step {kstep.get('step_ms')} ms on the same shape; Resize(256) "
+        f"{resize_ms:.3f} ms an image; captures {model.captures()}; losses "
+        f"{[round(v, 4) for v in clock.losses]}; evaluate {ev} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("phase 19 (b): ResNet-50's losses are not finite")
+    ring = ring_report("(b) ResNet-50 fit", loader, fit_s)
+    return dict(ring, fit_s=fit_s, images_per_s=len(clock.losses) *
+                HAPI_BATCH / fit_s, steady_step_ms=steady,
+                steady_images_per_s=steady_rate,
+                phase11_kstep_ms=kstep.get("step_ms"), resize_ms=resize_ms,
+                captures=model.captures(), eval=ev, workers=HAPI_WORKERS,
+                cpu_count=os.cpu_count())
+
+
+def zoo_loss(net, x, y):
+    """The training forward's loss with every dropout at rate 0."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    net.train()
+    saved = {}
+    for m in net.modules():
+        if isinstance(m, nn.Dropout):
+            saved[m] = m.p
+            m.p = 0.0
+    with torch.no_grad():
+        loss = F.cross_entropy(net(x), y)
+    for m, p in saved.items():
+        m.p = p
+    return loss
+
+
+def hapi_zoo(pt, seed, failures):
+    """(c): VGG-16 and MobileNetV2 at 224 through fit and predict."""
+    from paddle_tpu_torch import hapi, io, nn, optimizer
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import mobilenet_v2, vgg16
+    tf = T.Compose([T.RandomCrop(224), T.RandomHorizontalFlip(),
+                    T.ToTensor(), T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    data = ImageSet(HAPI_ZOO_STEPS * HAPI_BATCH, seed + 1920, tf)
+    gen = torch.Generator().manual_seed(seed + 1921)
+    xs = torch.randn(HAPI_ZOO_CPU_BATCH, 3, 224, 224, generator=gen)
+    ys = torch.randint(0, 1000, (HAPI_ZOO_CPU_BATCH,), generator=gen)
+    out = {}
+    for name, build in (("vgg16", vgg16), ("mobilenet_v2", mobilenet_v2)):
+        pt.seed(seed + 1922)
+        net = build(device=HAPI_DEVICE)
+        with cudnn_mode(deterministic=True):
+            card = float(zoo_loss(net, xs.cuda(), ys.cuda()))
+        cpu = float(zoo_loss(copy.deepcopy(net).to("cpu"), xs, ys))
+        rel = abs(card - cpu) / abs(cpu)
+        model = hapi.Model(net)
+        model.prepare(optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                                         parameters=net.parameters()),
+                      nn.CrossEntropyLoss())
+        clock = step_clock()
+        loader = io.DataLoader(data, batch_size=HAPI_BATCH, shuffle=True,
+                               num_workers=HAPI_WORKERS, places=HAPI_DEVICE)
+        with cudnn_mode(deterministic=False):
+            t0 = time.perf_counter()
+            model.fit(loader, epochs=1, verbose=0, callbacks=[clock])
+            fit_s = time.perf_counter() - t0
+            pred = model.predict(io.Subset(data, range(HAPI_BATCH)),
+                                 batch_size=HAPI_BATCH,
+                                 stack_outputs=True)[0]
+        ok = (rel <= ZOO_LOSS_REL and np.isfinite(clock.losses).all()
+              and pred.shape == (HAPI_BATCH, 1000)
+              and np.isfinite(pred).all())
+        log(f"  (c) {name}: forward loss on {HAPI_ZOO_CPU_BATCH} images "
+            f"{card:.6f} vs the CPU's {cpu:.6f}: rel {rel:.3e} (tol "
+            f"{ZOO_LOSS_REL:g}); {len(clock.losses)} fit steps in "
+            f"{fit_s:.3f} s (losses {[round(v, 4) for v in clock.losses]}, "
+            f"steady {clock.steady_ms(1)} ms); predict {pred.shape}; "
+            f"captures {model.captures()} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 19 (c): {name} failed its checks")
+        out[name] = dict(ring_report(f"(c) {name} fit", loader, fit_s),
+                         cpu_rel=rel, fit_s=fit_s,
+                         steady_step_ms=clock.steady_ms(1),
+                         losses=clock.losses)
+        del model, net, loader
+        free_cuda()
+    return out
+
+
+def sync_arm(pt, start, x, y, sync, zero):
+    """Two calls of to_static(scan_steps=SYNC_K, dp_axis="dp") from
+    ``start``: (losses, the model)."""
+    from paddle_tpu_torch import DataParallel, jit, nn, optimizer
+    from paddle_tpu_torch.nn import functional as F
+    net = copy.deepcopy(start)
+    if sync:
+        net = nn.SyncBatchNorm.convert_sync_batchnorm(net)
+    model = DataParallel(net)
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=model.parameters(),
+                             weight_decay=pt.L2Decay(1e-4))
+    if zero:
+        opt._zero_enable(axis="dp", stage=1)
+
+    def one(xb, yb):
+        loss = F.cross_entropy(model(xb), yb)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    step = jit.to_static(one, scan_steps=SYNC_K, dp_axis="dp")
+    losses = [step(x[c], y[c]) for c in range(2)]
+    return torch.cat(losses), net
+
+
+def hapi_sync(pt, seed, failures):
+    """(d): SyncBatchNorm and Momentum under ZeRO-1 at degree 1."""
+    import torch.distributed as dist
+    from paddle_tpu_torch import jit, nn
+    from paddle_tpu_torch.distributed import collective, parallel_env
+    from paddle_tpu_torch.vision.models import resnet50
+    if not dist.is_initialized():
+        parallel_env.init_parallel_env(device=HAPI_DEVICE)
+    saved = parallel_env.current_mesh()
+    parallel_env.set_mesh(parallel_env.make_mesh({"dp": 1}))
+    out = {}
+    try:
+        pt.seed(seed + 1930)
+        start = resnet50(device=HAPI_DEVICE)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1931)
+        x = torch.rand(2, SYNC_K, HAPI_BATCH, 3, 224, 224, generator=gen,
+                       device="cuda")
+        y = torch.randint(0, 1000, (2, SYNC_K, HAPI_BATCH), generator=gen,
+                          device="cuda")
+        with cudnn_mode(deterministic=True):
+            want, plain = sync_arm(pt, start, x, y, sync=False, zero=False)
+            got, synced = sync_arm(pt, start, x, y, sync=True, zero=True)
+        n_sync = sum(isinstance(m, nn.SyncBatchNorm)
+                     for m in synced.modules())
+        same = torch.equal(want, got) and all(
+            torch.equal(a, b) for a, b in zip(plain.state_dict().values(),
+                                              synced.state_dict().values()))
+        log(f"  (d) ResNet-50 with {n_sync} SyncBatchNorm layers, Momentum "
+            f"under ZeRO-1, to_static(scan_steps={SYNC_K}, dp_axis='dp') on "
+            f"a one-rank NCCL group, two calls: losses "
+            f"{[round(v, 5) for v in got.tolist()]}; bitwise the plain "
+            f"BatchNorm and replicated Momentum (losses, parameters, running "
+            f"statistics): {same} {'ok' if same else 'FAIL'}")
+        if not same or n_sync != 53:
+            failures.append("phase 19 (d): SyncBatchNorm + ZeRO-1 differs "
+                            "from BatchNorm + replicated Momentum")
+        del start, plain, synced
+        free_cuda()
+        # the collective path itself, forced at one rank, in a CUDA graph
+        bn = nn.BatchNorm2D(256, device=HAPI_DEVICE)
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.uniform_(-0.5, 0.5, generator=gen)
+        sbn = nn.SyncBatchNorm.convert_sync_batchnorm(copy.deepcopy(bn))
+        sbn._force_sync = True
+        xs = torch.randn(2, HAPI_BATCH, 256, 56, 56, generator=gen,
+                         device="cuda")
+        cot = torch.randn(HAPI_BATCH, 256, 56, 56, generator=gen,
+                          device="cuda")
+
+        def fwd_bwd(layer):
+            def body(xb):
+                xb = xb.detach().requires_grad_(True)
+                y_ = layer(xb)
+                gx, gw, gb = torch.autograd.grad(
+                    (y_ * cot).sum(), [xb, layer.weight, layer.bias])
+                return y_.detach(), gx, gw, gb
+            return body
+        prog = jit.to_static(fwd_bwd(sbn))
+        prog(xs[0])  # the eager warm-up and the capture
+        collective.reset_counts()
+        got = prog(xs[1])  # replayed
+        replay_calls = collective.counts()
+        eager = fwd_bwd(bn)
+        eager(xs[0])
+        want = eager(xs[1])
+        rels = [max_rel(a, b) for a, b in zip(got, want)] + [
+            max_rel(sbn._mean, bn._mean), max_rel(sbn._variance,
+                                                  bn._variance)]
+        ok = max(rels) <= SYNC_BN_REL
+        log(f"  (d) SyncBatchNorm's all-reduce path in a replayed CUDA graph "
+            f"vs BatchNorm at [{HAPI_BATCH}, 256, 56, 56]: max rel (output, "
+            f"dx, dweight, dbias, mean, variance) "
+            f"{[f'{r:.2e}' for r in rels]} (tol {SYNC_BN_REL:g}) "
+            f"{'ok' if ok else 'FAIL'}; collectives issued by Python in the "
+            f"replayed call {replay_calls} (none: the graph holds them)")
+        if not ok:
+            failures.append("phase 19 (d): SyncBatchNorm's collective path "
+                            "disagrees with BatchNorm")
+        out.update(bitwise=same, sync_layers=n_sync, forced_rel=rels)
+    finally:
+        parallel_env.set_mesh(saved)
+    return out
+
+
+def new_op_cases(F, gen):
+    """(label, fn, inputs) of the transposed convolutions and the max-pool
+    indices at a decoder's shapes."""
+    relu = torch.relu(seeded(gen, (HAPI_BATCH, 64, 56, 56)))
+    return [
+        ("conv2d_transpose [64, 256, 28, 28] k4 s2 p1", lambda x, w, b:
+         F.conv2d_transpose(x, w, b, stride=2, padding=1),
+         [seeded(gen, (HAPI_BATCH, 256, 28, 28)),
+          seeded(gen, (256, 128, 4, 4), -0.05, 0.05),
+          seeded(gen, (128,))]),
+        ("conv2d_transpose uneven pads, groups 2, NHWC", lambda x, w, b:
+         F.conv2d_transpose(x, w, b, stride=2, padding=[1, 0, 2, 1],
+                            output_padding=1, groups=2, data_format="NHWC"),
+         [seeded(gen, (16, 28, 28, 64)),
+          seeded(gen, (64, 32, 3, 3), -0.1, 0.1), seeded(gen, (64,))]),
+        ("conv1d_transpose [64, 128, 256] k3 s2", lambda x, w, b:
+         F.conv1d_transpose(x, w, b, stride=2, padding=1, output_padding=1),
+         [seeded(gen, (HAPI_BATCH, 128, 256)),
+          seeded(gen, (128, 64, 3), -0.1, 0.1), seeded(gen, (64,))]),
+        ("conv3d_transpose [8, 32, 8, 16, 16] k3 s2", lambda x, w, b:
+         F.conv3d_transpose(x, w, b, stride=2, padding=1, output_padding=1),
+         [seeded(gen, (8, 32, 8, 16, 16)),
+          seeded(gen, (32, 16, 3, 3, 3), -0.1, 0.1), seeded(gen, (16,))]),
+        ("max_pool2d_with_index 3x3 s2 p1 ceil + max_unpool2d after ReLU",
+         lambda x: F.max_unpool2d(*F.max_pool2d_with_index(
+             x, 3, 2, 1, ceil_mode=True), 3, 2, 1, output_size=(56, 56)),
+         [relu]),
+    ]
+
+
+def hapi_new_ops(pt, seed, failures):
+    """(e): the transposed convolutions and the max-pool indices, card vs
+    CPU."""
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator().manual_seed(seed + 1940)
+    out = {}
+    with cudnn_mode(deterministic=True):
+        for label, fn, inputs in new_op_cases(F, gen):
+            cpu_in = [t.clone().requires_grad_(True) for t in inputs]
+            card_in = [t.cuda().requires_grad_(True) for t in inputs]
+            f64_in = [t.double().requires_grad_(True) for t in inputs]
+            probe = fn(*cpu_in)
+            cot = seeded(gen, tuple(probe.shape))
+            want = outputs_and_grads(fn, cpu_in, cot)
+            got = outputs_and_grads(fn, card_in, cot.cuda())
+            exact = outputs_and_grads(fn, f64_in, cot.double())
+            rels = [max_rel(a, b) for a, b in zip(got, want)]
+            card64 = [max_rel(a, b) for a, b in zip(got, exact)]
+            cpu64 = [max_rel(a, b) for a, b in zip(want, exact)]
+            ok = all(r <= NEW_OPS_REL or c <= VISION_F64_FACTOR * e
+                     for r, c, e in zip(rels, card64, cpu64))
+            rel = max(rels)
+            log(f"  (e) {label}: output and {len(want) - 1} gradients, card "
+                f"vs CPU max rel {[f'{r:.2e}' for r in rels]} (tol "
+                f"{NEW_OPS_REL:g}); from float64: card "
+                f"{[f'{r:.2e}' for r in card64]}, CPU float32 "
+                f"{[f'{r:.2e}' for r in cpu64]} (factor "
+                f"{VISION_F64_FACTOR:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"phase 19 (e): {label} disagrees with the "
+                                f"CPU ({rel:.3e})")
+            out[label] = rel
+        x = inputs[0].detach()
+        _, m_cpu = F.max_pool2d(x, 3, 2, 1, ceil_mode=True, return_mask=True)
+        _, m_card = F.max_pool2d(x.cuda(), 3, 2, 1, ceil_mode=True,
+                                 return_mask=True)
+        zero_windows = int((F.max_pool2d(x, 3, 2, 1, ceil_mode=True) == 0)
+                           .sum())
+        same = torch.equal(m_cpu, m_card.cpu())
+        log(f"  (e) max-pool mask card == CPU: {same} ({zero_windows} "
+            f"all-zero windows after the ReLU: ties) "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append("phase 19 (e): the max-pool mask differs")
+    return out
+
+
+def phase19(pt, fa, seed, failures, vision=None):
+    """Phase 19: the high-level training loop. A part that raises is a
+    failure and the next one still runs. Returns each part's flash
+    launches."""
+    import shutil
+    import tempfile
+    import traceback
+    log("phase 19: the high-level training loop: hapi.Model over io's "
+        "DataLoader on shared-memory workers with vision.transforms; LeNet "
+        "(config 1), ResNet-50, VGG-16, MobileNetV2; SyncBatchNorm and "
+        "Momentum under ZeRO-1; the transposed convolutions and max-pool "
+        "indices")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hapi_")
+    out, launches = {}, {}
+    try:
+        for key, part in (("lenet", lambda: hapi_lenet(pt, seed, failures,
+                                                       tmp)),
+                          ("resnet50", lambda: hapi_resnet(pt, seed, failures,
+                                                           vision)),
+                          ("zoo", lambda: hapi_zoo(pt, seed, failures)),
+                          ("sync_bn_zero", lambda: hapi_sync(pt, seed,
+                                                             failures)),
+                          ("new_ops", lambda: hapi_new_ops(pt, seed,
+                                                           failures))):
+            t0 = time.perf_counter()
+            fa.reset_launch_counts()
+            try:
+                out[key] = part()
+            except Exception as e:  # noqa: BLE001 -- reported as a failure
+                traceback.print_exc()
+                failures.append(f"phase 19 ({key}) raised "
+                                f"{type(e).__name__}: {e}")
+            counts = flash_launches(fa)
+            launches[f"hapi_{key}"] = counts
+            ok = not any(counts.values())
+            log(f"  -- {key}: flash launches {counts} (none expected) "
+                f"{'ok' if ok else 'FAIL'}; {time.perf_counter() - t0:.1f} s")
+            if not ok:
+                failures.append(f"phase 19 ({key}) launched flash kernels "
+                                f"{counts}")
+            free_cuda()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 19: {out['seconds']:.1f} s; {card_line()}")
+    log(json.dumps({"hapi": out}, default=str))
+    return launches
+
+
 def gpt_small_model(pt, seed):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
     pt.seed(seed)
@@ -8604,7 +9208,7 @@ def parse_phases(text):
     return phases | {1}
 
 
-LAST_PHASE = 18
+LAST_PHASE = 19
 TIMING_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "max_abs_err")
 
@@ -8781,6 +9385,10 @@ def main():
     rest_launches = {}
     if on(18, "the rest of the parameter server"):
         rest_launches = phase18(pt, fa, args.seed, failures)
+    # ---- 19. the high-level training loop
+    hapi_launches = {}
+    if on(19, "the high-level training loop"):
+        hapi_launches = phase19(pt, fa, args.seed, failures, vision)
     close_phase()
     log(json.dumps({"phase_seconds": seconds, "total_seconds":
                     time.perf_counter() - t_start, "card": card_line()}))
@@ -8821,7 +9429,9 @@ def main():
                 **{path: counts.get(name)
                    for path, counts in nn_launches.items()},
                 **{path: counts.get(name)
-                   for path, counts in rest_launches.items()}),
+                   for path, counts in rest_launches.items()},
+                **{path: counts.get(name)
+                   for path, counts in hapi_launches.items()}),
             gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,

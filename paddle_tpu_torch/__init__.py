@@ -30,7 +30,12 @@ LeNet, the ResNets) train with ``optimizer.Momentum`` and
 ``optimizer.lr.PiecewiseDecay`` through ``nn.Conv2D``, ``nn.BatchNorm2D``
 and the pooling layers (torch's convolutions, cuDNN on the card), eagerly
 or as the k-step program, and are served behind ``Engine.from_layer``.
-YOLOv3 detection (``vision.ops``) trains and serves. The reference's
+YOLOv3 detection (``vision.ops``) trains and serves. The high-level
+loop: ``Model(net).prepare(opt, loss, metrics).fit(dataset, num_workers=W)``
+(``hapi``, its train and eval steps CUDA graphs on the card) over ``io``'s
+``DataLoader``, whose forked workers run ``vision.transforms`` and send
+their batches through shared-memory rings; ``metric``; VGG and MobileNet;
+``nn.SyncBatchNorm`` with ``SGD``/``Momentum`` under ZeRO. The reference's
 imperative surface is here too: ``Tensor`` and ``Parameter``
 (``core.tensor``: how they meet torch, and where their names keep
 torch's meaning), ``to_tensor``, ``grad`` with ``create_graph``,
@@ -51,16 +56,17 @@ device-resident embedding cache with prefetched k-step windows;
 ``fleet.init(is_collective=False)``; ``models.WideAndDeep``).
 """
 from . import ops  # noqa: F401  (first: it sets the Tensor methods)
-from . import (amp, autograd, checkpoint, distributed, incubate,  # noqa: F401
-               inference, jit, linalg, monitor, nn, observability,
-               optimizer, parallel, profiler, recompute, regularizer,
-               serving, testing)
+from . import (amp, autograd, checkpoint, distributed, hapi,  # noqa: F401
+               incubate, inference, io, jit, linalg, metric, monitor, nn,
+               observability, optimizer, parallel, profiler, recompute,
+               regularizer, serving, testing)
 from .core.dispatch import call_op, call_op_nograd, unwrap  # noqa: F401
 from .core.autograd import enable_grad, grad, no_grad  # noqa: F401
 from .core.device import resolve_device
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
 from .distributed.parallel import DataParallel  # noqa: F401
+from .hapi import Model, flops, summary  # noqa: F401
 from .nn.layer.layers import ParamAttr  # noqa: F401
 from .core.dtype import bfloat16, convert_dtype, float32, int32  # noqa: F401
 from .core.random import (default_generator, get_rng_state,  # noqa: F401
@@ -88,8 +94,9 @@ __all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
            "enable_grad", "set_flags", "get_flags", "call_op",
            "call_op_nograd", "unwrap", "float32", "bfloat16",
            "int32", "L1Decay", "L2Decay", "save", "load", "amp", "autograd",
-           "checkpoint", "distributed", "incubate", "inference", "jit",
-           "linalg", "models", "monitor", "nn", "observability", "ops",
+           "checkpoint", "distributed", "hapi", "incubate", "inference",
+           "io", "jit", "linalg", "metric", "models", "monitor", "nn",
+           "observability", "ops", "Model", "summary", "flops",
            "optimizer", "parallel", "profiler", "recompute", "regularizer",
            "serving", "testing",
            "vision"] + ops.__all__

@@ -1,21 +1,26 @@
-"""The native parameter-server service, bound through ctypes (counterpart:
-``paddle_tpu/_native/__init__.py``, the ``pt_ps_*`` half).
+"""The native parameter-server service and the DataLoader's shared-memory
+ring, bound through ctypes (counterpart: ``paddle_tpu/_native/__init__.py``,
+the ``pt_ps_*`` and ``pt_ring_*`` halves).
 
 ``src/ps_service.cc`` is a copy of the JAX package's service: the same
 tables, server-side rules and wire format. Its one outside symbol,
 ``pt_prof_now_ns``, comes from ``src/pt_clock.cc`` (``CLOCK_MONOTONIC``
-nanoseconds, the base of ``profiler._now_ns()``). :func:`lib` builds both
-with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` at first use into
+nanoseconds, the base of ``profiler._now_ns()``). ``src/pt_ring.cc`` is a
+copy of the ring section of the JAX package's runtime: a length-prefixed
+byte ring in POSIX shared memory under a process-shared robust mutex and
+two condition variables (``io.shm_worker``'s transport). :func:`lib` builds
+the three with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` at first use
+into
 ``build/libpaddle_tpu_torch_ps-<hash>.so`` (the hash covers the sources
 and the command, so an edited source rebuilds and a stale library is never
 loaded) and loads it with ``RTLD_LOCAL``: this library and the JAX
-package's, in one process, each resolve their own ``pt_ps_*`` and
-``pt_prof_now_ns`` and each hold their own server. Importing the package
+package's, in one process, each resolve their own ``pt_ps_*``,
+``pt_ring_*`` and ``pt_prof_now_ns`` and each hold their own server. Importing the package
 builds nothing.
 
 There is no fallback: a failed build raises :class:`NativeBuildError`
-with the compiler's output, and everything that needs the service raises
-with it.
+with the compiler's output, and everything that needs the service or the
+ring raises with it.
 """
 import ctypes
 import hashlib
@@ -25,8 +30,8 @@ import tempfile
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRCS = [os.path.join(_HERE, "src", "ps_service.cc"),
-         os.path.join(_HERE, "src", "pt_clock.cc")]
+_SRCS = [os.path.join(_HERE, "src", name)
+         for name in ("ps_service.cc", "pt_clock.cc", "pt_ring.cc")]
 BUILD_DIR = os.path.join(_HERE, "build")
 _CMD = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
         "-fvisibility=hidden", "-Wl,-Bsymbolic"]
@@ -37,8 +42,8 @@ build_seconds = None  # wall time of this process's build, None if cached
 
 
 class NativeBuildError(RuntimeError):
-    """The PS service did not build or load; the message holds the
-    compiler's output."""
+    """The native library (the PS service and the ring) did not build or
+    load; the message holds the compiler's output."""
 
 
 def _digest():
@@ -69,10 +74,10 @@ def _build(path):
                                capture_output=True, text=True)
         except OSError as e:
             raise NativeBuildError(
-                f"cannot run g++ to build the PS service: {e}") from e
+                f"cannot run g++ to build the native library: {e}") from e
         if r.returncode != 0:
             raise NativeBuildError(
-                f"g++ failed (exit {r.returncode}) building the PS service "
+                f"g++ failed (exit {r.returncode}) building the native library "
                 f"from {_SRCS}:\n{r.stdout}{r.stderr}")
         os.chmod(tmp, 0o755)
         os.replace(tmp, path)
@@ -87,7 +92,7 @@ _SIGS = None
 
 def _bind(lib):
     c = ctypes
-    I, CP = c.c_int, c.c_char_p
+    I, CP, VP, LL = c.c_int, c.c_char_p, c.c_void_p, c.c_longlong
     sigs = {
         "pt_prof_now_ns": (c.c_longlong, []),
         "pt_ps_reset": (None, []),
@@ -105,6 +110,14 @@ def _bind(lib):
         "pt_ps_dup_requests": (c.c_longlong, []),
         "pt_ps_stats_json": (I, [CP, I]),
         "pt_ps_trace_json": (I, [CP, I, I]),
+        "pt_ring_create": (VP, [CP, LL]),
+        "pt_ring_open": (VP, [CP]),
+        "pt_ring_write": (I, [VP, VP, LL, I]),
+        "pt_ring_next_len": (LL, [VP, I]),
+        "pt_ring_read": (LL, [VP, VP, LL]),
+        "pt_ring_close_producer": (None, [VP]),
+        "pt_ring_free": (None, [VP, I]),
+        "pt_ring_used": (LL, [VP]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -126,7 +139,7 @@ def lib():
                 handle = ctypes.CDLL(path, mode=os.RTLD_LOCAL)
             except OSError as e:
                 raise NativeBuildError(
-                    f"cannot load the PS service {path}: {e}") from e
+                    f"cannot load the native library {path}: {e}") from e
             _lib = _bind(handle)
         return _lib
 

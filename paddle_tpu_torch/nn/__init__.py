@@ -1,6 +1,5 @@
 """Layers and functionals (counterpart: ``paddle_tpu/nn``). Not ported:
-``SyncBatchNorm``, the transposed convolutions and ``nn/control_flow.py``
-(ROADMAP items 19 and 17)."""
+``nn/control_flow.py`` (ROADMAP item 17)."""
 from . import functional, initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
@@ -15,7 +14,8 @@ from .layer.common import (Bilinear, CosineSimilarity, Dropout,  # noqa: F401
                            Pad1D, Pad2D, PixelShuffle, Upsample)
 from .layer.container import (LayerDict, LayerList,  # noqa: F401
                               ParameterList, Sequential)
-from .layer.conv import Conv1D, Conv2D, Conv3D  # noqa: F401
+from .layer.conv import (Conv1D, Conv1DTranspose, Conv2D,  # noqa: F401
+                         Conv2DTranspose, Conv3D)
 from .layer.extras import (RNN, AlphaDropout, BiRNN, CosineEmbeddingLoss,  # noqa: F401
                            CTCLoss, SpectralNorm, TripletMarginLoss, Unfold,
                            UpsamplingBilinear2D, UpsamplingNearest2D)
@@ -26,7 +26,7 @@ from .layer.loss import (BCELoss, BCEWithLogitsLoss,  # noqa: F401
 from .layer.norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
                          BatchNorm3D, GroupNorm, InstanceNorm1D,
                          InstanceNorm2D, InstanceNorm3D, LayerNorm,
-                         LocalResponseNorm, RMSNorm)
+                         LocalResponseNorm, RMSNorm, SyncBatchNorm)
 from .layer.pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
                             AdaptiveMaxPool2D, AvgPool1D, AvgPool2D,
                             AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
@@ -41,7 +41,8 @@ from .layer.transformer import (MultiHeadAttention,  # noqa: F401
 __all__ = [
     "Layer", "ParamAttr", "Linear", "Embedding", "Dropout", "Dropout2D",
     "Flatten", "Identity", "Upsample", "Pad1D", "Pad2D", "CosineSimilarity",
-    "Bilinear", "PixelShuffle", "Conv1D", "Conv2D", "Conv3D", "BatchNorm",
+    "Bilinear", "PixelShuffle", "Conv1D", "Conv2D", "Conv3D",
+    "Conv1DTranspose", "Conv2DTranspose", "SyncBatchNorm", "BatchNorm",
     "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "LayerNorm", "RMSNorm",
     "GroupNorm", "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D",
     "LocalResponseNorm", "MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D",

@@ -1,4 +1,5 @@
-"""conv1d, conv2d, conv3d (counterpart: ``paddle_tpu/nn/functional/conv.py``).
+"""conv1d, conv2d, conv3d and the transposed convolutions (counterpart:
+``paddle_tpu/nn/functional/conv.py``).
 
 The reference lowers each convolution to one XLA ``conv_general_dilated``,
 not to a Pallas kernel; the port calls ``torch.nn.functional.conv{1,2,3}d``
@@ -9,8 +10,19 @@ one int per spatial dim, a (before, after) pair per dim written flat
 call cannot express (uneven, or ``"SAME"`` at a stride) is applied with
 ``F.pad`` first. The channels-last formats (``NLC``, ``NHWC``, ``NDHWC``)
 run channels-first between two permutes. Under ``auto_cast`` the ops are
-allow-listed (``conv1d``, ``conv2d``, ``conv3d``); the output keeps the
-input's dtype. The transposed convolutions are not ported.
+allow-listed (``conv1d``, ``conv2d``, ``conv3d`` and the transposed
+three); the output keeps the input's dtype.
+
+``conv{1,2,3}d_transpose`` take weights ``[in, out/groups, *k]`` (torch's
+``conv_transpose`` layout too) and compute the reference's fractionally
+strided convolution: the input dilated by the stride, the kernel flipped,
+and per spatial dim the pads ``(k_eff - 1 - p0, k_eff - 1 - p1 +
+output_padding)`` with ``k_eff = (k - 1) * dilation + 1``. So padding may
+be uneven (``[p0, p1]`` a dim) and ``output_padding`` any size, where
+torch's call pads symmetrically and wants ``output_padding`` below the
+stride or the dilation: such a case runs torch's call unpadded and crops
+(or zero-extends) the result to the reference's size before the bias.
+String padding raises, as in the reference.
 """
 import torch
 
@@ -100,3 +112,63 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCDHW"):
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,
                     data_format)
+
+
+def _transpose_pads(padding, nd):
+    if isinstance(padding, str):
+        raise NotImplementedError(
+            "string padding for conv_transpose not supported")
+    return spatial_pads(padding, (0,) * nd, (1,) * nd, (1,) * nd)
+
+
+def _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                       dilation, groups, nd, data_format):
+    x, weight, bias = cast_inputs(f"conv{nd}d_transpose", x, weight, bias)
+    last = data_format not in _CHANNELS_FIRST[nd]
+    if last:
+        x = x.movedim(-1, 1)
+    stride, dilation = _ntuple(stride, nd), _ntuple(dilation, nd)
+    opad = _ntuple(output_padding, nd)
+    pads = _transpose_pads(padding, nd)
+    conv = (torch.nn.functional.conv_transpose1d,
+            torch.nn.functional.conv_transpose2d,
+            torch.nn.functional.conv_transpose3d)[nd - 1]
+    native = all(p0 == p1 and 0 <= op < max(s, d) for (p0, p1), op, s, d
+                 in zip(pads, opad, stride, dilation))
+    if native:
+        out = conv(x, weight, bias, stride, tuple(p0 for p0, _ in pads),
+                   opad, groups, dilation)
+    else:
+        out = conv(x, weight, None, stride, 0, 0, groups, dilation)
+        # the unpadded output is the reference's with pads (k_eff - 1) a
+        # side: crop p0 before and p1 - output_padding after (a negative
+        # crop extends with zeros, what the reference's extra pad reads)
+        out = torch.nn.functional.pad(out, torch_pad_arg(
+            [(-p0, op - p1) for (p0, p1), op in zip(pads, opad)]))
+        if bias is not None:
+            out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out.movedim(1, -1) if last else out
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCL"):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, 1,
+                              data_format)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCHW"):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, 2,
+                              data_format)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCDHW"):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, 3,
+                              data_format)

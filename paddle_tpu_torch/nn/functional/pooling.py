@@ -17,9 +17,21 @@ Where the two conventions part, the reference's wins:
   bins ``np.linspace(0, n, out + 1).astype(int)``, which differ from
   torch's (and upstream Paddle's) overlapping floor/ceil windows.
 
-Channels-last formats run channels-first between two permutes. Not
-ported: ``max_pool2d_with_index`` (``return_mask=True``) and
-``max_unpool2d``.
+Channels-last formats run channels-first between two permutes.
+
+``max_pool2d_with_index`` (``max_pool2d(..., return_mask=True)``) returns
+the pooled output and an int32 mask of flat ``H * W`` argmax indices into
+the input, NCHW only, as the reference computes them: the input padded
+with ``-inf`` (the bottom and right pads extended so every ``ceil_mode``
+window fits), one strided slice a tap, and the argmax over the taps in
+``(ky, kx)`` order, so a tie (a window of zeros after a ReLU) takes the
+first tap and a padded position (index -1) is never chosen while the
+window holds an input. The output is the input gathered at the mask, so
+its gradient flows to the argmax positions. ``max_unpool2d`` scatters the
+pooled values back to their indices in a zero map of ``output_size`` (by
+default ``(in - 1) * stride - 2 * padding + kernel``; an index outside it
+is dropped, as the reference's scatter drops it); duplicate indices carry
+equal values, so the order of the writes does not matter.
 """
 import math
 
@@ -61,11 +73,7 @@ def _windows(x, kernel_size, stride, padding, ceil_mode, nd, data_format):
     return x, last, ks, st, pads
 
 
-def _pool_max(x, kernel_size, stride, padding, ceil_mode, nd, data_format,
-              return_mask=False):
-    if return_mask:
-        raise NotImplementedError("return_mask (max_pool2d_with_index) is "
-                                  "not ported")
+def _pool_max(x, kernel_size, stride, padding, ceil_mode, nd, data_format):
     x, last, ks, st, pads = _windows(x, kernel_size, stride, padding,
                                      ceil_mode, nd, data_format)
     native = _native_pad(pads, ks)
@@ -115,8 +123,78 @@ def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                data_format="NCHW", return_mask=False):
+    if return_mask:
+        return max_pool2d_with_index(x, kernel_size, stride, padding,
+                                     ceil_mode=ceil_mode,
+                                     data_format=data_format)
     return _pool_max(x, kernel_size, stride, padding, ceil_mode, 2,
-                     data_format, return_mask)
+                     data_format)
+
+
+def max_pool2d_with_index(x, kernel_size, stride=None, padding=0,
+                          ceil_mode=False, data_format="NCHW"):
+    """``(out, mask)``: the max pool and its int32 flat argmax indices."""
+    if data_format != "NCHW":
+        raise ValueError("the mask path is NCHW (the reference's too)")
+    if isinstance(padding, str):
+        raise ValueError("string padding unsupported with return_mask")
+    ks = _ntuple(kernel_size, 2)
+    st = _ntuple(stride if stride is not None else kernel_size, 2)
+    n, c, h, w = x.shape
+    (pt, pb), (pl, pr) = spatial_pads(padding, (h, w), ks, st)
+
+    def out_dim(size, p0, p1, k, s):
+        num = size + p0 + p1 - k
+        return -(-num // s) + 1 if ceil_mode else num // s + 1
+
+    ho, wo = out_dim(h, pt, pb, ks[0], st[0]), out_dim(w, pl, pr, ks[1],
+                                                       st[1])
+    pb = max(pb, (ho - 1) * st[0] + ks[0] - h - pt)
+    pr = max(pr, (wo - 1) * st[1] + ks[1] - w - pl)
+    with torch.no_grad():
+        vp = F.pad(x.detach(), [pl, pr, pt, pb], value=-math.inf)
+        iy = torch.arange(-pt, h + pb, device=x.device)
+        ix = torch.arange(-pl, w + pr, device=x.device)
+        inside = (((iy >= 0) & (iy < h))[:, None]
+                  & ((ix >= 0) & (ix < w))[None, :])
+        flat = torch.where(inside, iy[:, None] * w + ix[None, :],
+                           torch.full_like(inside, -1, dtype=torch.long))
+        rows = [slice(ky, ky + (ho - 1) * st[0] + 1, st[0])
+                for ky in range(ks[0])]
+        cols = [slice(kx, kx + (wo - 1) * st[1] + 1, st[1])
+                for kx in range(ks[1])]
+        taps = torch.stack([vp[:, :, r, q] for r in rows for q in cols])
+        where = torch.stack([flat[r, q] for r in rows for q in cols])
+        arg = taps.argmax(dim=0)  # the first tap among ties
+        mask = torch.take_along_dim(where[:, None, None].expand(
+            -1, n, c, -1, -1), arg[None], dim=0)[0].to(torch.int32)
+    src = x.reshape(n, c, h * w)
+    out = torch.gather(src, 2, mask.clamp(min=0).reshape(n, c, -1).long())
+    return out.reshape(mask.shape), mask
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None):
+    """The pooled values written back at ``indices`` in a zero map."""
+    if data_format != "NCHW":
+        raise ValueError("max_unpool2d is NCHW (the reference's too)")
+    ks = _ntuple(kernel_size, 2)
+    st = _ntuple(stride if stride is not None else kernel_size, 2)
+    pad = _ntuple(padding, 2)
+    n, c, ho, wo = x.shape
+    if output_size is not None:
+        h, w = (int(v) for v in output_size[-2:])
+    else:
+        h = (ho - 1) * st[0] - 2 * pad[0] + ks[0]
+        w = (wo - 1) * st[1] - 2 * pad[1] + ks[1]
+    idx = torch.as_tensor(indices, device=x.device).reshape(n, c, -1).long()
+    # jnp's .at[i].set: a negative index counts from the end, and one
+    # outside the map is dropped (here: written to a spare last slot)
+    idx = torch.where(idx < 0, idx + h * w, idx)
+    idx = torch.where((idx < 0) | (idx >= h * w), h * w, idx)
+    out = torch.zeros(n, c, h * w + 1, dtype=x.dtype,
+                      device=x.device).scatter(2, idx, x.reshape(n, c, -1))
+    return out[:, :, :h * w].reshape(n, c, h, w)
 
 
 def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,

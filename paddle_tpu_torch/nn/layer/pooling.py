@@ -1,4 +1,8 @@
-"""Pooling layers (counterpart: ``paddle_tpu/nn/layer/pooling.py``)."""
+"""Pooling layers (counterpart: ``paddle_tpu/nn/layer/pooling.py``). As
+in the reference, ``MaxPool1D``, ``MaxPool2D`` and ``AdaptiveMaxPool2D``
+take ``return_mask`` and return the pooled output alone; the mask comes
+from ``F.max_pool2d(..., return_mask=True)`` or
+``F.max_pool2d_with_index``."""
 from .. import functional as F
 from .layers import Layer
 
@@ -95,8 +99,6 @@ class AdaptiveAvgPool2D(Layer):
 class AdaptiveMaxPool2D(Layer):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__()
-        if return_mask:
-            raise NotImplementedError("return_mask is not ported")
         self.output_size = output_size
 
     def forward(self, x):

@@ -12,9 +12,8 @@ the window's wall time:
   counters (``jit_compile_ns``: CUDA-graph captures;
   ``jit_backend_compile_ns``: nvcc builds of the kernels at first use;
   both written by ``observability.tracing.record_compile``);
-- ``data_wait_frac``: time blocked on input (``dataloader_wait_ns``; the
-  port's data loader waits in ROADMAP item 19, so this reads 0 until it
-  counts).
+- ``data_wait_frac``: time blocked on input (``dataloader_wait_ns``,
+  which ``io.DataLoader`` counts while tracing is on for ``dataloader``).
 
 Each mark publishes the window to the export board under ``publish_as``
 and, when a run-log is active, writes a ``step`` event there, with a

@@ -438,30 +438,26 @@ def _grad_div(g, a):
     return g / a
 
 
-def _no_zero(optimizer):
-    raise NotImplementedError(
-        f"ZeRO for {type(optimizer).__name__} is not ported: ResNet under "
-        f"data parallelism (ZeRO, SyncBatchNorm) waits in ROADMAP item 19")
-
-
 class SGD(Optimizer):
-    """``p -= lr * g``, the L2/L1 decay folded into ``g``."""
+    """``p -= lr * g``, the L2/L1 decay folded into ``g``; elementwise, so
+    ZeRO-1/2/3 run it on flat shards (``_apply_flat``)."""
 
     def _prepare_step(self, lr):
         self._lr_t = lr
 
     def _apply_one(self, p, value, g):
-        value.sub_(self._lr_t * self._decayed_grad(value, g, p))
+        self._apply_flat(value, g, {}, decay=None, p=p)
 
-    def _zero_enable(self, *args, **kwargs):
-        _no_zero(self)
+    def _apply_flat(self, value, g, slots, decay, p=None):
+        value.sub_(self._lr_t * self._decayed_grad(value, g, p))
 
 
 class Momentum(Optimizer):
     """``v = momentum * v + g``, then ``p -= lr * v`` (with
     ``use_nesterov``, ``p -= lr * (g + momentum * v)``), the L2/L1 decay
     folded into ``g``; the float32 ``velocity`` slot, and a float32 master
-    of each low-precision parameter with ``multi_precision``."""
+    of each low-precision parameter with ``multi_precision``. Elementwise,
+    so ZeRO-1/2/3 keep the velocity as a flat sharded store."""
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
@@ -479,16 +475,18 @@ class Momentum(Optimizer):
         self._lr_t = lr
 
     def _apply_one(self, p, value, g):
+        self._apply_flat(value, g,
+                         {"velocity": self._get_accumulator("velocity", p)},
+                         decay=None, p=p)
+
+    def _apply_flat(self, value, g, slots, decay, p=None):
         g = self._decayed_grad(value, g, p)
-        v = self._get_accumulator("velocity", p)
+        v = slots["velocity"]
         v.mul_(self._momentum).add_(g)
         if self._nesterov:
             value.sub_(self._lr_t * (g + self._momentum * v))
         else:
             value.sub_(self._lr_t * v)
-
-    def _zero_enable(self, *args, **kwargs):
-        _no_zero(self)
 
 
 class Adam(Optimizer):

@@ -142,7 +142,8 @@ class ZeroState:
             raise NotImplementedError(
                 f"{type(opt).__name__} has a non-elementwise update "
                 "(norm/trust-ratio or RNG terms) and cannot run sharded; "
-                "ZeRO supports the Adam family")
+                "ZeRO supports the elementwise optimizers (SGD, Momentum, "
+                "the Adam family)")
         for p in opt._parameters():
             attrs = [a for a, on in (
                 ("learning_rate", _lr_scale(p) != 1.0),

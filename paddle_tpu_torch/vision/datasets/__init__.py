@@ -1,11 +1,13 @@
-"""MNIST (counterpart: ``paddle_tpu/vision/datasets``).
+"""Built-in datasets (counterpart: ``paddle_tpu/vision/datasets``).
 
-Nothing is downloaded. Given the local IDX files (gzip), the dataset reads
-them; otherwise it builds the reference's seeded synthetic set (4096 train
-or 4096 test images with a class-dependent bar, ``.synthetic`` True), the
-same arrays as the reference's. Items are numpy: a float32 ``[1, 28, 28]``
-image in [0, 1] (or ``transform(image)``) and an int64 label. The other
-datasets are not ported.
+Nothing is downloaded. ``MNIST`` (and ``FashionMNIST``, the same class)
+reads local IDX files (gzip) when given them; otherwise each dataset builds
+the reference's seeded synthetic set (``.synthetic`` True), the same arrays
+as the reference's: MNIST 4096 images of 28 x 28 with a class-dependent
+bar; ``Cifar10`` 1024 uint8 HWC images of 32 x 32 x 3 with the label's
+channel halved, ``Cifar100`` the same images with labels of 100 classes.
+Items are numpy: the image (a float32 CHW array in [0, 1], or
+``transform(image)``) and an int64 label.
 """
 import gzip
 import os
@@ -13,8 +15,12 @@ import struct
 
 import numpy as np
 
+from ...io.dataset import Dataset
 
-class MNIST:
+__all__ = ["MNIST", "FashionMNIST", "Cifar10", "Cifar100"]
+
+
+class MNIST(Dataset):
     def __init__(self, image_path=None, label_path=None, mode="train",
                  transform=None, download=True, backend="cv2"):
         self.mode = mode
@@ -50,3 +56,40 @@ class MNIST:
 
     def __len__(self):
         return len(self.images)
+
+
+class FashionMNIST(MNIST):
+    pass
+
+
+class Cifar10(Dataset):
+    def __init__(self, data_file=None, mode="train", transform=None,
+                 download=True, backend="cv2"):
+        self.transform = transform
+        self.synthetic = True
+        n = 1024
+        rng = np.random.RandomState(0 if mode == "train" else 1)
+        self.labels = rng.randint(0, 10, size=n).astype(np.int64)
+        self.images = rng.randint(0, 255, size=(n, 32, 32, 3)).astype(
+            np.uint8)
+        for i, label in enumerate(self.labels):
+            self.images[i, :, :, label % 3] //= 2
+
+    def __getitem__(self, idx):
+        img = self.images[idx]
+        if self.transform is not None:
+            img = self.transform(img)
+        else:
+            img = img.astype(np.float32).transpose(2, 0, 1) / 255.0
+        return img, np.asarray(self.labels[idx], dtype=np.int64)
+
+    def __len__(self):
+        return len(self.images)
+
+
+class Cifar100(Cifar10):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        rng = np.random.RandomState(2)
+        self.labels = rng.randint(0, 100, size=len(self.labels)).astype(
+            np.int64)

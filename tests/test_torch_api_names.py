@@ -101,29 +101,25 @@ PORTED_MODULES = {
     "paddle_tpu.nn.layer.extras", "paddle_tpu.nn.functional.activation",
     "paddle_tpu.nn.functional.common", "paddle_tpu.nn.functional.loss",
     "paddle_tpu.nn.functional.norm", "paddle_tpu.nn.initializer",
-    "paddle_tpu.optimizer.lr", "paddle_tpu.ops.sequence"}
+    "paddle_tpu.optimizer.lr", "paddle_tpu.ops.sequence",
+    # the high-level training loop: hapi, io's DataLoader over shared-memory
+    # workers, metric, vision's transforms, datasets, VGG and MobileNet, and
+    # the convolution, norm and pooling modules whole (the transposed
+    # convolutions, SyncBatchNorm, the max-pool indices)
+    "paddle_tpu.hapi.model", "paddle_tpu.hapi.callbacks",
+    "paddle_tpu.hapi.hub", "paddle_tpu.io.dataset", "paddle_tpu.io.sampler",
+    "paddle_tpu.io.dataloader", "paddle_tpu.io.shm_worker",
+    "paddle_tpu.metric", "paddle_tpu.vision.transforms",
+    "paddle_tpu.vision.datasets", "paddle_tpu.vision.models.vgg",
+    "paddle_tpu.vision.models.mobilenet", "paddle_tpu.nn.layer.conv",
+    "paddle_tpu.nn.layer.norm", "paddle_tpu.nn.layer.pooling",
+    "paddle_tpu.nn.functional.conv", "paddle_tpu.nn.functional.pooling"}
 PORTED_CLASSES = {
     "paddle_tpu.optimizer.optimizer": {"Optimizer", "Adam", "AdamW", "SGD",
                                        "Momentum"},
     "paddle_tpu.nn.layer.layers": {"Layer"},
-    "paddle_tpu.nn.layer.conv": {"Conv1D", "Conv2D", "Conv3D"},
-    # SyncBatchNorm waits in ROADMAP item 19 (ResNet under ZeRO)
-    "paddle_tpu.nn.layer.norm": {"BatchNorm", "BatchNorm1D", "BatchNorm2D",
-                                 "BatchNorm3D", "LayerNorm",
-                                 "LocalResponseNorm", "RMSNorm", "GroupNorm",
-                                 "InstanceNorm2D"},
-    "paddle_tpu.nn.layer.pooling": {
-        "MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
-        "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
-        "AdaptiveMaxPool2D"},
-    # the transposed convolutions, max_pool2d_with_index and max_unpool2d
-    # wait in ROADMAP item 19
-    "paddle_tpu.nn.functional.conv": {"conv1d", "conv2d", "conv3d"},
-    "paddle_tpu.nn.functional.pooling": {
-        "max_pool1d", "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
-        "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
-        "adaptive_max_pool2d"},
-    "paddle_tpu.vision.datasets": {"MNIST"}}
+    # the package's own flops (hapi's)
+    "paddle_tpu": {"flops"}}
 
 NOT_PORTED = {
     # the reference's compiled-program introspection (XLA HLO, memory and
@@ -160,14 +156,16 @@ NOT_PORTED = {
     "paddle_tpu.serving.build_serving_program",
     "paddle_tpu.serving.serving_bf16_cast_pass",
 }
-# Names under a module the port has not ported that re-export a ported
-# one's, by prefix: they must not resolve under the port until their item
-# lands.
-NOT_PORTED_REEXPORTS = {
+# Names under a module that re-export a ported one's, by prefix: held back
+# (absent under the port) until their module lands, then present as the
+# port's own. (prefix: (the item that ports the module, whether it landed))
+REEXPORTS = {
     # the reference's Tensor class as metric.Tensor: the metric module
-    # waits in ROADMAP item 17
-    "paddle_tpu.metric.Tensor": "ROADMAP item 17",
+    # landed with the high-level training loop
+    "paddle_tpu.metric.Tensor": ("ROADMAP item 17", True),
 }
+NOT_PORTED_REEXPORTS = {p: item for p, (item, landed) in REEXPORTS.items()
+                        if not landed}
 
 
 def _held_back(name):
@@ -221,13 +219,22 @@ def test_every_name_of_a_ported_module_resolves():
     assert NOT_PORTED <= set(scope)
 
 
-@pytest.mark.parametrize("prefix", sorted(NOT_PORTED_REEXPORTS))
+@pytest.mark.parametrize("prefix", sorted(REEXPORTS))
 def test_reexports_of_unported_modules_stay_absent(prefix):
+    """Absent while their module waits; once it lands, every name resolves
+    to the port's own object (``metric.Tensor`` is the port's ``Tensor``)."""
     names = [n for n in _spec_names()
              if n == prefix or n.startswith(prefix + ".")]
     assert names and all(_get("paddle_tpu", n) is not None for n in names)
-    assert [n for n in names if _get("paddle_tpu_torch", n) is not None] \
-        == []
+    present = [n for n in names if _get("paddle_tpu_torch", n) is not None]
+    if prefix in NOT_PORTED_REEXPORTS:
+        assert present == []
+    else:
+        assert present == names
+        ref = _get("paddle_tpu", prefix)
+        port = _get("paddle_tpu_torch", prefix)
+        assert port is _get("paddle_tpu_torch",
+                            f"{ref.__module__}.{ref.__name__}")
 
 
 def test_bench_model_import_works_against_the_port():
@@ -243,7 +250,7 @@ def test_bench_model_import_works_against_the_port():
 
 def test_top_level_modules():
     for name in ("models", "serving", "distributed", "recompute", "jit",
-                 "optimizer", "amp", "nn", "vision"):
+                 "optimizer", "amp", "nn", "vision", "io", "hapi", "metric"):
         assert isinstance(getattr(paddle_tpu_torch, name), type(importlib))
 
 

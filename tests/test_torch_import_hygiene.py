@@ -121,6 +121,17 @@ _NN = ("paddle_tpu_torch.nn.layer.activation",
        "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.ops.sequence")
 
 
+_HAPI = ("paddle_tpu_torch.io", "paddle_tpu_torch.io.dataset",
+         "paddle_tpu_torch.io.sampler", "paddle_tpu_torch.io.dataloader",
+         "paddle_tpu_torch.io.shm_worker", "paddle_tpu_torch.hapi",
+         "paddle_tpu_torch.hapi.model", "paddle_tpu_torch.hapi.callbacks",
+         "paddle_tpu_torch.hapi.hub", "paddle_tpu_torch.metric",
+         "paddle_tpu_torch.vision.transforms",
+         "paddle_tpu_torch.vision.datasets",
+         "paddle_tpu_torch.vision.models.vgg",
+         "paddle_tpu_torch.vision.models.mobilenet")
+
+
 def _forbidden(name):
     return name.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
 
@@ -136,7 +147,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
     for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT + _HYBRID \
-            + _ARTIFACT + _RUNTIME + _PS + _NN:
+            + _ARTIFACT + _RUNTIME + _PS + _NN + _HAPI:
         assert f"'{name}'" in every, (name, every)
 
 
@@ -147,7 +158,8 @@ def test_package_import_brings_its_top_level_modules():
              "print(all(hasattr(pt, n) for n in ('models', 'serving', "
              "'distributed', 'recompute', 'to_tensor', 'checkpoint', "
              "'save', 'load', 'incubate', 'parallel', 'inference', "
-             "'profiler', 'observability', 'testing', 'call_op')))\n"
+             "'profiler', 'observability', 'testing', 'call_op', 'io', "
+             "'hapi', 'metric', 'Model', 'summary', 'flops')))\n"
              "print(sorted(n for n in sys.modules if n.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -315,12 +315,6 @@ def test_lenet_steps_match_the_reference(kind):
             BF16_REL if bf16 else LENET_REL)
 
 
-def test_zero_is_refused_with_the_roadmap_item():
-    opt = optimizer.Momentum(parameters=[torch.nn.Parameter(torch.zeros(2))])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        opt._zero_enable(axis="dp", stage=1)
-
-
 # -- the k-step program ----------------------------------------------------------
 
 def test_k_step_program_is_bitwise_its_own_eager_steps(runs):
