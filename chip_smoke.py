@@ -352,7 +352,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    CUDA graph against BatchNorm; (e) the transposed convolutions and
    ``max_pool2d_with_index``/``max_unpool2d`` after a ReLU (ties), card
    against CPU with their gradients, the mask equal.
-20. One JSON line with each phase's seconds beside the card's name and
+20. The optimizer breadth, on the one-rank NCCL group (``fleet.init``):
+   (a) GPT-small (float32 parameters, bf16 ``auto_cast``, 8 x 1024 tokens)
+   through ``fleet.distributed_optimizer(Adam)`` with ``lamb``,
+   ``gradient_merge`` (k_steps 2, avg) and ``amp``: the stack's names, one
+   captured call of 4 micro-steps (two merged updates) bitwise the same
+   eager micro-steps, the flash kernels 12 a micro-step (the wrappers'
+   counts over the eager micro-steps, the graph's nodes over a replayed
+   call), the first loss at batch 1 against the CPU, ms a micro-step
+   against phase 7's; (b) BERT-base (``ZERO_BERT_LAYERS``) with bench.py's
+   recipe as the k-step program, ``fuse_accumulators`` bitwise the plain
+   AdamW, each arm's step ms, optimizer launches a step and elementwise
+   share, and a fused checkpoint resumed bitwise into fresh objects; (c) a
+   2-layer GPT at full width under each of the eleven optimizers and
+   ``ModelAverage``, ``ExponentialMovingAverage`` and ``LookAhead(k=2)``:
+   3 eager steps bitwise one captured call, the first update against the
+   CPU's, and the eight elementwise optimizers under ZeRO-1/2/3 bitwise
+   replicated; (d) ResNet-50 at 224, batch 64, float32, under
+   ``strategy.dgc`` (Momentum to DGC, sparsity 0.999, rampup_begin_step 2)
+   and ``strategy.lars``, a captured call across the rampup bitwise eager,
+   step ms and DGC's top-k ms; (e) a 2-layer BERT pruned 2:4 by
+   ``sparsity.prune_model`` through ``asp``, ``fp16_allreduce``,
+   ``localsgd`` (k_steps 2) and ``sharding`` (stage 1), a captured call
+   bitwise eager, every masked weight exactly 0 and ``check_sparsity``
+   holding. (b), (d) and (e) launch no flash kernel (counted).
+21. One JSON line with each phase's seconds beside the card's name and
    power limit, one JSON line with every kernel of the paths, then the
    result line.
 
@@ -9099,6 +9123,593 @@ def phase19(pt, fa, seed, failures, vision=None):
     return launches
 
 
+# ---- phase 20: the optimizer breadth ------------------------------------------
+
+P20_LR = 1e-4                 # (a) Adam's rate, which lamb takes over
+P20_GPT_K = 4                 # (a) micro-steps a call: 2 merged updates
+P20_GM_K = 2                  # (a) gradient_merge k_steps
+P20_BERT_K = 10               # (b) inner steps of the BERT k-step program
+P20_SWEEP_LAYERS = 2          # (c) GPT at full width, 2 of its 12 layers
+P20_SWEEP_STEPS = 3           # (c) steps a run (one captured call)
+P20_RESNET_K = 4              # (d) steps across DGC's rampup boundary
+P20_DGC_RAMPUP = 2            # (d) rampup_begin_step
+P20_ASP_K = 4                 # (e) steps a call (two localsgd windows)
+# (a) the first loss at batch 1: bf16 auto_cast on the card against float32
+# on the CPU, the bound of the other bf16-vs-float32 losses
+P20_CPU_LOSS_REL = AMP_LOSS_REL_TOL
+# (c) the first step on the card against the CPU: the relative L2 of the
+# update (new - old, all parameters) against the CPU's from the same
+# weights and batch. Both gradients are float32 (the card's through the
+# CUDA-core flash kernels); an update that normalises the gradient (Adam's
+# kin at step 1 is near lr * sign(g)) turns their rounding apart where g is
+# near 0, so this is a bound on the rule, not on the rounding: a different
+# rule misses by O(1).
+P20_UPDATE_REL = 1e-2
+
+
+def p20_fleet(**fields):
+    """``fleet.init`` with a strategy of ``fields`` on the one-rank NCCL
+    group; returns (fleet, strategy)."""
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    for key, value in fields.items():
+        setattr(s, key, value)
+    fleet.init(is_collective=True, strategy=s)
+    return fleet, s
+
+
+def p20_bitwise(label, want_losses, got_losses, want_params, got_params,
+                failures):
+    """Losses and parameters of two runs equal bit for bit."""
+    worst = (float((want_losses.float() - got_losses.float()).abs().max()),
+             "losses")
+    for (n, a), b in zip(want_params, got_params):
+        worst = max(worst, (float((a.detach().float()
+                                   - b.detach().float()).abs().max()), n))
+    ok = worst[0] == 0.0 and bool(torch.isfinite(got_losses).all())
+    log(f"  {label}: max |diff| {worst[0]:.3e} ({worst[1]}) (bitwise) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: not bitwise ({worst[1]} "
+                        f"{worst[0]:.3e})")
+    return ok
+
+
+def p20_no_flash(label, fa, failures):
+    counts = flash_launches(fa)
+    ok = not any(counts.values())
+    log(f"  {label}: flash launches {counts} (none expected) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 20 {label} launched flash kernels {counts}")
+    return counts
+
+
+def p20_gpt_stack(pt, fa, seed, gpt_rate, failures):
+    """(a) GPT-small through lamb + gradient_merge + amp, one captured call
+    of P20_GPT_K micro-steps; returns each kernel's launches in the eager
+    micro-steps (the wrappers' counts)."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_small,
+                                             synthetic_lm_batch)
+    fleet, strategy = p20_fleet(
+        lamb=True, gradient_merge=True, amp=True,
+        gradient_merge_configs={"k_steps": P20_GM_K, "avg": True})
+    cfg = gpt_small(hidden_dropout=0.0, attention_dropout=0.0)
+    k = P20_GPT_K
+    pt.seed(seed + 20)
+    model = GPTForCausalLM(cfg, device="cuda")  # float32 parameters
+    twin = copy.deepcopy(model)
+    start = {n: t.detach().cpu().clone() for n, t in model.state_dict()
+             .items()}
+    stacked = torch.from_numpy(np.stack([
+        synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size,
+                           seed=seed + 200 + i) for i in range(k)])).cuda()
+
+    def body_for(m):
+        opt = fleet.distributed_optimizer(optimizer.Adam(
+            learning_rate=P20_LR, parameters=m.parameters()), strategy)
+
+        def one_step(ids):
+            with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+                loss = m.loss(m(ids), ids)
+            opt.scale(loss).backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return one_step, opt
+
+    # the first loss at batch 1 against the CPU, from the same weights
+    ids1 = stacked[0][:1]
+    with torch.no_grad(), pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+        card = float(model.loss(model(ids1), ids1))
+    cpu_model = GPTForCausalLM(cfg, device="cpu")
+    cpu_model.load_state_dict(start)
+    with torch.no_grad():
+        ids_cpu = ids1.cpu()
+        cpu = float(cpu_model.loss(cpu_model(ids_cpu), ids_cpu))
+    del cpu_model
+    rel = abs(card - cpu) / abs(cpu)
+    ok = rel <= P20_CPU_LOSS_REL
+    log(f"  (a) first loss at batch 1: card (bf16 auto_cast) {card:.6f}, CPU "
+        f"(float32) {cpu:.6f}, rel {rel:.2e} (bound {P20_CPU_LOSS_REL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"(a) first loss {rel:.2e} from the CPU's")
+
+    eager_step, eager_opt = body_for(model)
+    names = eager_opt._meta_optimizer_names
+    fa.reset_launch_counts()  # the main path's eager micro-steps
+    want = torch.stack([eager_step(stacked[i]).detach() for i in range(k)])
+    launches = flash_launches(fa)
+    merged = int(eager_opt._step_count)
+    body, opt = body_for(twin)
+    program = jit.to_static(body, scan_steps=k)
+    with inspect_capture():
+        got, peak = first_kstep_call("(a) GPT-small, lamb + gradient_merge "
+                                     "+ amp", lambda: program(stacked))
+    p20_bitwise(f"(a) GPT-small, {k} micro-steps: one captured call vs "
+                f"eager", want, got, list(model.named_parameters()),
+                list(twin.parameters()), failures)
+    inner = type(opt._inner_opt._inner._inner).__name__  # amp, merge, lamb
+    ok = (names == ["lamb", "gradient_merge", "amp"] and inner == "Lamb"
+          and merged == k // P20_GM_K == int(opt._step_count))
+    log(f"  (a) stack {names}, inner {inner}, merged updates {merged} eager "
+        f"/ {int(opt._step_count)} captured in {k} micro-steps "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"(a) stack {names} or its {merged} updates")
+    want_each = cfg.num_layers * k
+    for name, n in launches.items():
+        ok = n == want_each
+        log(f"  (a) {name}: {n} launches in the {k} eager micro-steps "
+            f"(wrappers' counts; want {want_each}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"(a) {name} launched {n} times, want "
+                            f"{want_each}")
+    replays = count_replays(program)
+    replays.run(lambda: program(stacked).cpu())
+    graph, off = replays.launches()
+    for meta in KERNELS:
+        name = meta["name"]
+        n = graph[name] + off[name]
+        ok = n == want_each
+        log(f"  (a) {name}: {n} launches in a replayed call, from its graph "
+            f"({graph[name]} bf16, {off[name]} CUDA-core; want {want_each}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"(a) replayed call: {name} {n}, want "
+                            f"{want_each}")
+    calls, tel = timed_kstep(lambda: program(stacked), k, 2,
+                             stacked[0].numel(), twin.flops_per_token(SEQ))
+    step_ms = tel["step_time_ms"] / k
+    versus = ("phase 7 not run" if gpt_rate is None else
+              f"phase 7's AdamW k-step {gpt_rate['step_ms']:.3f} ms")
+    log(f"  (a) {step_ms:.3f} ms a micro-step (float32 parameters, lamb, "
+        f"gradient_merge, amp; {versus}); peak memory of the first call "
+        f"{peak:.3f} GB; {card_line()}")
+    losses = torch.cat([got.cpu()] + calls)
+    if not bool(torch.isfinite(losses).all()):
+        failures.append("(a) losses not finite")
+    return launches, {"step_ms": step_ms, "peak_gb": peak,
+                      "cpu_loss_rel": rel, "stack": names}
+
+
+def p20_fused_bert(pt, fa, seed, failures):
+    """(b) BERT-base (ZERO_BERT_LAYERS) with bench.py's recipe as the
+    k-step program, plain against fuse_accumulators."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.bert import BertForPretraining, bert_base
+    k = P20_BERT_K
+    cfg = bert_base(vocab_size=BERT_VOCAB, num_layers=ZERO_BERT_LAYERS,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    pt.seed(seed + 21)
+    base = BertForPretraining(cfg, device="cuda").to("bfloat16")
+    stacked = bert_batches(seed + 2100, k, 0)
+    later = bert_batches(seed + 2200, k, 0)
+
+    def build(fused):
+        model = copy.deepcopy(base)
+        opt = optimizer.AdamW(parameters=model.parameters(),
+                              learning_rate=BERT_LR, multi_precision=True,
+                              fuse_accumulators=fused)
+        return (jit.to_static(bench_one_step(pt, model, opt), scan_steps=k),
+                model, opt)
+
+    out, runs = {}, {}
+    t0 = time.perf_counter()
+    for fused in (False, True):
+        label = "fused" if fused else "plain"
+        program, model, opt = build(fused)
+        first, _ = first_kstep_call(f"(b) BERT-base {label}",
+                                    lambda: program(*stacked))
+        runs[label] = (program, model, opt, first.cpu(),
+                       [p.detach().clone() for p in model.parameters()])
+        _, tel = timed_kstep(lambda: program(*stacked), k, 2,
+                             BERT_BATCH * BERT_SEQ,
+                             model.flops_per_token(BERT_SEQ))
+        prof = report_profile(f"(b) {label} call ({k} steps)", profile_retry(
+            lambda: program(*stacked).cpu()), failures)
+        # the optimizer's launches in one eager step, its gradients from
+        # one eager backward
+        with pt.amp.auto_cast(enable=True, dtype="bfloat16"):
+            ids, tok, labels, nsp = (t[0] for t in stacked)
+            logits, nsp_logits = model(ids, tok)
+            model.loss(logits, nsp_logits, labels, nsp).backward()
+        opt_prof = profile_step(opt.step)
+        opt.clear_grad()
+        opt_launches = None if opt_prof is None else sum(opt_prof[3].values())
+        busy = None if prof is None else prof["busy_ms"]
+        share = (None if prof is None else
+                 prof["by_kind_ms"].get("elementwise", 0.0) / busy)
+        out[label] = {"step_ms": tel["step_time_ms"] / k,
+                      "optimizer_launches": opt_launches,
+                      "elementwise_share": share}
+        log(f"  (b) BERT-base {label}: {out[label]['step_ms']:.3f} ms a step, "
+            f"{opt_launches} kernel launches in one optimizer step, "
+            f"elementwise share of the call's device time "
+            f"{'not measured' if share is None else f'{share:.4f}'}; "
+            f"{card_line()}")
+    (_, m0, _, l0, s0), (_, m1, o1, l1, s1) = runs["plain"], runs["fused"]
+    p20_bitwise("(b) BERT-base first call: fused vs plain", l0, l1,
+                [(n, t) for (n, _), t in zip(m0.named_parameters(), s0)], s1,
+                failures)
+    log(f"  (b) the two arms: {time.perf_counter() - t0:.1f} s")
+    # a fused checkpoint resumes bitwise into a fresh fused optimizer
+    import shutil
+    t0 = time.perf_counter()
+    root = ckpt_dir("phase20_fused")
+    shutil.rmtree(root, ignore_errors=True)
+    program1 = runs["fused"][0]
+    manager_for(root, m1, o1).save(1)
+    program2, m2, o2 = build(True)
+    with torch.no_grad():  # other weights: the restore must write them
+        for p in m2.parameters():
+            p.mul_(0.5)
+    manager_for(root, m2, o2).restore()
+    want = program1(*later).cpu()
+    got = program2(*later).cpu()
+    p20_bitwise("(b) fused checkpoint restored into fresh objects, the next "
+                "call", want, got, list(m1.named_parameters()),
+                list(m2.parameters()), failures)
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"  (b) the checkpoint: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+P20_SWEEP = {
+    # name: (the optimizer from its parameters, the wrapper's own step)
+    "Adagrad": lambda o, ps: o.Adagrad(1e-3, parameters=ps),
+    "RMSProp": lambda o, ps: o.RMSProp(1e-4, momentum=0.9, centered=True,
+                                       parameters=ps),
+    "Adadelta": lambda o, ps: o.Adadelta(1.0, parameters=ps),
+    "Adamax": lambda o, ps: o.Adamax(1e-4, parameters=ps),
+    "DecayedAdagrad": lambda o, ps: o.DecayedAdagrad(1e-3, parameters=ps),
+    "ProximalGD": lambda o, ps: o.ProximalGD(1e-2, l1=1e-4, l2=1e-4,
+                                             parameters=ps),
+    "ProximalAdagrad": lambda o, ps: o.ProximalAdagrad(
+        1e-3, l1=1e-5, l2=1e-5, parameters=ps),
+    "Ftrl": lambda o, ps: o.Ftrl(1e-2, l1=1e-4, parameters=ps),
+    "Lamb": lambda o, ps: o.Lamb(1e-3, parameters=ps),
+    "Lars": lambda o, ps: o.Lars(1e-2, parameters=ps),
+    "Dpsgd": lambda o, ps: o.Dpsgd(1e-2, clip=1.0, batch_size=8.0,
+                                   sigma=1.0, parameters=ps),
+}
+P20_ELEMENTWISE = ("Adagrad", "RMSProp", "Adadelta", "Adamax",
+                   "DecayedAdagrad", "ProximalGD", "ProximalAdagrad", "Ftrl")
+
+
+def p20_wrapped(name, o, params):
+    """(optimizer, the step after it) of a sweep arm: one of P20_SWEEP, or
+    Adam under ModelAverage, ExponentialMovingAverage or LookAhead(k=2)."""
+    if name in P20_SWEEP:
+        return P20_SWEEP[name](o, params), lambda: None
+    adam = o.Adam(1e-4, parameters=params)
+    if name == "LookAhead":
+        return o.LookAhead(adam, alpha=0.5, k=2), lambda: None
+    if name == "ModelAverage":
+        ma = o.ModelAverage(parameters=params, min_average_window=2,
+                            max_average_window=4)
+        return adam, ma.step
+    ema = o.ExponentialMovingAverage(0.9)
+    return adam, lambda: ema.update(params)
+
+
+def p20_sweep(pt, fa, seed, failures):
+    """(c) a 2-layer GPT at full width under every optimizer and averaging
+    wrapper, eagerly and as one captured call; the first step against the
+    CPU's; the elementwise eight under ZeRO-1/2/3 at one rank."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import optimizer as o
+    from paddle_tpu_torch.distributed import parallel_env
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_small,
+                                             synthetic_lm_batch)
+    cfg = gpt_small(num_layers=P20_SWEEP_LAYERS, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    n = P20_SWEEP_STEPS
+    pt.seed(seed + 22)
+    base = GPTForCausalLM(cfg, device="cuda")  # float32: CUDA-core flash
+    stacked = torch.from_numpy(np.stack([
+        synthetic_lm_batch(1, SEQ, cfg.vocab_size, seed=seed + 220 + i)
+        for i in range(n)])).cuda()
+    # the CPU's first step: its float32 gradient from the same weights
+    # (its token embedding, 38.6 M of the 53.6 M parameters, left out of
+    # the comparison: a CPU step over it would cost seconds an arm)
+    t0 = time.perf_counter()
+    cpu_model = copy.deepcopy(base).to("cpu")
+    ids = stacked[0].cpu()
+    cpu_model.loss(cpu_model(ids), ids).backward()
+    compared = [i for i, (n, _) in enumerate(cpu_model.named_parameters())
+                if "word_embeddings" not in n and "wte" not in n]
+    cpu_params = list(cpu_model.parameters())
+    cpu_start = [cpu_params[i].detach().clone() for i in compared]
+    cpu_grads = [cpu_params[i].grad.clone() for i in compared]
+    log(f"  (c) the CPU's gradient at batch 1: {time.perf_counter() - t0:.1f}"
+        f" s; {len(compared)} of {len(cpu_params)} parameters compared")
+    del cpu_model, cpu_params
+
+    def run(name, steps, program=False, stage=0):
+        model = copy.deepcopy(base)
+        params = list(model.parameters())
+        opt, after = p20_wrapped(name, o, params)
+        if stage:
+            opt._zero_enable(axis="dp", stage=stage)
+
+        def body(ids):
+            loss = model.loss(model(ids), ids)
+            loss.backward()
+            opt.step()
+            after()
+            opt.clear_grad()
+            return loss
+
+        pt.seed(seed + 23)  # Dpsgd's draws from here on both sides
+        if program:
+            losses = jit.to_static(body, scan_steps=steps)(stacked[:steps])
+            return losses.detach(), model, None
+        first, losses = None, []
+        for i in range(steps):
+            losses.append(body(stacked[i]).detach())
+            if i == 0:
+                first = [params[j].detach().cpu().clone() for j in compared]
+        return torch.stack(losses), model, first
+
+    out = {}
+    t0 = time.perf_counter()
+    names = list(P20_SWEEP) + ["ModelAverage", "ExponentialMovingAverage",
+                               "LookAhead"]
+    for name in names:
+        fa.reset_launch_counts()
+        want, eager, first = run(name, n)
+        counts = flash_launches(fa)
+        got, captured, _ = run(name, n, program=True)
+        p20_bitwise(f"(c) {name}: {n} steps, one captured call vs eager",
+                    want, got, list(eager.named_parameters()),
+                    list(captured.parameters()), failures)
+        ok = all(c == cfg.num_layers * n for c in counts.values())
+        if not ok:
+            failures.append(f"(c) {name}: flash launches {counts}")
+        rel = None
+        if name != "Dpsgd":  # its noise: the card's and the CPU's Philox
+            params = [torch.nn.Parameter(t.clone()) for t in cpu_start]
+            for p, g in zip(params, cpu_grads):
+                p.grad = g.clone()
+            cpu_opt, _ = p20_wrapped(name, o, params)
+            cpu_opt.step()
+            num = sum(float(((c - s) - (q.detach() - s)).square().sum())
+                      for c, q, s in zip(first, params, cpu_start))
+            den = sum(float((q.detach() - s).square().sum())
+                      for q, s in zip(params, cpu_start))
+            rel = (num / max(den, 1e-30)) ** 0.5
+            if not rel <= P20_UPDATE_REL:
+                failures.append(f"(c) {name}: first update {rel:.2e} from "
+                                f"the CPU's")
+        out[name] = {"update_rel_vs_cpu": rel, "flash": counts}
+        log(f"  (c) {name}: flash launches {counts} over {n} eager steps; "
+            f"first update vs CPU rel L2 "
+            f"{'not compared (noise)' if rel is None else f'{rel:.2e}'} "
+            f"(bound {P20_UPDATE_REL:g}) "
+            f"{'ok' if ok and (rel is None or rel <= P20_UPDATE_REL) else 'FAIL'}")
+        del eager, captured
+    log(f"  (c) the {len(names)} arms: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if parallel_env.current_mesh() is None:
+        init_dp_mesh()
+    for name in P20_ELEMENTWISE:
+        want_losses, want, _ = run(name, n)
+        for stage in (1, 2, 3):
+            got_losses, got, _ = run(name, n, stage=stage)
+            p20_bitwise(f"(c) {name} ZeRO-{stage} at one rank vs replicated",
+                        want_losses, got_losses,
+                        list(want.named_parameters()),
+                        list(got.parameters()), failures)
+            del got
+        free_cuda()
+    log(f"  (c) the ZeRO arms: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def p20_resnet(pt, fa, seed, failures):
+    """(d) ResNet-50 at 224, batch 64, float32, under strategy.dgc
+    (Momentum to DGC) and strategy.lars, as the k-step program across the
+    rampup boundary against eager steps; step ms, DGC's top-k ms."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision.models import resnet50
+    k = P20_RESNET_K
+    pt.seed(seed + 24)
+    base = resnet50(num_classes=RESNET_CLASSES, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 240)
+    x = torch.randn(k, RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE,
+                    device="cuda", generator=gen)
+    y = torch.randint(0, RESNET_CLASSES, (k, RESNET_BATCH), device="cuda",
+                      generator=gen)
+    out = {}
+    for label, fields in (
+            ("dgc", dict(dgc=True, dgc_configs={
+                "rampup_begin_step": P20_DGC_RAMPUP, "sparsity": [0.999]})),
+            ("lars", dict(lars=True))):
+        fleet, strategy = p20_fleet(**fields)
+
+        def build():
+            model = copy.deepcopy(base)
+            opt, _ = resnet_optimizer(model)
+            opt = fleet.distributed_optimizer(opt, strategy)
+
+            def body(xb, yb):
+                loss = F.cross_entropy(model(xb), yb)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return loss
+            return body, model, opt
+
+        body, model, opt = build()
+        pbody, pmodel, popt = build()
+        program = jit.to_static(pbody, scan_steps=k)
+        # deterministic cuDNN algorithms (no atomics) on both sides, as
+        # phase 11's checks: DGC's top-k turns a last-bit difference of a
+        # gradient into another selection
+        with cudnn_mode(deterministic=True):
+            want = torch.stack([body(x[i], y[i]).detach()
+                                for i in range(k)])
+            got = program(x, y)
+        p20_bitwise(f"(d) ResNet-50 {label}: {k} steps across the rampup, "
+                    f"one captured call vs eager", want, got,
+                    list(model.named_parameters()),
+                    list(pmodel.parameters()), failures)
+        step_ms = cuda_time_ms(lambda: program(x, y), iters=2,
+                               warmup=0) / k  # the graph's algorithms
+        inner = opt._inner_opt
+        res = {"stack": opt._meta_optimizer_names,
+               "optimizer": type(inner).__name__, "step_ms": step_ms}
+        if label == "dgc":
+            pairs = [(inner._get_accumulator("dgc_v", p).abs().reshape(-1),
+                      inner._k_of(p.numel())) for p in model.parameters()]
+            topk_ms = cuda_time_ms(lambda: [torch.topk(v, kk)
+                                            for v, kk in pairs], iters=10)
+            big = max(model.parameters(), key=lambda p: p.numel())
+            res.update(topk_ms=topk_ms, topk_share=topk_ms / step_ms,
+                       largest=[list(big.shape), inner._k_of(big.numel())])
+        out[label] = res
+        log(f"  (d) ResNet-50 {label}: stack {res['stack']} -> "
+            f"{res['optimizer']}, {step_ms:.3f} ms a step (float32, batch "
+            f"{RESNET_BATCH}, one captured call of {k}, deterministic "
+            f"cuDNN)"
+            + (f", the top-k of every parameter {res['topk_ms']:.3f} ms a "
+               f"step ({res['topk_share']:.1%}); the largest "
+               f"{res['largest'][0]} keeps k = {res['largest'][1]}"
+               if label == "dgc" else "") + f"; {card_line()}")
+        del body, model, opt, pbody, pmodel, popt, program
+        free_cuda()
+    return out
+
+
+def p20_asp_stack(pt, fa, seed, failures):
+    """(e) a 2-layer BERT pruned 2:4 through asp, fp16_allreduce, localsgd
+    and sharding (stage 1) at one rank, one captured call against eager."""
+    from paddle_tpu_torch import jit, optimizer, sparsity
+    from paddle_tpu_torch.models.bert import (BertForPretraining, bert_base,
+                                              synthetic_mlm_batch)
+    k = P20_ASP_K
+    fleet, strategy = p20_fleet(asp=True, fp16_allreduce=True, localsgd=True,
+                                localsgd_configs={"k_steps": 2},
+                                sharding=True,
+                                sharding_configs={"stage": 1})
+    cfg = bert_base(vocab_size=BERT_VOCAB, num_layers=2, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    pt.seed(seed + 25)
+    base = BertForPretraining(cfg, device="cuda")
+    batches = [synthetic_mlm_batch(4, BERT_SEQ, BERT_VOCAB,
+                                   seed=seed + 250 + i) for i in range(k)]
+    stacked = [torch.from_numpy(np.stack(col)).cuda() for col in zip(*batches)]
+
+    def build():
+        model = copy.deepcopy(base)
+        masks = sparsity.prune_model(model)
+        opt = fleet.distributed_optimizer(optimizer.AdamW(
+            learning_rate=1e-4, parameters=model.parameters()), strategy)
+
+        def body(ids, tok, labels, nsp):
+            logits, nsp_logits = model(ids, tok)
+            loss = model.loss(logits, nsp_logits, labels, nsp)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return body, model, opt, masks
+
+    body, model, opt, masks = build()
+    want = torch.stack([body(*(t[i] for t in stacked)).detach()
+                        for i in range(k)])
+    pbody, pmodel, popt, pmasks = build()
+    got = jit.to_static(pbody, scan_steps=k)(*stacked)
+    p20_bitwise(f"(e) BERT 2 layers, asp + fp16_allreduce + localsgd + "
+                f"sharding: one captured call of {k} vs eager", want, got,
+                list(model.named_parameters()), list(pmodel.parameters()),
+                failures)
+    masked = [p for p in pmodel.parameters()
+              if sparsity.ASPHelper._mask_of(p) is not None]
+    zeros = all(bool((p[sparsity.ASPHelper._mask_of(p) == 0] == 0).all())
+                for p in masked)
+    held = all(sparsity.check_sparsity(p) for p in masked)
+    names = popt._meta_optimizer_names
+    supported = [p for p in pmodel.parameters()
+                 if not getattr(p, "is_bias", False) and p.dim() >= 2]
+    ok = (zeros and held and len(masked) == len(supported) > 0
+          and all(id(p) in pmasks for p in masked)
+          and names == ["sharding", "fp16_allreduce", "localsgd", "asp"])
+    log(f"  (e) stack {names}; {len(masked)} pruned weights: every masked "
+        f"weight exactly 0 {zeros}, check_sparsity {held} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"(e) masks or stack: zeros {zeros}, 2:4 {held}, "
+                        f"{names}")
+    return {"stack": names, "pruned": len(masked)}
+
+
+def phase20(pt, fa, seed, failures, gpt_rate=None):
+    """Phase 20: the optimizer breadth. A part that raises is a failure
+    and the next one still runs. Returns each part's flash launches."""
+    import traceback
+    log("phase 20: the optimizer breadth: the meta-optimizer stack, "
+        "fuse_accumulators, the eleven optimizers and the averaging "
+        "wrappers, DGC and LARS on ResNet-50, ASP with sparsity")
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    parts = (("gpt_stack", True, lambda: p20_gpt_stack(pt, fa, seed, gpt_rate,
+                                                       failures)),
+             ("fused_bert", False, lambda: p20_fused_bert(pt, fa, seed,
+                                                          failures)),
+             ("sweep", True, lambda: p20_sweep(pt, fa, seed, failures)),
+             ("resnet50", False, lambda: p20_resnet(pt, fa, seed, failures)),
+             ("asp_stack", False, lambda: p20_asp_stack(pt, fa, seed,
+                                                        failures)))
+    for key, flash, part in parts:
+        t0 = time.perf_counter()
+        fa.reset_launch_counts()
+        try:
+            res = part()
+            if key == "gpt_stack":
+                counts, res = res
+                launches["optimizer_stack_gpt_eager"] = counts
+            out[key] = res
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            traceback.print_exc()
+            failures.append(f"phase 20 ({key}) raised "
+                            f"{type(e).__name__}: {e}")
+        if not flash:
+            launches[f"optimizers_{key}"] = p20_no_flash(f"({key})", fa,
+                                                         failures)
+        log(f"  -- {key}: {time.perf_counter() - t0:.1f} s")
+        free_cuda()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 20: {out['seconds']:.1f} s; {card_line()}")
+    log(json.dumps({"optimizers": out}, default=str))
+    return launches
+
+
 def gpt_small_model(pt, seed):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
     pt.seed(seed)
@@ -9208,7 +9819,7 @@ def parse_phases(text):
     return phases | {1}
 
 
-LAST_PHASE = 19
+LAST_PHASE = 20
 TIMING_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "max_abs_err")
 
@@ -9389,6 +10000,10 @@ def main():
     hapi_launches = {}
     if on(19, "the high-level training loop"):
         hapi_launches = phase19(pt, fa, args.seed, failures, vision)
+    # ---- 20. the optimizer breadth
+    optimizer_launches = {}
+    if on(20, "the optimizer breadth"):
+        optimizer_launches = phase20(pt, fa, args.seed, failures, gpt_rate)
     close_phase()
     log(json.dumps({"phase_seconds": seconds, "total_seconds":
                     time.perf_counter() - t_start, "card": card_line()}))
@@ -9431,7 +10046,9 @@ def main():
                 **{path: counts.get(name)
                    for path, counts in rest_launches.items()},
                 **{path: counts.get(name)
-                   for path, counts in hapi_launches.items()}),
+                   for path, counts in hapi_launches.items()},
+                **{path: counts.get(name)
+                   for path, counts in optimizer_launches.items()}),
             gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,

@@ -62,18 +62,54 @@ from . import (amp, autograd, checkpoint, distributed, hapi,  # noqa: F401
                regularizer, serving, testing)
 from .core.dispatch import call_op, call_op_nograd, unwrap  # noqa: F401
 from .core.autograd import enable_grad, grad, no_grad  # noqa: F401
-from .core.device import resolve_device
+from .core.device import (CPUPlace, Place, TPUPlace,  # noqa: F401
+                          device_count, get_device, is_compiled_with_tpu,
+                          resolve_device, set_device)
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
 from .distributed.parallel import DataParallel  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
 from .nn.layer.layers import ParamAttr  # noqa: F401
-from .core.dtype import bfloat16, convert_dtype, float32, int32  # noqa: F401
+from .core.dtype import (bfloat16, bool_, complex64,  # noqa: F401
+                         complex128, convert_dtype, float16, float32,
+                         float64, int8, int16, int32, int64, uint8)
 from .core.random import (default_generator, get_rng_state,  # noqa: F401
                           seed, set_rng_state)
 from .ops import *  # noqa: F401,F403
 from .regularizer import L1Decay, L2Decay  # noqa: F401
 from .serialization import load, save  # noqa: F401
+
+
+from . import sparsity  # noqa: F401
+
+
+def get_default_dtype():
+    return "float32"
+
+
+def set_default_dtype(dtype):
+    """Raises, as the reference does: float32 is the fixed default."""
+    raise NotImplementedError("float32 is the fixed default; cast per-tensor")
+
+
+def is_grad_enabled():
+    import torch
+    return torch.is_grad_enabled()
+
+
+def set_grad_enabled(flag):
+    """Turn gradient recording on or off for this thread (the reference's
+    switch, not a context manager)."""
+    import torch
+    torch.set_grad_enabled(bool(flag))
+
+
+def in_dynamic_mode():
+    return True  # the port has no static mode
+
+
+def disable_static(*args, **kwargs):
+    """A no-op: dygraph is the only mode."""
 
 
 # The model zoos load on first use (``paddle_tpu_torch.models``), so a
@@ -98,5 +134,10 @@ __all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
            "io", "jit", "linalg", "metric", "models", "monitor", "nn",
            "observability", "ops", "Model", "summary", "flops",
            "optimizer", "parallel", "profiler", "recompute", "regularizer",
-           "serving", "testing",
-           "vision"] + ops.__all__
+           "serving", "testing", "sparsity", "vision", "Place", "CPUPlace",
+           "TPUPlace", "set_device", "get_device", "device_count",
+           "is_compiled_with_tpu", "bool_", "uint8", "int8", "int16",
+           "int64", "float16", "float64", "complex64", "complex128",
+           "get_default_dtype", "set_default_dtype", "is_grad_enabled",
+           "set_grad_enabled", "in_dynamic_mode",
+           "disable_static"] + ops.__all__

@@ -9,4 +9,21 @@ from .auto_cast import (auto_cast, black_list,  # noqa: F401
 from .grad_scaler import AmpScaler, GradScaler  # noqa: F401
 
 __all__ = ["auto_cast", "white_list", "black_list", "downcast_out_list",
-           "get_amp_state", "GradScaler", "AmpScaler"]
+           "get_amp_state", "GradScaler", "AmpScaler", "decorate"]
+
+
+def decorate(models, optimizers=None, level="O1", dtype="bfloat16",
+             master_weight=None, save_dtype=None):
+    """``paddle.amp.decorate``: at ``O2`` the models' parameters are cast
+    to ``dtype`` (the optimizers keep float32 masters with
+    ``multi_precision``); returns the models, and the optimizers when
+    given."""
+    if level == "O2":
+        if not isinstance(models, (list, tuple)):
+            models = [models]
+        for m in models:
+            m.to(dtype=dtype)
+        models = models[0] if len(models) == 1 else models
+    if optimizers is None:
+        return models
+    return models, optimizers

@@ -187,9 +187,11 @@ class GradScaler:
 
 def _state_tensors(opt):
     """Every tensor an optimizer step writes: the trainable parameters (or
-    stage 3's kept buffers), the accumulators, the ZeRO stores and
-    ``@step``."""
-    out = [opt._step_count, *opt._accumulators.values()]
+    stage 3's kept buffers), the accumulators (or the fused stores that
+    hold them), the ZeRO stores and ``@step``."""
+    fused = opt._fused
+    out = [opt._step_count, *(fused.stores.values() if fused is not None
+                              else opt._accumulators.values())]
     zero = opt._zero
     if zero is None:
         out += [p for p in opt._parameters() if p.requires_grad]

@@ -247,10 +247,12 @@ def capture_optimizer(opt, local=False):
                     if p.grad is not None and not p.grad.is_sparse}
     zero = opt._zero
     if zero is None:
+        fused = _fused_slots(opt)
         out["accumulators"] = {
             f"{key_of[pid]}.{slot}": to_numpy(t)
-            for (slot, pid), t in opt._accumulators.items() if pid in key_of}
-        out["flat_stores"] = {}
+            for (slot, pid), t in opt._accumulators.items()
+            if pid in key_of and slot not in fused}
+        out["flat_stores"] = {slot: to_numpy(t) for slot, t in fused.items()}
         return out
     buckets = []
     for b in zero.buckets:
@@ -446,10 +448,22 @@ def restore_optimizer(opt, data, strict=True):
     zero.refresh_parameters()
 
 
+def _fused_slots(opt):
+    """``{slot: store}`` of the fused stores (``fuse_accumulators``) that
+    the reference fuses too: every slot but the masters, which it keeps
+    per parameter (and so does the record)."""
+    fused = opt._fused
+    if fused is None:
+        return {}
+    return {slot: t for slot, t in fused.stores.items() if slot != "master"}
+
+
 def _restore_accumulators(opt, params, data, strict):
     key_of = {id(p): k for k, p in params.items()}
+    fused = _fused_slots(opt)
     live = {f"{key_of[pid]}.{slot}": t
-            for (slot, pid), t in opt._accumulators.items() if pid in key_of}
+            for (slot, pid), t in opt._accumulators.items()
+            if pid in key_of and slot not in fused}
     for key, arr in data.get("accumulators", {}).items():
         t = live.get(key)
         if t is None:
@@ -459,10 +473,17 @@ def _restore_accumulators(opt, params, data, strict):
                     "(different optimizer class or param set?)")
             continue
         _copy_into(t, arr, f"accumulator {key!r}")
-    if data.get("flat_stores"):
+    for slot, arr in data.get("flat_stores", {}).items():
+        store = fused.get(slot)
+        if store is None:
+            raise StateMismatchError(
+                f"checkpoint fused store {slot!r} has no live counterpart "
+                "(fuse_accumulators mismatch)")
+        _copy_into(store, arr, f"fused store {slot!r}")
+    if strict and fused and not data.get("flat_stores"):
         raise StateMismatchError(
-            "the checkpoint holds fused accumulator stores "
-            "(fuse_accumulators), which the port does not have")
+            "the live optimizer keeps fused stores (fuse_accumulators) and "
+            "the checkpoint none (fuse_accumulators mismatch)")
 
 
 # -- scaler / rng ----------------------------------------------------------

@@ -6,9 +6,18 @@ The reference keys dtypes by paddle's names ("float32", "bfloat16",
 import numpy as np
 import torch
 
-float32 = torch.float32
-bfloat16 = torch.bfloat16
+bool_ = torch.bool
+uint8 = torch.uint8
+int8 = torch.int8
+int16 = torch.int16
 int32 = torch.int32
+int64 = torch.int64
+float16 = torch.float16
+bfloat16 = torch.bfloat16
+float32 = torch.float32
+float64 = torch.float64
+complex64 = torch.complex64
+complex128 = torch.complex128
 
 _ALIASES = {
     "bool": torch.bool,
@@ -25,6 +34,8 @@ _ALIASES = {
     "fp32": torch.float32,
     "float64": torch.float64,
     "fp64": torch.float64,
+    "complex64": torch.complex64,
+    "complex128": torch.complex128,
 }
 
 _NUMPY = {torch.bool: np.bool_, torch.uint8: np.uint8, torch.int8: np.int8,

@@ -1,9 +1,11 @@
 """Fleet (counterpart: ``paddle_tpu/distributed/fleet``): the collective
 facade (``init``, ``distributed_model``, ``distributed_optimizer``, the
-hybrid topology), the meta-parallel layers and wrappers
-(``meta_parallel``), and the filesystem abstraction the checkpoint core
-writes through (``utils.fs.LocalFS``) and the elastic manager
-(``elastic``), the role makers, the datasets, the TDM tree index
+hybrid topology), the meta-optimizers (``meta_optimizers``, loaded on
+first use: they stand on the optimizer and amp packages, which import
+this one), the meta-parallel layers and wrappers (``meta_parallel``), and
+the filesystem abstraction the checkpoint core writes through
+(``utils.fs.LocalFS``) and the elastic manager (``elastic``), the role
+makers, the datasets, the TDM tree index
 (``index_dataset``) and the parameter-server entry points
 (``distributed.ps``)."""
 from . import elastic, meta_parallel, utils  # noqa: F401
@@ -39,10 +41,18 @@ shutdown_servers = _fb.shutdown_servers
 __all__ = ["DistributedStrategy", "CommunicateTopology",
            "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "InMemoryDataset",
            "QueueDataset", "TreeIndex", "LayerWiseSampler",
-           "HybridCommunicateGroup", "meta_parallel", "utils", "elastic",
+           "HybridCommunicateGroup", "meta_optimizers", "meta_parallel",
+           "utils", "elastic",
            "ElasticManager", "init",
            "distributed_model", "distributed_optimizer",
            "get_hybrid_communicate_group", "worker_index", "worker_num",
            "is_first_worker", "is_server", "is_worker", "barrier_worker",
            "stop_worker", "init_server", "run_server", "init_worker",
            "ps_step", "ps_runtime", "save_persistables", "shutdown_servers"]
+
+
+def __getattr__(name):
+    if name == "meta_optimizers":
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

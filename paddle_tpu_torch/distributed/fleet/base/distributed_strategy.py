@@ -2,10 +2,10 @@
 ``paddle_tpu/distributed/fleet/base/distributed_strategy.py``): the same
 plain-Python field surface, read by ``fleet.init`` (``hybrid_configs``),
 ``fleet.distributed_model`` (``pipeline_configs``, ``recompute``) and
-``fleet.distributed_optimizer`` (``sharding``, ``sharding_configs``). The
-meta-optimizer switches the port does not run (``amp``, ``dgc``,
-``localsgd``, ``lamb``, ``lars``, ``gradient_merge``, ...) are kept as fields;
-``distributed_optimizer`` raises when one is on."""
+``fleet.distributed_optimizer`` (the meta-optimizer switches and their
+``*_configs``: ``sharding``, ``dgc``, ``lars``, ``lamb``, ``fp16_allreduce``,
+``gradient_merge``, ``localsgd``, ``asp``, ``amp``). ``adaptive_localsgd``
+is a field that selects nothing, as in the reference."""
 import copy
 
 

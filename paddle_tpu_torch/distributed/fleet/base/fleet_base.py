@@ -17,10 +17,15 @@ the card, gloo with ``device="cpu"``), builds the hybrid mesh over it
 ``distributed_model`` wraps by the degrees, as the reference does:
 ``PipelineParallel`` for a ``PipelineLayer`` at pp > 1, ``TensorParallel``
 at mp > 1, ``ShardingParallel`` at sharding > 1, else ``DataParallel``.
-``distributed_optimizer`` returns a ``HybridParallelOptimizer``: with
-``strategy.sharding`` the inner optimizer's state goes to ZeRO over the dp
-axis (the sharding axis where its degree is above one) at
-``sharding_configs["stage"]``; otherwise its ``step`` first averages the
+``distributed_optimizer`` resolves the strategy's meta-optimizer stack
+(``meta_optimizers.StrategyCompiler``: dgc, lars, lamb, sharding,
+fp16_allreduce, gradient_merge, localsgd, asp, amp, innermost first),
+applies it and returns a ``HybridParallelOptimizer`` over it that records
+the stack's names (``_meta_optimizer_names``). With ``sharding`` in the
+stack the state goes to ZeRO over the dp axis (the sharding axis where
+its degree is above one) at ``sharding_configs["stage"]``, or to owners
+per parameter for the optimizers that cannot run flat
+(``meta_optimizers.sharding``); otherwise the ``step`` first averages the
 gradients over the dp group (outside a ``to_static(..., dp_axis=)``
 program, whose optimizer reduces by itself). A global-norm clip sums the
 squares of sliced parameters over the mp group and of each stage's over
@@ -45,11 +50,6 @@ from .topology import (HybridCommunicateGroup, get_hybrid_communicate_group,
 _strategy = None
 _role_maker = None
 _ps_runtime = None
-
-# meta-optimizer switches of the strategy that the port does not run
-# (a_sync is none: it selects the parameter server's mode)
-_UNPORTED = ("amp", "dgc", "localsgd", "adaptive_localsgd", "lamb", "lars",
-             "fp16_allreduce", "asp", "gradient_merge")
 
 
 def init(role_maker=None, is_collective=True, strategy=None, device=None):
@@ -174,25 +174,14 @@ def _hcg():
     return hcg
 
 
-def _apply_recompute(model, checkpoints):
-    """Recompute (``full``) the sublayers whose structured name matches a
-    pattern of ``checkpoints`` (fnmatch or substring)."""
-    import fnmatch
-    wrapped = []
-    for name, sub in model.named_sublayers():
-        if any(fnmatch.fnmatch(name, p) or p in name for p in checkpoints):
-            sub.enable_recompute("full")
-            wrapped.append(name)
-    return wrapped
-
-
 def distributed_model(model):
     """Wrap ``model`` by the active degrees (see the module docstring)."""
+    from ..meta_optimizers.recompute import apply_recompute
     from ..meta_parallel import (PipelineLayer, PipelineParallel,
                                  ShardingParallel, TensorParallel)
     hcg = _hcg()
     if _strategy is not None and _strategy.recompute:
-        _apply_recompute(model, _strategy.recompute_configs.get(
+        apply_recompute(model, _strategy.recompute_configs.get(
             "checkpoints", []))
     if hcg.get_pipe_parallel_world_size() > 1 and isinstance(model,
                                                             PipelineLayer):
@@ -205,19 +194,23 @@ def distributed_model(model):
 
 
 def distributed_optimizer(optimizer, strategy=None):
-    """The optimizer under the hybrid mesh (``HybridParallelOptimizer``);
-    in parameter-server mode, where the servers apply the rule (the
-    worker's optimizer steps only in geo mode, through ``ps_step``), the
-    optimizer itself."""
+    """The optimizer under the hybrid mesh: the strategy's meta-optimizer
+    stack over it, in a ``HybridParallelOptimizer`` that records the
+    stack's names (``_meta_optimizer_names``); in parameter-server mode,
+    where the servers apply the rule (the worker's optimizer steps only in
+    geo mode, through ``ps_step``), the optimizer itself."""
+    from ..meta_optimizers.strategy_compiler import StrategyCompiler
     global _strategy
     strategy = strategy or _strategy or DistributedStrategy()
-    on = [k for k in _UNPORTED if getattr(strategy, k, False)]
-    if on:
-        raise NotImplementedError(f"strategy switches {on} (meta-optimizers) "
-                                  "are not ported")
     if _ps_runtime is not None:
         return optimizer
-    return HybridParallelOptimizer(optimizer, _hcg(), strategy)
+    hcg = _hcg()
+    stack = StrategyCompiler().resolve(strategy, hcg, optimizer)
+    wrapped = HybridParallelOptimizer(
+        StrategyCompiler.apply(stack, optimizer), hcg, strategy,
+        sharded="sharding" in dict(stack))
+    wrapped._meta_optimizer_names = [name for name, _ in stack]
+    return wrapped
 
 
 class HybridParallelClipGrad(ClipGradByGlobalNorm):
@@ -252,24 +245,21 @@ class HybridParallelOptimizer:
     """The optimizer under the hybrid mesh (see the module docstring);
     every other attribute is the inner optimizer's."""
 
-    def __init__(self, optimizer, hcg, strategy):
-        from ..meta_parallel.sharding_parallel import sharding_axis
+    def __init__(self, optimizer, hcg, strategy, sharded=False):
         self._inner_opt = optimizer
         self._hcg = hcg
         self._strategy = strategy
-        clip = optimizer._grad_clip
+        self._meta_optimizer_names = []
+        base = optimizer
+        while "_inner" in vars(base):  # under the meta-optimizers
+            base = base._inner
+        clip = base._grad_clip
         if isinstance(clip, ClipGradByGlobalNorm) and (
                 hcg.get_model_parallel_world_size() > 1
                 or hcg.get_pipe_parallel_world_size() > 1):
-            optimizer._grad_clip = HybridParallelClipGrad(clip.clip_norm, hcg)
-        self._sharded = bool(strategy.sharding
-                             or hcg.get_sharding_parallel_world_size() > 1)
-        if self._sharded:
-            cfg = strategy.sharding_configs or {}
-            optimizer._zero_enable(
-                axis=sharding_axis(hcg), mesh=hcg.mesh,
-                stage=int(cfg.get("stage", 1)),
-                comm_buffer_mb=float(cfg.get("comm_buffer_size_MB", 25.0)))
+            base._grad_clip = HybridParallelClipGrad(clip.clip_norm, hcg)
+        # the sharding meta-optimizer reduces the gradients itself
+        self._sharded = bool(sharded)
 
     def __getattr__(self, name):
         return getattr(self._inner_opt, name)

@@ -235,10 +235,16 @@ def state_ledger():
             add(bname, "buffer", buf)
     for opt in list(_optimizers):
         names = getattr(opt, "_names", {})
-        for (slot, pid), t in list(opt._accumulators.items()):
-            pname = names.get(pid, str(pid))
-            add(f"{pname}.{slot}", "master" if slot == "master"
-                else "opt_moment", t)
+        fused = getattr(opt, "_fused", None)
+        if fused is not None:  # the stores, which the views share
+            for slot, t in fused.stores.items():
+                add(f"fused_{slot}", "master" if slot == "master"
+                    else "opt_moment", t)
+        else:
+            for (slot, pid), t in list(opt._accumulators.items()):
+                pname = names.get(pid, str(pid))
+                add(f"{pname}.{slot}", "master" if slot == "master"
+                    else "opt_moment", t)
         add("@step", "lr", getattr(opt, "_step_count", None))
         lr = getattr(opt, "_lr", None)
         add("@lr", "lr", getattr(lr, "tensor", None))

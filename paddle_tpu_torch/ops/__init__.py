@@ -25,6 +25,7 @@ import types
 import torch
 
 from ..core.dispatch import call_op, call_op_nograd  # noqa: F401
+from ..core.dtype import convert_dtype  # noqa: F401
 from ..core.tensor import Parameter, Tensor, unwrap
 from . import (ctr_tail, extras, manipulation, math, random,  # noqa: F401
                sequence, tdm)

@@ -1,5 +1,9 @@
-"""Optimizer, SGD, Momentum, Adam and AdamW (counterpart:
-``paddle_tpu/optimizer/optimizer.py``).
+"""Optimizer and the reference's fifteen optimizers (counterpart:
+``paddle_tpu/optimizer/optimizer.py``): SGD, Momentum, Adam, AdamW,
+Adagrad, RMSProp, Adadelta, Adamax, DecayedAdagrad, ProximalGD,
+ProximalAdagrad and Ftrl (elementwise: each has ``_apply_flat``, so ZeRO
+runs it on flat shards), and Lamb, Lars and Dpsgd (whole-tensor norms or
+noise draws: ``_zero_compatible = False``).
 
 The reference's ``step`` order: clip the (param, grad) pairs, count the
 step, cast each low-precision gradient to float32, run the update on the
@@ -44,8 +48,18 @@ are scattered back, so untouched rows and their accumulators stay
 bitwise as they were (``lazy_mode`` semantics; the reference applies a
 sparse gradient so whatever ``lazy_mode`` says, and so does the port).
 A sparse gradient under a dp axis or under ZeRO raises, as in the
-reference. Not ported: coalesced accumulator stores
-(``fuse_accumulators``); asking for them raises.
+reference.
+
+``fuse_accumulators=True`` keeps each slot in one float32 ``[rows, 1024]``
+store (``zero.FusedState``: ZeRO's layout at degree 1), every parameter's
+accumulator a view of its segment, and the low-precision parameters'
+float32 masters in one more store. A step then runs the update once over
+each whole store (``_apply_flat``), elementwise math that is bitwise the
+per-parameter update; parameters with a per-parameter rate or
+regularizer, and the whole-tensor optimizers, step per parameter on the
+views. The reference's ``Momentum`` and ``Adagrad`` take no
+``fuse_accumulators`` keyword, and neither do the port's:
+``Optimizer._fuse()`` lays out any optimizer's stores after construction.
 """
 import numpy as np
 import torch
@@ -105,12 +119,17 @@ class Optimizer:
     # decoupled decay does not, as in the reference)
     _reads_regularizer = True
 
+    # fuse_accumulators' stores (zero.FusedState), until ZeRO supersedes them
+    _fused = None
+    # the per-parameter float32 slots an update reads (besides the master)
+    _SLOTS = ()
+    # owners per parameter (fleet's sharding of the non-flat optimizers:
+    # meta_optimizers.sharding.shard_optimizer_state): a rank updates the
+    # parameters it owns, after the clip saw every gradient
+    _owners = None
+
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None, fuse_accumulators=False):
-        if fuse_accumulators:
-            raise NotImplementedError(
-                "fuse_accumulators (coalesced accumulator stores) is not "
-                "ported")
         if parameters is None:
             raise ValueError("parameters are required (the static-graph "
                              "minimize path is not ported)")
@@ -129,6 +148,8 @@ class Optimizer:
         self._weight_decay = self._wd_value(weight_decay)
         self._grad_clip = grad_clip
         self._accumulators = {}  # (slot, id(param)) -> float32 tensor
+        self._fills = {}  # slot -> the value it starts at
+        self._fuse_acc = bool(fuse_accumulators)
         self._names = {}  # id(param) -> name
         self._step_count = torch.zeros((), dtype=torch.int32, device=device)
         used = set()
@@ -141,6 +162,8 @@ class Optimizer:
             used.add(name)
             self._names[id(p)] = name
             self._create_accumulators(p)
+        if self._fuse_acc:
+            self._fuse()
         from ..observability import memory
         memory.register_optimizer(self)  # the state ledger's walk
 
@@ -155,6 +178,7 @@ class Optimizer:
     # -- accumulator management ------------------------------------------
     def _add_accumulator(self, slot, param, fill=0.0, dtype=None):
         key = (slot, id(param))
+        self._fills[slot] = fill
         if key not in self._accumulators:
             self._accumulators[key] = torch.full(
                 param.shape, fill, dtype=dtype or torch.float32,
@@ -178,7 +202,38 @@ class Optimizer:
         return t
 
     def _create_accumulators(self, param):
-        pass  # subclasses pre-create slots here
+        for slot in self._SLOTS:
+            self._add_accumulator(slot, param)
+        self._maybe_master(param)
+
+    def _slots_of(self, p):
+        return {slot: self._accumulators[(slot, id(p))]
+                for slot in self._SLOTS}
+
+    def _fuse(self):
+        """Move every slot and master into fused ``[rows, 1024]`` stores
+        (``fuse_accumulators``); returns the number of stores."""
+        from .zero import FusedState
+        if self._zero is not None:
+            raise RuntimeError("ZeRO already holds this optimizer's state")
+        if self._fused is None:
+            self._fuse_acc = True
+            self._fused = FusedState(self)
+        return len(self._fused.stores)
+
+    def _master_of(self, p):
+        """The float32 master of ``p`` that the next step reads its value
+        from, or None (a parameter without one holds its own value). Under
+        ZeRO with masters or at stage 3 the value lives in a sharded store,
+        and writing it from outside the step is not ported."""
+        zero = self._zero
+        if zero is not None and (zero.stage == 3 or any(
+                b.has_master for b in zero.buckets)):
+            raise NotImplementedError(
+                "writing parameters from outside the step (LookAhead, ASP) "
+                "under ZeRO with float32 masters or at stage 3, whose "
+                "values live in sharded stores, is not ported")
+        return self._accumulators.get(("master", id(p)))
 
     # -- API --------------------------------------------------------------
     def get_lr(self):
@@ -252,6 +307,7 @@ class Optimizer:
             return self._zero.reenable(axis, stage, comm_buffer_mb, prefetch)
         self._zero = ZeroState(self, axis, mesh, stage, comm_buffer_mb,
                                last_comm_buffer_mb, prefetch)
+        self._fused = None  # superseded: the state moved into ZeRO's stores
         return self._zero.n_sharded
 
     def _zero_state_bytes(self):
@@ -259,8 +315,9 @@ class Optimizer:
         stores, or every accumulator without ZeRO."""
         if self._zero is not None:
             return self._zero.state_bytes()
-        return sum(t.numel() * t.element_size()
-                   for t in self._accumulators.values())
+        tensors = (self._fused.stores.values() if self._fused is not None
+                   else self._accumulators.values())
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def zero_layout(self):
         """The active ZeRO layout (``stage``, ``axis``, ``degree``,
@@ -301,6 +358,10 @@ class Optimizer:
                             for p, g in params_grads]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
+        if self._owners is not None:
+            own, me = self._owners["owners"], self._owners["rank"]
+            params_grads = [(p, g) for p, g in params_grads
+                            if own.get(id(p), me) == me]
         self._step_count.add_(1)
         by_scale = {}
         sparse = []
@@ -309,6 +370,10 @@ class Optimizer:
                 sparse.append((p, g))
                 continue
             by_scale.setdefault(_lr_scale(p), []).append((p, g))
+        if self._fused is not None and self._fused.flat and by_scale:
+            # one update over each whole store (every rate factor is 1)
+            self._prepare_step(self._lr.tensor)
+            self._fused.step(by_scale.pop(1.0))
         for scale, pairs in by_scale.items():
             lr = self._lr.tensor
             self._prepare_step(lr if scale == 1.0 else lr * scale)
@@ -438,26 +503,33 @@ def _grad_div(g, a):
     return g / a
 
 
-class SGD(Optimizer):
-    """``p -= lr * g``, the L2/L1 decay folded into ``g``; elementwise, so
-    ZeRO-1/2/3 run it on flat shards (``_apply_flat``)."""
+class _Elementwise(Optimizer):
+    """An elementwise update at the plain rate: ``_apply_one`` is
+    ``_apply_flat`` on the parameter's own slots, and ZeRO-1/2/3 and the
+    fused stores run ``_apply_flat`` over flat rows."""
 
     def _prepare_step(self, lr):
         self._lr_t = lr
 
     def _apply_one(self, p, value, g):
-        self._apply_flat(value, g, {}, decay=None, p=p)
+        self._apply_flat(value, g, self._slots_of(p), decay=None, p=p)
+
+
+class SGD(_Elementwise):
+    """``p -= lr * g``, the L2/L1 decay folded into ``g``."""
 
     def _apply_flat(self, value, g, slots, decay, p=None):
         value.sub_(self._lr_t * self._decayed_grad(value, g, p))
 
 
-class Momentum(Optimizer):
+class Momentum(_Elementwise):
     """``v = momentum * v + g``, then ``p -= lr * v`` (with
     ``use_nesterov``, ``p -= lr * (g + momentum * v)``), the L2/L1 decay
     folded into ``g``; the float32 ``velocity`` slot, and a float32 master
     of each low-precision parameter with ``multi_precision``. Elementwise,
     so ZeRO-1/2/3 keep the velocity as a flat sharded store."""
+
+    _SLOTS = ("velocity",)
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
@@ -466,18 +538,6 @@ class Momentum(Optimizer):
         self._nesterov = use_nesterov
         self._multi_precision = multi_precision
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
-
-    def _create_accumulators(self, param):
-        self._add_accumulator("velocity", param)
-        self._maybe_master(param)
-
-    def _prepare_step(self, lr):
-        self._lr_t = lr
-
-    def _apply_one(self, p, value, g):
-        self._apply_flat(value, g,
-                         {"velocity": self._get_accumulator("velocity", p)},
-                         decay=None, p=p)
 
     def _apply_flat(self, value, g, slots, decay, p=None):
         g = self._decayed_grad(value, g, p)
@@ -490,6 +550,8 @@ class Momentum(Optimizer):
 
 
 class Adam(Optimizer):
+    _SLOTS = ("moment1", "moment2")
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
@@ -498,11 +560,6 @@ class Adam(Optimizer):
         self._multi_precision = multi_precision
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          fuse_accumulators=fuse_accumulators)
-
-    def _create_accumulators(self, param):
-        self._add_accumulator("moment1", param)
-        self._add_accumulator("moment2", param)
-        self._maybe_master(param)
 
     def _prepare_step(self, lr):
         # the bias-corrected rate, in float32 from the step count, as the
@@ -518,10 +575,6 @@ class Adam(Optimizer):
     def _update(self, value, m, v):
         """value -= lr_t * m / (sqrt(v) + eps), in the reference's order."""
         value.addcdiv_(m * self._lr_t, v.sqrt().add_(self._eps), value=-1.0)
-
-    def _slots_of(self, p):
-        return {"moment1": self._get_accumulator("moment1", p),
-                "moment2": self._get_accumulator("moment2", p)}
 
     def _apply_one(self, p, value, g):
         self._apply_flat(value, g, self._slots_of(p), decay=None, p=p)
@@ -576,3 +629,300 @@ class AdamW(Adam):
         self._update(value, m, v)
         if decay is not False:
             value.sub_(wd)
+
+
+# -- the elementwise optimizers of the reference's tail ----------------------
+# Each keeps the reference's order of operations (float32 results agree
+# to rounding).
+
+class Adagrad(_Elementwise):
+    """``acc += g^2``, ``p -= lr * g / (sqrt(acc) + eps)``; the slot
+    starts at ``initial_accumulator_value``."""
+
+    _SLOTS = ("moment",)
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        self._eps = epsilon
+        self._init_acc = initial_accumulator_value
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _create_accumulators(self, param):
+        self._add_accumulator("moment", param, fill=self._init_acc)
+
+    def _apply_flat(self, value, g, slots, decay, p=None):
+        g = self._decayed_grad(value, g, p)
+        acc = slots["moment"]
+        acc.add_(g.square())
+        value.sub_(self._lr_t * g / (acc.sqrt() + self._eps))
+
+
+class RMSProp(_Elementwise):
+    """The mean square (and, ``centered``, the mean gradient) with decay
+    ``rho``; ``mom = momentum * mom + lr * g / sqrt(denom + eps)``,
+    ``p -= mom``."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        self._rho, self._eps = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+        self._SLOTS = ("mean_square", "momentum") + (
+            ("mean_grad",) if centered else ())
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _apply_flat(self, value, g, slots, decay, p=None):
+        g = self._decayed_grad(value, g, p)
+        ms, mom = slots["mean_square"], slots["momentum"]
+        ms.copy_(self._rho * ms + (1 - self._rho) * g.square())
+        denom = ms
+        if self._centered:
+            mg = slots["mean_grad"]
+            mg.copy_(self._rho * mg + (1 - self._rho) * g)
+            denom = ms - mg.square()
+        mom.copy_(self._momentum * mom
+                  + self._lr_t * g / (denom + self._eps).sqrt())
+        value.sub_(mom)
+
+
+class Adadelta(_Elementwise):
+    _SLOTS = ("avg_squared_grad", "avg_squared_update")
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        self._rho, self._eps = rho, epsilon
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _apply_flat(self, value, g, slots, decay, p=None):
+        g = self._decayed_grad(value, g, p)
+        asg, asu = slots["avg_squared_grad"], slots["avg_squared_update"]
+        asg.copy_(self._rho * asg + (1 - self._rho) * g.square())
+        update = ((asu + self._eps).sqrt() / (asg + self._eps).sqrt()) * g
+        asu.copy_(self._rho * asu + (1 - self._rho) * update.square())
+        value.sub_(self._lr_t * update)
+
+
+class Adamax(_Elementwise):
+    """The infinity-norm Adam; the rate's bias correction ``1 - beta1^t``
+    from the device step count."""
+
+    _SLOTS = ("moment", "inf_norm")
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _prepare_step(self, lr):
+        t = self._step_count.float()
+        self._lr_t = lr / (1.0 - self._beta1 ** t)
+
+    def _apply_flat(self, value, g, slots, decay, p=None):
+        g = self._decayed_grad(value, g, p)
+        m, u = slots["moment"], slots["inf_norm"]
+        m.copy_(self._beta1 * m + (1 - self._beta1) * g)
+        u.copy_(torch.maximum(self._beta2 * u, g.abs()))
+        value.sub_(self._lr_t * m / (u + self._eps))
+
+
+class DecayedAdagrad(_Elementwise):
+    """``acc = decay * acc + (1 - decay) * g^2``,
+    ``p -= lr * g / (sqrt(acc) + eps)``."""
+
+    _SLOTS = ("moment",)
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        self._decay, self._eps = decay, epsilon
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _apply_flat(self, value, g, slots, decay, p=None):
+        g = self._decayed_grad(value, g, p)
+        acc = slots["moment"]
+        acc.copy_(self._decay * acc + (1 - self._decay) * g.square())
+        value.sub_(self._lr_t * g / (acc.sqrt() + self._eps))
+
+
+class ProximalGD(_Elementwise):
+    """A gradient step, then the l1/l2 proximal operator."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        self._l1, self._l2 = l1, l2
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _prox(self, prox, step_lr):
+        return (torch.sign(prox)
+                * (prox.abs() - step_lr * self._l1).clamp_min(0.0)
+                / (1.0 + step_lr * self._l2))
+
+    def _apply_flat(self, value, g, slots, decay, p=None):
+        g = self._decayed_grad(value, g, p)
+        value.copy_(self._prox(value - self._lr_t * g, self._lr_t))
+
+
+class ProximalAdagrad(ProximalGD):
+    """The proximal step at an Adagrad-scaled rate."""
+
+    _SLOTS = ("moment",)
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, epsilon=1e-10,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        self._eps = epsilon
+        super().__init__(learning_rate, l1, l2, parameters, weight_decay,
+                         grad_clip)
+
+    def _apply_flat(self, value, g, slots, decay, p=None):
+        g = self._decayed_grad(value, g, p)
+        acc = slots["moment"]
+        acc.add_(g.square())
+        lr_t = self._lr_t / (acc.sqrt() + self._eps)
+        value.copy_(self._prox(value - lr_t * g, lr_t))
+
+
+class Ftrl(_Elementwise):
+    """FTRL-proximal at ``lr_power``. Where ``|linear| <= l1`` the weight
+    is exactly 0; the quotient of the other branch, 0/0 there with
+    ``l2 = 0`` and a zero gradient history, is selected away as in the
+    reference (no epsilon)."""
+
+    _SLOTS = ("squared", "linear")
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _apply_flat(self, value, g, slots, decay, p=None):
+        g = self._decayed_grad(value, g, p)
+        sq, lin = slots["squared"], slots["linear"]
+        lr = self._lr_t
+        new_sq = sq + g.square()
+        pw = -self._lr_power
+        sigma = (new_sq ** pw - sq ** pw) / lr
+        lin.copy_(lin + g - sigma * value)
+        sq.copy_(new_sq)
+        x = self._l1 * torch.sign(lin) - lin
+        y = new_sq ** pw / lr + 2.0 * self._l2
+        value.copy_(torch.where(lin.abs() > self._l1, x / y, 0.0))
+
+
+# -- the whole-tensor optimizers ------------------------------------------------
+
+class _NamedParam:
+    """What ``exclude_from_weight_decay_fn`` receives: the parameter,
+    whose ``name`` reads the optimizer's name for it (torch keeps
+    ``Tensor.name`` for itself; the reference's functions read
+    ``p.name``)."""
+
+    def __init__(self, p, name):
+        self._p, self.name = p, name
+
+    def __getattr__(self, attr):
+        return getattr(self._p, attr)
+
+
+class Lamb(Optimizer):
+    """Adam's moments with the bias correction from the device step count,
+    the decay ``lamb_weight_decay * p`` added to the update unless
+    ``exclude_from_weight_decay_fn(p)``, and the trust ratio
+    ``|p| / |r|`` (1 where either norm is 0): whole-tensor norms, so no
+    ZeRO."""
+
+    _zero_compatible = False
+    _SLOTS = ("moment1", "moment2")
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9,
+                 beta2=0.999, epsilon=1e-6, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay_fn=None, name=None):
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._lamb_wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._excluded = {
+            id(p): self._exclude_fn is not None and bool(self._exclude_fn(
+                _NamedParam(p, self._names[id(p)])))
+            for p in self._parameters()}
+
+    def _prepare_step(self, lr):
+        t = self._step_count.float()
+        self._lr_t = lr
+        self._bc1 = 1.0 - self._beta1 ** t
+        self._bc2 = 1.0 - self._beta2 ** t
+
+    def _apply_one(self, p, value, g):
+        m, v = self._get_accumulator("moment1", p), \
+            self._get_accumulator("moment2", p)
+        m.copy_(self._beta1 * m + (1 - self._beta1) * g)
+        v.copy_(self._beta2 * v + (1 - self._beta2) * g.square())
+        r = (m / self._bc1) / ((v / self._bc2).sqrt() + self._eps)
+        if not self._excluded[id(p)]:
+            r = r + self._lamb_wd * value
+        w_norm = value.square().sum().sqrt()
+        r_norm = r.square().sum().sqrt()
+        ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            1.0)
+        value.sub_(self._lr_t * ratio * r)
+
+
+class Lars(Momentum):
+    """LARS: the local rate ``coeff * |p| / (|g| + wd * |p| + 1e-12)`` (1
+    where either norm is 0) scales the momentum's input. As in the
+    reference, ``exclude_from_weight_decay`` is taken and not applied
+    (ROADMAP §3 records the gap)."""
+
+    _zero_compatible = False
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay=None, multi_precision=False,
+                 name=None):
+        self._lars_coeff = lars_coeff
+        self._lars_wd = lars_weight_decay
+        super().__init__(learning_rate, momentum, parameters, False, None,
+                         grad_clip, multi_precision=multi_precision)
+
+    def _apply_one(self, p, value, g):
+        w_norm = value.square().sum().sqrt()
+        g_norm = g.square().sum().sqrt()
+        local_lr = torch.where(
+            (w_norm > 0) & (g_norm > 0),
+            self._lars_coeff * w_norm
+            / (g_norm + self._lars_wd * w_norm + 1e-12), 1.0)
+        v = self._get_accumulator("velocity", p)
+        v.copy_(self._momentum * v + self._lr_t * local_lr * (
+            g + self._lars_wd * value))
+        value.sub_(v)
+
+
+class Dpsgd(Optimizer):
+    """Differentially private SGD: each gradient clipped to norm ``clip``,
+    Gaussian noise of scale ``sigma / batch_size`` added, then the SGD
+    step. The noise draws from the package's generator
+    (``core.random.draw_generator``), reproducible under ``seed``; torch's
+    Philox and the reference's threefry give different draws."""
+
+    _zero_compatible = False
+
+    def __init__(self, learning_rate=0.001, clip=10.0, batch_size=16.0,
+                 sigma=1.0, parameters=None, grad_clip=None, name=None):
+        self._clip, self._bs, self._sigma = clip, batch_size, sigma
+        super().__init__(learning_rate, parameters, None, grad_clip)
+
+    def _prepare_step(self, lr):
+        self._lr_t = lr
+
+    def _apply_one(self, p, value, g):
+        from ..core import random as core_random
+        norm = g.square().sum().sqrt()
+        scale = (self._clip / (norm + 1e-12)).clamp_max(1.0)
+        noise = torch.randn(g.shape, dtype=torch.float32, device=g.device,
+                            generator=core_random.draw_generator(g.device))
+        value.sub_(self._lr_t * (g * scale + noise * (self._sigma
+                                                       / self._bs)))

@@ -133,6 +133,111 @@ class _Bucket:
         return full
 
 
+def _decay_rows(opt, b, device):
+    """AdamW's ``apply_decay_param_fun`` over bucket ``b``: True, False or
+    this rank's rows of a 0/1 row mask (None for other optimizers)."""
+    decays = getattr(opt, "_decays", None)
+    if decays is None:
+        return None
+    flags = [decays(opt._names[id(p)]) for p in b.params]
+    if all(flags):
+        return True
+    if not any(flags):
+        return False
+    mask = torch.zeros(b.rows, 1, device=device)
+    for o, n, f in zip(b.row_offs, b.n_rows, flags):
+        mask[o:o + n] = float(f)
+    return b.local(mask).clone()
+
+
+def _hold(b, absent, tensors):
+    """(view, copy) of each absent parameter's rows of ``tensors``."""
+    held = []
+    for i in absent:
+        for t in tensors:
+            part = b.local_parts(t)[i]
+            if part is not None:
+                held.append((part, part.clone()))
+    return held
+
+
+class FusedState:
+    """``fuse_accumulators``: the optimizer's state in coalesced stores
+    (``Optimizer._fused``), the reference's ``_FlatStore`` layout: one
+    float32 ``[rows, 1024]`` store per slot over every parameter in order,
+    each parameter's rows filled with the slot's start value, and each
+    accumulator a view of its segment. The float32 masters of the
+    low-precision parameters make one more store (``master``), which the
+    reference keeps per parameter. A step with ``flat`` set runs
+    ``_apply_flat`` once over each store: a bucket at degree 1 with no
+    collective, as ZeRO's shard update (bitwise the per-parameter update);
+    a parameter without a gradient keeps its rows."""
+
+    def __init__(self, opt):
+        params = list(opt._parameters())
+        if not params:
+            raise ValueError("fuse_accumulators needs parameters")
+        self.opt = opt
+        self.device = params[0].device
+        self.layout = b = _Bucket(0, params, 1, 0)
+        self.slots = opt._slot_names()
+        self.stores = {}
+        with torch.no_grad():
+            for slot in self.slots + ["master"]:
+                keys = [(slot, id(p)) for p in params]
+                if not any(k in opt._accumulators for k in keys):
+                    continue
+                fill = opt._fills.get(slot, 0.0)
+                store = torch.zeros(b.rows, _FLAT_LANES, device=self.device)
+                for o, n in zip(b.row_offs, b.n_rows):
+                    store[o:o + n] = fill
+                for k, seg in zip(keys, b.segments(store)):
+                    old = opt._accumulators.get(k)
+                    if old is not None:
+                        seg.copy_(old)
+                        opt._accumulators[k] = seg
+                self.stores[slot] = store
+        self.masters = [opt._accumulators.get(("master", id(p)))
+                        for p in params]
+        self.all_master = all(m is not None for m in self.masters)
+        self.flat = opt._zero_compatible and not any(
+            _lr_scale(p) != 1.0 or (opt._reads_regularizer and getattr(
+                p, "regularizer", None) is not None) for p in params)
+        self.decay = _decay_rows(opt, b, self.device)
+        self.index = {id(p): i for i, p in enumerate(params)}
+
+    def step(self, pairs):
+        """One update over the whole stores from the dense (param, float
+        gradient) ``pairs``, at the rates ``_prepare_step`` set."""
+        b, opt = self.layout, self.opt
+        grads = torch.zeros(b.rows, _FLAT_LANES, device=self.device)
+        segs = b.segments(grads)
+        present = [False] * len(b.params)
+        for p, g in pairs:
+            i = self.index[id(p)]
+            segs[i].copy_(g)
+            present[i] = True
+        if self.all_master:
+            value = self.stores["master"]
+        else:
+            value = torch.zeros(b.rows, _FLAT_LANES, device=self.device)
+            for p, m, seg in zip(b.params, self.masters,
+                                 b.segments(value)):
+                seg.copy_(p if m is None else m)
+        slots = {s: self.stores[s] for s in self.slots}
+        absent = [i for i, has in enumerate(present) if not has]
+        held = _hold(b, absent, [value, *slots.values()])
+        opt._apply_flat(value, grads, slots, decay=self.decay)
+        for view, old in held:
+            view.copy_(old)  # a parameter without a gradient holds still
+        for p, m, seg, has in zip(b.params, self.masters, b.segments(value),
+                                  present):
+            if has:
+                if m is not None and not self.all_master:
+                    m.copy_(seg)
+                p.copy_(seg)
+
+
 class ZeroState:
     """The partitioned state of one optimizer (``Optimizer._zero``)."""
 
@@ -258,24 +363,8 @@ class ZeroState:
                 p.data = seg  # the parameter is its segment of the buffer
                 p._zero_owner = self
         b.grad_shard = torch.empty(b.shard_rows, _FLAT_LANES, device=dev)
-        b.decay = self._decay_rows(b)
+        b.decay = _decay_rows(opt, b, dev)
         return b
-
-    def _decay_rows(self, b):
-        """AdamW's ``apply_decay_param_fun`` over the bucket: True, False
-        or this rank's rows of a 0/1 row mask."""
-        decays = getattr(self.opt, "_decays", None)
-        if decays is None:
-            return None
-        flags = [decays(self.opt._names[id(p)]) for p in b.params]
-        if all(flags):
-            return True
-        if not any(flags):
-            return False
-        mask = torch.zeros(b.rows, 1, device=self.device)
-        for o, n, f in zip(b.row_offs, b.n_rows, flags):
-            mask[o:o + n] = float(f)
-        return b.local(mask).clone()
 
     def reenable(self, axis, stage, comm_buffer_mb, prefetch):
         same = (axis in (None, self.axis) and int(stage) == self.stage
@@ -462,7 +551,7 @@ class ZeroState:
         work = value if value.dtype == torch.float32 else value.float()
         slots = {s: b.stores[s] for s in self.slots}
         absent = [i for i, has in enumerate(present) if not has]
-        held = self._hold(b, absent, [work, *slots.values()])
+        held = _hold(b, absent, [work, *slots.values()])
         opt._apply_flat(work, g, slots, decay=b.decay)
         for view, old in held:
             view.copy_(old)  # a parameter without a gradient holds still
@@ -476,17 +565,6 @@ class ZeroState:
         b.send.copy_(work)
         return collective.all_gather_flat(b.buffer, b.send, self.group,
                                           async_op=True)
-
-    @staticmethod
-    def _hold(b, absent, tensors):
-        """(view, copy) of each absent parameter's rows of ``tensors``."""
-        held = []
-        for i in absent:
-            for t in tensors:
-                part = b.local_parts(t)[i]
-                if part is not None:
-                    held.append((part, part.clone()))
-        return held
 
     # -- checkpoints ---------------------------------------------------------
     def gather_shards(self, store):

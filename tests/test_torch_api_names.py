@@ -113,10 +113,25 @@ PORTED_MODULES = {
     "paddle_tpu.vision.datasets", "paddle_tpu.vision.models.vgg",
     "paddle_tpu.vision.models.mobilenet", "paddle_tpu.nn.layer.conv",
     "paddle_tpu.nn.layer.norm", "paddle_tpu.nn.layer.pooling",
-    "paddle_tpu.nn.functional.conv", "paddle_tpu.nn.functional.pooling"}
+    "paddle_tpu.nn.functional.conv", "paddle_tpu.nn.functional.pooling",
+    # the optimizer breadth: parameter averaging, sparsity, the top level's
+    # devices and the fleet's meta-optimizers
+    "paddle_tpu.optimizer.averaging", "paddle_tpu.sparsity",
+    "paddle_tpu.core.device",
+    "paddle_tpu.distributed.fleet.meta_optimizers.amp",
+    "paddle_tpu.distributed.fleet.meta_optimizers.asp",
+    "paddle_tpu.distributed.fleet.meta_optimizers.dgc",
+    "paddle_tpu.distributed.fleet.meta_optimizers.fp16_allreduce",
+    "paddle_tpu.distributed.fleet.meta_optimizers.gradient_merge",
+    "paddle_tpu.distributed.fleet.meta_optimizers.localsgd",
+    "paddle_tpu.distributed.fleet.meta_optimizers.recompute",
+    "paddle_tpu.distributed.fleet.meta_optimizers.sharding",
+    "paddle_tpu.distributed.fleet.meta_optimizers.strategy_compiler"}
 PORTED_CLASSES = {
-    "paddle_tpu.optimizer.optimizer": {"Optimizer", "Adam", "AdamW", "SGD",
-                                       "Momentum"},
+    "paddle_tpu.optimizer.optimizer": {
+        "Optimizer", "Adam", "AdamW", "SGD", "Momentum", "Adagrad",
+        "RMSProp", "Adadelta", "Adamax", "Lamb", "Lars", "DecayedAdagrad",
+        "ProximalGD", "ProximalAdagrad", "Ftrl", "Dpsgd"},
     "paddle_tpu.nn.layer.layers": {"Layer"},
     # the package's own flops (hapi's)
     "paddle_tpu": {"flops"}}

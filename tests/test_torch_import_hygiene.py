@@ -130,6 +130,24 @@ _HAPI = ("paddle_tpu_torch.io", "paddle_tpu_torch.io.dataset",
          "paddle_tpu_torch.vision.datasets",
          "paddle_tpu_torch.vision.models.vgg",
          "paddle_tpu_torch.vision.models.mobilenet")
+# the optimizer breadth: averaging, sparsity, the devices and the fleet's
+# meta-optimizers
+_OPTIMIZERS = ("paddle_tpu_torch.optimizer.averaging",
+               "paddle_tpu_torch.sparsity", "paddle_tpu_torch.core.device",
+               "paddle_tpu_torch.distributed.fleet.meta_optimizers",
+               "paddle_tpu_torch.distributed.fleet.meta_optimizers.amp",
+               "paddle_tpu_torch.distributed.fleet.meta_optimizers.asp",
+               "paddle_tpu_torch.distributed.fleet.meta_optimizers.dgc",
+               "paddle_tpu_torch.distributed.fleet.meta_optimizers"
+               ".fp16_allreduce",
+               "paddle_tpu_torch.distributed.fleet.meta_optimizers"
+               ".gradient_merge",
+               "paddle_tpu_torch.distributed.fleet.meta_optimizers.localsgd",
+               "paddle_tpu_torch.distributed.fleet.meta_optimizers"
+               ".recompute",
+               "paddle_tpu_torch.distributed.fleet.meta_optimizers.sharding",
+               "paddle_tpu_torch.distributed.fleet.meta_optimizers"
+               ".strategy_compiler")
 
 
 def _forbidden(name):
@@ -147,7 +165,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
     for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT + _HYBRID \
-            + _ARTIFACT + _RUNTIME + _PS + _NN + _HAPI:
+            + _ARTIFACT + _RUNTIME + _PS + _NN + _HAPI + _OPTIMIZERS:
         assert f"'{name}'" in every, (name, every)
 
 

@@ -243,8 +243,13 @@ def test_bridge_refuses_mismatched_state():
 
 def test_unported_options_raise():
     _, port = _make("float32")
+    # fuse_accumulators is ported; what refuses it is the reference's
+    # refusal: gradient merge's per-parameter rollback
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import (
+        GradientMergeOptimizer)
+    fused = optimizer.Adam(parameters=port, fuse_accumulators=True)
     with pytest.raises(NotImplementedError, match="fuse_accumulators"):
-        optimizer.Adam(parameters=port, fuse_accumulators=True)
+        GradientMergeOptimizer(fused, k_steps=2)
     opt = optimizer.AdamW(parameters=port)
     with pytest.raises(RuntimeError, match="ZeRO needs an active mesh"):
         opt._zero_enable(axis="dp", stage=1)  # ported: it needs a mesh
