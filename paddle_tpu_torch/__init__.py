@@ -53,13 +53,20 @@ elastic restart (``distributed.pod``, ``testing.virtual_pod``). CTR trains
 through the parameter server (``distributed.ps``: the native service
 built with g++ at first use, its client and communicators, a
 device-resident embedding cache with prefetched k-step windows;
-``fleet.init(is_collective=False)``; ``models.WideAndDeep``).
+``fleet.init(is_collective=False)``; ``models.WideAndDeep``). The
+smaller modules: ``quantization`` (QAT through fake-quant wrappers, PTQ,
+the quantized artifact and its sidecar), ``onnx`` (export through
+``torch.export``), ``linalg``, the op tail (``ops.misc_tail``),
+``incubate``'s fused softmaxes, segment reductions and custom C ops,
+``distribution``, ``text`` (the synthetic datasets and the CRF ops) and
+``dataset`` (the classic readers).
 """
 from . import ops  # noqa: F401  (first: it sets the Tensor methods)
-from . import (amp, autograd, checkpoint, distributed, hapi,  # noqa: F401
-               incubate, inference, io, jit, linalg, metric, monitor, nn,
-               observability, optimizer, parallel, profiler, recompute,
-               regularizer, serving, testing)
+from . import (amp, autograd, checkpoint, distributed,  # noqa: F401
+               distribution, hapi, incubate, inference, io, jit, linalg,
+               metric, monitor, nn, observability, onnx, optimizer, parallel,
+               profiler, quantization, recompute, regularizer, serving,
+               testing)
 from .core.dispatch import call_op, call_op_nograd, unwrap  # noqa: F401
 from .core.autograd import enable_grad, grad, no_grad  # noqa: F401
 from .core.device import (CPUPlace, Place, TPUPlace,  # noqa: F401
@@ -112,9 +119,10 @@ def disable_static(*args, **kwargs):
     """A no-op: dygraph is the only mode."""
 
 
-# The model zoos load on first use (``paddle_tpu_torch.models``), so a
-# process that serves an exported artifact imports no model's module.
-_LAZY = ("models", "vision")
+# The model zoos and the datasets load on first use
+# (``paddle_tpu_torch.models``), so a process that serves an exported
+# artifact imports no model's module.
+_LAZY = ("models", "vision", "text", "dataset")
 
 
 def __getattr__(name):
@@ -132,7 +140,8 @@ __all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
            "int32", "L1Decay", "L2Decay", "save", "load", "amp", "autograd",
            "checkpoint", "distributed", "hapi", "incubate", "inference",
            "io", "jit", "linalg", "metric", "models", "monitor", "nn",
-           "observability", "ops", "Model", "summary", "flops",
+           "observability", "ops", "distribution", "onnx", "quantization",
+           "text", "dataset", "Model", "summary", "flops",
            "optimizer", "parallel", "profiler", "recompute", "regularizer",
            "serving", "testing", "sparsity", "vision", "Place", "CPUPlace",
            "TPUPlace", "set_device", "get_device", "device_count",

@@ -183,10 +183,10 @@ def _to_npz_array(t):
 
 def _from_npz_array(a, dtype_name):
     dtype = convert_dtype(dtype_name)
+    a = np.asarray(a).copy(order="C")  # a 0-d array (a scale) stays 0-d
     if dtype == torch.bfloat16:
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)) \
-            .view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a).to(dtype)
 
 
 def write_artifact(path_prefix, program, params, meta):

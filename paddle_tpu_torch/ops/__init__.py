@@ -17,8 +17,9 @@ reference name; ``call_op``/``call_op_nograd`` run any function that way.
 (``gather_tree``, ``edit_distance``, ``ctc_align``), under
 ``ops.sequence`` as in the reference; ``ctr_tail`` the CTR, text-matching
 and tree op tail and ``tdm`` the TDM sampler and child ops, re-exported
-here as in the reference. Not ported with this module:
-``ops/misc_tail.py`` (ROADMAP item 17).
+here as in the reference; ``misc_tail`` the residual op tail (metrics,
+linear-algebra composites, sharding helpers, vision IO), re-exported here
+and at the top level as in the reference.
 """
 import types
 
@@ -27,18 +28,20 @@ import torch
 from ..core.dispatch import call_op, call_op_nograd  # noqa: F401
 from ..core.dtype import convert_dtype  # noqa: F401
 from ..core.tensor import Parameter, Tensor, unwrap
-from . import (ctr_tail, extras, manipulation, math, random,  # noqa: F401
-               sequence, tdm)
+from . import (ctr_tail, extras, manipulation, math, misc_tail,  # noqa: F401
+               random, sequence, tdm)
 from .ctr_tail import *  # noqa: F401,F403
 from .extras import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
+from .misc_tail import *  # noqa: F401,F403
 from .random import (bernoulli, multinomial, normal, rand, randint,  # noqa: F401
                      randn, randperm, shuffle, truncated_normal, uniform)
 from .tdm import tdm_child, tdm_sampler  # noqa: F401
 
 __all__ = (["Tensor"] + math.__all__ + manipulation.__all__ + extras.__all__
-           + random.__all__ + ctr_tail.__all__ + tdm.__all__)
+           + random.__all__ + ctr_tail.__all__ + tdm.__all__
+           + misc_tail.__all__)
 
 # the ops' bodies over plain tensors, as the models call them
 plain = types.SimpleNamespace(**{

@@ -126,7 +126,13 @@ PORTED_MODULES = {
     "paddle_tpu.distributed.fleet.meta_optimizers.localsgd",
     "paddle_tpu.distributed.fleet.meta_optimizers.recompute",
     "paddle_tpu.distributed.fleet.meta_optimizers.sharding",
-    "paddle_tpu.distributed.fleet.meta_optimizers.strategy_compiler"}
+    "paddle_tpu.distributed.fleet.meta_optimizers.strategy_compiler",
+    # the smaller modules: quantization, ONNX export, linalg, the op tail,
+    # text, incubate's own ops and its custom C ops
+    "paddle_tpu.quantization", "paddle_tpu.ops.misc_tail",
+    "paddle_tpu.linalg", "paddle_tpu.text", "paddle_tpu.incubate",
+    "paddle_tpu.incubate.custom_op", "paddle_tpu.onnx",
+    "paddle_tpu.onnx._proto"}
 PORTED_CLASSES = {
     "paddle_tpu.optimizer.optimizer": {
         "Optimizer", "Adam", "AdamW", "SGD", "Momentum", "Adagrad",

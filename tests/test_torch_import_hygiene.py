@@ -148,6 +148,14 @@ _OPTIMIZERS = ("paddle_tpu_torch.optimizer.averaging",
                "paddle_tpu_torch.distributed.fleet.meta_optimizers.sharding",
                "paddle_tpu_torch.distributed.fleet.meta_optimizers"
                ".strategy_compiler")
+# the smaller modules: quantization, ONNX export, linalg, the op tail,
+# incubate's ops and custom C ops, distribution, text and the readers
+_SMALLER = ("paddle_tpu_torch.quantization", "paddle_tpu_torch.onnx",
+            "paddle_tpu_torch.onnx._proto", "paddle_tpu_torch.onnx._export",
+            "paddle_tpu_torch.linalg", "paddle_tpu_torch.ops.misc_tail",
+            "paddle_tpu_torch.incubate", "paddle_tpu_torch.incubate.custom_op",
+            "paddle_tpu_torch.distribution", "paddle_tpu_torch.text",
+            "paddle_tpu_torch.dataset")
 
 
 def _forbidden(name):
@@ -165,7 +173,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
     for name in _TRAINING:
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
     for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT + _HYBRID \
-            + _ARTIFACT + _RUNTIME + _PS + _NN + _HAPI + _OPTIMIZERS:
+            + _ARTIFACT + _RUNTIME + _PS + _NN + _HAPI + _OPTIMIZERS \
+            + _SMALLER:
         assert f"'{name}'" in every, (name, every)
 
 
@@ -177,7 +186,8 @@ def test_package_import_brings_its_top_level_modules():
              "'distributed', 'recompute', 'to_tensor', 'checkpoint', "
              "'save', 'load', 'incubate', 'parallel', 'inference', "
              "'profiler', 'observability', 'testing', 'call_op', 'io', "
-             "'hapi', 'metric', 'Model', 'summary', 'flops')))\n"
+             "'hapi', 'metric', 'Model', 'summary', 'flops', "
+             "'quantization', 'onnx', 'distribution', 'linalg')))\n"
              "print(sorted(n for n in sys.modules if n.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
