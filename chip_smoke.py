@@ -82,20 +82,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``enable_recompute`` full, selective and offload on every encoder layer
    against the replicated control; ZeRO-2 with ``accumulate_steps=4``
    against the accumulating control, with two witnesses: the same pair
-   with float32 parameters (bitwise) and a window that keeps only its last
+   with float32 parameters (bitwise, under torch's deterministic
+   algorithms) and a window that keeps only its last
    micro step (beyond the bound). Each arm's step time, tokens/s, MFU,
    working set, reserved memory, ``_zero_state_bytes`` and idle share; each
    ZeRO arm's collectives counted exactly (the memcpy nodes of its captured
    graph and what Python issued) against what its stage implies, with the
    profiler's count of one call beside. (b) GPT-small (4 of its 12 layers
-   since phase 21 came: ``ZERO_GPT_LAYERS``) with phase 7's recipe,
+   since phase 21 came, 2 since phase 22: ``ZERO_GPT_LAYERS``) with phase
+   7's recipe,
    ZeRO-3, prefetch and full recompute on every block through
    ``to_static(scan_steps=10, dp_axis="dp")``, bitwise against the same
    program without either; a profiled replayed call must launch the bf16
    forward kernel 2 x layers x k times and dQ and dK/dV layers x k times
    (counted as in phase 7).
-   (c) BERT-base (4 of its 12 layers since phase 21 came:
-   ``DROPOUT_BERT_LAYERS``) with dropout 0.1 and full or selective
+   (c) BERT-base (4 of its 12 layers since phase 21 came, 2 since phase
+   22: ``DROPOUT_BERT_LAYERS``) with dropout 0.1 and full or selective
    recompute, bitwise against the same program without recompute; the
    attention gate writes out inputs the kernels do not take.
 9. Step checkpoints (``checkpoint.CheckpointManager``) on the one-rank mesh,
@@ -227,7 +229,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    unchanged, sparse SGD against the dense update, and each step timed
    sparse against dense. No flash kernel may launch in (a), (c) or (d).
 15. The runtime services on GPT-small (6 of its 12 layers since phase 21
-   came: ``RUNTIME_GPT_LAYERS``) with phase 4's recipe: (a) the
+   came, 3 since phase 22: ``RUNTIME_GPT_LAYERS``) with phase 4's recipe:
+   (a) the
    tracer (default categories), a run-log, the flight recorder and
    ``profiler.Profiler(state="All")`` on for 10 eager steps and two calls
    of ``to_static(one_step, scan_steps=10)``, bitwise against the same
@@ -409,9 +412,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against CPU; a custom op built with ``g++`` at run time, forward and
    backward against its formula, refused inside a CUDA-graph capture.
    Only (a) and (a2) launch flash kernels (counted).
-22. One JSON line with each phase's seconds beside the card's name and
-   power limit, one JSON line with every kernel of the paths, then the
-   result line.
+22. The static graph: (a) GPT-small at full width and depth, bf16
+   parameters, recorded into a ``static.Program`` (``static.data``,
+   ``model.loss``, ``AdamW(multi_precision=True).minimize``) and trained
+   by ``Executor.run`` (an eager warm-up step and the capture, then
+   replays) against as many eager steps of an identical copy: losses and
+   every parameter bitwise, each flash kernel 12 kernel nodes a replayed
+   step (all bf16), one device-to-host copy a run, the step's ms in turns
+   with the eager step's; (b) the float32 forward Program of GPT-small
+   served by ``Engine.from_program(passes=("bf16",), bucket_ladder=(1,))``:
+   bitwise ``Executor.run`` of the bf16-passed program, within the bf16
+   bound of the float32 program, 12 bf16 forward launches a request;
+   LeNet through ``save_inference_model`` -> ``load_inference_model`` ->
+   ``Engine(path)`` at buckets 1 and 8 bitwise ``Executor.run``; (c)
+   greedy decoding under ``to_static`` at the large LSTM LM's width
+   (batch 32, 64 steps, a data-dependent ``while``): the warm-up's host
+   read takes the AST fallback and the loop becomes a WHILE conditional
+   node (``kernels/csrc/graph_while.cu``); its ids against the card's
+   eager decode and the CPU's, a replay at half the length, the node's
+   set-condition kernel's runs as the card counted them, and the memory of
+   the graph and its body's pool returned when the program is dropped;
+   Fibonacci loops (``a, b = a + b, a``, by ``while_loop`` and through
+   dy2static) captured as WHILE nodes, exactly the host's; a Program with
+   ``cond``, ``switch_case`` and a bounded differentiable ``while_loop``
+   trained 3 steps, card against CPU at 1e-5, its branches IF nodes; the
+   captured gradient of ``cond(f > 0, 2x, sqrt(x))`` at 0 the taken
+   branch's; (d) the reference transpiler test's model, 12 sync steps
+   with SGD and with Adam against a PS server of this process, within
+   2e-4 of the local program on the card.
+23. One JSON line with each phase's seconds beside the card's name and
+   power limit, one JSON line with every kernel of the paths (the WHILE
+   node's extension among them), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -492,7 +523,8 @@ GPT3_BATCH, GPT3_HEADS, GPT3_HEAD_DIM = 8, 16, 128
 SOURCES = {name: f"paddle_tpu_torch/kernels/csrc/{name}.cu" for name in (
     "flash_attention_fwd", "flash_attention_bwd",   # float32: CUDA cores
     "flash_attention_fwd_sm90",                     # bf16: tensor cores
-    "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dkv_sm90")}
+    "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dkv_sm90",
+    "graph_while")}                                 # conditional nodes
 # Each kernel's source per dtype variant; the main paths run bf16. "kernel"
 # is the bf16 variant's CUDA function name as the profiler reports it,
 # "cuda_core" the CUDA-core kernel's (float32, and bf16 off the main path).
@@ -1720,13 +1752,27 @@ CKPT_BERT_LAYERS = 2
 # phase 9b restores in place, runs 6 of its 12 layers at full width, batch,
 # seq and k since the script took phase 21, for CKPT_BERT_LAYERS' reason:
 # both are held bitwise against their controls at any depth; 4 since, for
-# DROPOUT_BERT_LAYERS' reason.
-ZERO_GPT_LAYERS = 4
+# DROPOUT_BERT_LAYERS' reason; 2 since the script took phase 22 (the static
+# graph, ~48 s alone), for the same 1000 s.
+ZERO_GPT_LAYERS = 2
 # ZeRO-2/3 accumulation windows fold float32 mean shards of each micro
 # step, where the accumulating control sums the micro steps' gradients on
 # the parameters, in their dtype (the reference's tolerance-level case).
 # With float32 parameters both sums are float32, in one order at one rank,
-# so that witness pair is held bitwise over every window. With bf16
+# so that witness pair is held bitwise over every window, both arms under
+# torch.use_deterministic_algorithms (deterministic_algorithms): BERT's
+# token-type ids are all 0, so one embedding row takes all 8192 tokens'
+# gradients, and torch's default CUDA embedding backward adds a row's
+# partial sums in no fixed order (tools/embedding_determinism.py, on the
+# H100 with torch 2.11: 3000 repeated calls on one gradient all differed
+# from the first in default mode, none under deterministic algorithms).
+# With float32 parameters that last ulp reaches the update: 5 of 40 runs
+# of the float32 arms (the controls and ZeRO-2, with and without
+# accumulation, 40 steps each) ended one ulp apart in one element of the
+# token-type table, none of 40 under deterministic algorithms; the pair
+# disagreed in one whole run of the script. A bf16 parameter hides it
+# unless its master sits within that ulp of a bf16 rounding boundary, so
+# the measured bf16 arms run as bench.py runs them. With bf16
 # parameters the first window's losses precede any update and are bitwise,
 # and the second window's are one update apart, held to
 # ZERO_ACCUM_LOSS_REL; the later windows' losses are reported. The float32
@@ -1748,8 +1794,9 @@ RECOMPUTE_DROPOUT_K = 4
 # layers since the script took phase 21: the final tree's whole runs took
 # 1089.6 and 1031.0 s by the script's clock on slower hosts (894.3 s on a
 # faster one; NVIDIA H100 80GB HBM3, 700.00 W), against the 950 s kept
-# under the 1000 s limit and the runner's 1200 s.
-DROPOUT_BERT_LAYERS = 4
+# under the 1000 s limit and the runner's 1200 s. 2 since the script took
+# phase 22 (the static graph, ~48 s alone), for the same 1000 s.
+DROPOUT_BERT_LAYERS = 2
 
 
 def device_copies_by_bytes(fn):
@@ -2027,10 +2074,11 @@ def zero_bert_arms(pt, fa, seed, failures):
              dict(accumulate=ZERO_ACCUM, last_micro_only=True,
                   measure=False), "accumulating"),
             (f"accumulating control ({acc}), float32 parameters",
-             dict(accumulate=ZERO_ACCUM, fp32=True, measure=False), None),
+             dict(accumulate=ZERO_ACCUM, fp32=True, measure=False,
+                  deterministic=True), None),
             (f"ZeRO-2, {acc}, float32 parameters",
-             dict(stage=2, accumulate=ZERO_ACCUM, fp32=True, measure=False),
-             "accumulating float32"),
+             dict(stage=2, accumulate=ZERO_ACCUM, fp32=True, measure=False,
+                  deterministic=True), "accumulating float32"),
             ("ZeRO-3, prefetch on", dict(stage=3, prefetch=True), "control"),
             ("ZeRO-3, prefetch off", dict(stage=3, prefetch=False),
              "control"),
@@ -2063,12 +2111,15 @@ def bert_arm(label, kw, against, build, two_calls, controls, stacked, start,
     copies of one call by size, and its memory."""
     kw = dict(kw)
     measure = kw.pop("measure", True)
+    mode = (deterministic_algorithms() if kw.pop("deterministic", False)
+            else contextlib.nullcontext())
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    program, model, opt = build(**kw)
-    torch.cuda.synchronize()
-    state_gb = (torch.cuda.memory_allocated() - before) / 1e9
-    losses, peak, seen, call_counts = two_calls(label, program)
+    with mode:
+        program, model, opt = build(**kw)
+        torch.cuda.synchronize()
+        state_gb = (torch.cuda.memory_allocated() - before) / 1e9
+        losses, peak, seen, call_counts = two_calls(label, program)
     if len(seen.graphs) != 1:
         raise RuntimeError(f"{label}: {len(seen.graphs)} graphs captured, "
                            "not one")
@@ -4048,7 +4099,9 @@ ART_DIR = ".chip_smoke_artifacts"   # git-ignored, removed at the end
 # took phase 21: the whole run's 939.9 s (PR 18's final tree, NVIDIA H100
 # 80GB HBM3 at 700.00 W) left no room for it under 950 s, and phase 12
 # was 107.4 s of it, most of that GPT-small's saves, engines and CPU
-# forwards.
+# forwards. (a) and (b) are held within bounds (BF16_REL_L2_TOL,
+# FP32_REL_MAX_TOL) whose rounding grows with depth, so this path keeps
+# its 6 layers when the script takes later phases.
 ART_GPT_LAYERS = 6
 
 # A fresh process that serves an artifact with nothing of the model: it
@@ -5655,7 +5708,9 @@ RUNTIME_DIR = ".chip_smoke_runtime"  # run-log, flight dumps, traces
 # kernels, since the script took phase 21: PR 18's final whole run took
 # 939.9 s by the script's clock against the 950 s kept under the 1000 s
 # limit (NVIDIA H100 80GB HBM3, 700.00 W), and phase 15 was 99.0 s of it.
-RUNTIME_GPT_LAYERS = 6
+# 3 since the script took phase 22 (the static graph, ~48 s alone): its
+# arms hold observers on against off at tolerance 0, at any depth.
+RUNTIME_GPT_LAYERS = 3
 
 
 def runtime_dir(name):
@@ -5911,7 +5966,8 @@ def runtime_nan_check(pt, fa, base, feed, stacked, k, control, failures):
         free_cuda()
         bad = copy.deepcopy(base)
         step, _, _ = observed_recipe(pt, bad)
-        w = dict(bad.named_parameters())["gpt.blocks.5.fc1.weight"]
+        poisoned = f"gpt.blocks.{RUNTIME_GPT_LAYERS - 1}.fc1.weight"
+        w = dict(bad.named_parameters())[poisoned]
         with torch.no_grad():
             w[7, 11] = float("nan")
         try:
@@ -5922,7 +5978,7 @@ def runtime_nan_check(pt, fa, base, feed, stacked, k, control, failures):
             msg = None
         ok = msg is not None and msg.startswith("Operator `")
         op = msg.split("`")[1] if ok else None
-        log(f"  (c) NaN in gpt.blocks.5.fc1.weight: "
+        log(f"  (c) NaN in {poisoned}: "
             + (f"FloatingPointError at op {op!r}: {msg}" if ok
                else "no FloatingPointError") + (" ok" if ok else " FAIL"))
         if not ok:
@@ -10574,6 +10630,531 @@ def phase21(pt, fa, serving, seed, failures, eager_ms=None):
     return launches
 
 
+# ---- phase 22: the static graph ---------------------------------------------
+# (a) GPT-small (full width and depth, bf16 parameters) recorded into a
+# static.Program with AdamW(multi_precision=True).minimize and trained by
+# Executor.run: the first run is an eager warm-up step and the capture,
+# every later run a replay. P22_STEPS runs against as many eager steps of
+# an identical copy: losses and every parameter bitwise (tolerance 0, as
+# phase 7's k-step).
+P22_STEPS = 4
+P22_LR = 6e-4
+P22_TIMED = (3, 2)   # 3 alternations of 2 steps, executor and eager
+# (c) greedy decoding under to_static through a data-dependent while (a
+# WHILE node): the large LSTM LM's width (phase 17), batch 32, 64 steps;
+# the CPU decodes the first P22_DECODE_CPU_ROWS rows (rows are
+# independent) and must give the same ids.
+P22_DECODE_BATCH, P22_DECODE_STEPS, P22_DECODE_CPU_ROWS = 32, 64, 4
+P22_DECODE_TIMED = 3  # timed calls of each, after an untimed one
+# Fibonacci loops (a, b = a + b, a) captured as WHILE nodes, at these trip
+# counts, against the host's, exactly (int64)
+P22_FIB_TRIPS = (40, 21)
+# a Program with cond, switch_case and a bounded differentiable
+# while_loop, 3 SGD steps on the card against the same program on the
+# CPU (float32, TF32 off): losses within 1e-5 relative
+P22_CF_WIDTH, P22_CF_BATCH, P22_CF_LOSS_REL = 256, 64, 1e-5
+# (d) the reference's transpiler test model, 12 sync steps against a PS
+# server in this process, within the reference's own bound of the local
+# program on the card
+P22_PS_STEPS, P22_PS_REL = 12, 2e-4
+P22_DIR = ".chip_smoke_static"   # git-ignored, removed at the end
+P22_LM = []  # the decode's model (module-level: the AST fallback reads it)
+
+
+def p22_check(label, ok, failures, detail=""):
+    log(f"  {label}{': ' + detail if detail else ''} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"phase 22 {label}" + (f": {detail}" if detail
+                                                else ""))
+    return ok
+
+
+def p22_gpt_program(pt, fa, seed, failures):
+    """(a): returns ({kernel: launches in the replayed steps}, timings)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.gpt import synthetic_lm_batch
+    from paddle_tpu_torch.core.tensor import host_array
+    cfg, model = gpt_small_model(pt, seed)
+    model.to(torch.bfloat16)
+    eager = copy.deepcopy(model)
+    prog = static.Program()
+    t0 = time.perf_counter()
+    with static.program_guard(prog):
+        ids = static.data("ids", [TRAIN_BATCH, SEQ], "int64")
+        loss = model.loss(model(ids), ids)
+        pt.optimizer.AdamW(learning_rate=P22_LR,
+                           multi_precision=True).minimize(loss)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    names = prog.op_names()
+    log(f"  (a) GPT-small recorded: {len(names)} ops "
+        f"({names.count('scaled_dot_product_attention')} attention), build "
+        f"{build_ms:.1f} ms")
+    eopt = pt.optimizer.AdamW(learning_rate=P22_LR, multi_precision=True,
+                              parameters=eager.parameters())
+    batches = [synthetic_lm_batch(TRAIN_BATCH, SEQ, cfg.vocab_size,
+                                  seed=seed + 40 + i)
+               for i in range(P22_STEPS + 2 * P22_TIMED[1])]
+    exe = static.Executor()
+
+    def run(b):
+        return exe.run(prog, feed={"ids": b}, fetch_list=[loss])[0]
+
+    def eager_step(b):
+        t = torch.from_numpy(b).cuda().long()
+        out = eager.loss(eager(t), t)
+        out.backward()
+        eopt.step()
+        eopt.clear_grad()
+        return out
+
+    got, want = [], []
+    launches = {meta["name"]: 0 for meta in KERNELS}
+    off = dict(launches)
+    with inspect_capture():
+        t0 = time.perf_counter()
+        got.append(run(batches[0]))
+        first_ms = (time.perf_counter() - t0) * 1e3
+        program = next(iter(prog._compiled.values()))
+        counter = count_replays(program)
+        for b in batches[1:P22_STEPS]:
+            got.append(counter.run(lambda: run(b)))
+            n, o = counter.launches()
+            for k in launches:
+                launches[k] += n[k]
+                off[k] += o[k]
+    for b in batches[:P22_STEPS]:
+        want.append(host_array(eager_step(b)))
+    same_loss = all(np.array_equal(g, w) for g, w in zip(got, want))
+    p22_check(f"(a) {P22_STEPS} Executor.run steps vs {P22_STEPS} eager "
+              f"steps: losses bitwise", same_loss, failures,
+              f"{[float(g) for g in got]} vs {[float(w) for w in want]}")
+    same = [name for (name, p), q in zip(model.named_parameters(),
+                                          eager.parameters())
+            if not torch.equal(p, q)]
+    p22_check("(a) every parameter bitwise after the steps", not same,
+              failures, f"{len(same)} differ {same[:3]}")
+    replays = P22_STEPS - 1
+    for meta in KERNELS:
+        k = meta["name"]
+        p22_check(f"(a) {k}: {launches[k]} kernel nodes x replays in "
+                  f"{replays} replayed steps", launches[k] ==
+                  cfg.num_layers * replays and not off[k], failures,
+                  f"want {cfg.num_layers} a step, {off[k]} off bf16")
+    # a replayed run's device-to-host copies (the one fetch)
+    prof = report_profile("(a) Executor.run step", profile_step(
+        lambda: run(batches[P22_STEPS])), failures)
+    copies = host_copies(prof)
+    p22_check("(a) device-to-host copies in a run", copies == 1, failures,
+              f"{copies} (one fetch, return_numpy=True)")
+    exe_ms, eager_ms = [], []
+    k = P22_STEPS
+    for _ in range(P22_TIMED[0]):
+        for label, fn, sink in (("eager", eager_step, eager_ms),
+                                ("executor", run, exe_ms)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(P22_TIMED[1]):
+                fn(batches[k + i])
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0) * 1e3 / P22_TIMED[1])
+    log(f"  (a) step ms in turns: executor {[round(v, 3) for v in exe_ms]}, "
+        f"eager {[round(v, 3) for v in eager_ms]}; first run (an eager "
+        f"warm-up step and the capture) {first_ms:.1f} ms")
+    del model, eager, eopt, prog, exe
+    free_cuda()
+    return launches, {"executor_step_ms": exe_ms, "eager_step_ms": eager_ms,
+                      "first_run_ms": first_ms, "build_ms": build_ms,
+                      "host_copies": copies}
+
+
+def p22_serving(pt, fa, serving, seed, failures):
+    """(b): returns {kernel: launches in one served request}."""
+    import shutil
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.gpt import synthetic_lm_batch
+    from paddle_tpu_torch.vision.models import LeNet
+    cfg, model = gpt_small_model(pt, seed + 1)
+    model.eval()
+    prog = static.Program()
+    with static.program_guard(prog):
+        ids = static.data("ids", [None, SEQ], "int32")
+        logits = model(ids)
+    req = synthetic_lm_batch(1, SEQ, cfg.vocab_size, seed=seed + 2).astype(
+        np.int32)
+    with inspect_capture():
+        eng = serving.Engine.from_program(prog, [logits], passes=("bf16",),
+                                          bucket_ladder=(1,))
+    with eng:
+        counter = count_replays(eng)
+        (got,) = counter.run(lambda: eng.predict(req))
+        launches, off = counter.launches()
+    exe = static.Executor()
+    built = serving.build_serving_program(prog, [logits], passes=("bf16",))
+    (ex,) = exe.run(built, feed={"ids": req}, fetch_list=[logits],
+                    return_numpy=False)
+    (f32,) = exe.run(prog, feed={"ids": req}, fetch_list=[logits])
+    p22_check("(b) Engine.from_program(passes=('bf16',)) vs Executor.run of "
+              "the bf16-passed program: logits bitwise",
+              np.array_equal(got, ex.float().cpu().numpy()), failures)
+    rel = float(np.linalg.norm(got - f32) / np.linalg.norm(f32))
+    p22_check("(b) served bf16 vs the float32 program", rel <=
+              BF16_REL_L2_TOL, failures,
+              f"rel L2 {rel:.3e} (tol {BF16_REL_L2_TOL:g})")
+    p22_check("(b) bf16 forward kernel a request",
+              launches["flash_attention_fwd"] == cfg.num_layers
+              and not off["flash_attention_fwd"], failures,
+              f"{launches['flash_attention_fwd']} (want {cfg.num_layers}), "
+              f"{off['flash_attention_fwd']} off bf16")
+    del eng, built, model, prog
+    free_cuda()
+    # LeNet: save_inference_model -> load_inference_model -> Engine(path)
+    torch.manual_seed(seed)
+    net = LeNet(device="cuda").eval()
+    lp = static.Program()
+    with static.program_guard(lp):
+        img = static.data("img", [None, 1, 28, 28], "float32")
+        out = net(img)
+    shutil.rmtree(P22_DIR, ignore_errors=True)
+    path = f"{P22_DIR}/lenet"
+    x = np.random.RandomState(seed).rand(8, 1, 28, 28).astype(np.float32)
+    with cudnn_mode(deterministic=True):
+        static.save_inference_model(path, [img], [out], exe, program=lp)
+        layer, feeds, fetches = static.load_inference_model(path, exe)
+        want = [exe.run(lp, feed={"img": x[:n]}, fetch_list=[out])[0]
+                for n in (1, 8)]
+        with serving.Engine(path, bucket_ladder=(1, 8)) as eng:
+            served = [eng.predict(x[:n])[0] for n in (1, 8)]
+    p22_check("(b) LeNet inference model served at buckets 1 and 8 vs "
+              "Executor.run", all(np.array_equal(a, b) for a, b in
+                                  zip(served, want)) and feeds == ["img"],
+              failures)
+    shutil.rmtree(P22_DIR, ignore_errors=True)
+    return launches
+
+
+def p22_greedy(h, c, tok, n):
+    """Greedy decoding for ``n`` steps through a data-dependent while (the
+    shape of tests/test_dy2static.py:174): embedding, the 2-layer LSTM,
+    the head's argmax, the id written at column i."""
+    lm = P22_LM[0]
+    tokens = torch.zeros((tok.shape[0], P22_DECODE_STEPS), dtype=torch.int64,
+                         device=tok.device)
+    i = torch.zeros((), dtype=torch.int64, device=tok.device)
+    while i < n:
+        y, (h, c) = lm.lstm(lm.emb(tok)[:, None, :], (h, c))
+        tok = torch.argmax(lm.out(y[:, 0, :]), dim=-1)
+        idx = torch.zeros((tok.shape[0], 1), dtype=torch.int64,
+                          device=tok.device) + i
+        tokens = torch.scatter(tokens, 1, idx, tok[:, None])
+        i = i + 1
+    return tokens
+
+
+def p22_cf_loss(pt, nn_cf, x, flag, k, n, w):
+    """cond, switch_case and a bounded differentiable while_loop."""
+    h = pt.matmul(x, w)
+    h = nn_cf.cond(flag > 0, lambda: pt.tanh(h), lambda: h * 0.5)
+    h = nn_cf.switch_case(k, {0: lambda: h + 1.0, 1: lambda: h * 2.0},
+                          default=lambda: h - 1.0)
+    i0 = pt.zeros([], dtype="int32", device=x.device)
+    _, h = nn_cf.while_loop(
+        lambda i, a: i < n,
+        lambda i, a: [i + 1, pt.tanh(pt.matmul(a, w)) * 0.5 + x],
+        [i0, h], maximum_trip_count=4)
+    return pt.mean(h * h)
+
+
+def p22_cf_train(pt, device, w0, feeds):
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.nn import control_flow as nn_cf
+    prog = static.Program()
+    with static.program_guard(prog):
+        x = static.data("x", [P22_CF_BATCH, P22_CF_WIDTH], "float32",
+                        device=device)
+        flag = static.data("flag", [], "float32", device=device)
+        k = static.data("k", [], "int32", device=device)
+        n = static.data("n", [], "int32", device=device)
+        w = static.create_parameter([P22_CF_WIDTH, P22_CF_WIDTH], "float32",
+                                    device=device)
+        w.set_value(w0)
+        loss = p22_cf_loss(pt, nn_cf, x, flag, k, n, w)
+        pt.optimizer.SGD(learning_rate=0.05).minimize(loss)
+    exe = static.Executor(device)
+    return prog, [float(exe.run(prog, feed=f, fetch_list=[loss])[0])
+                  for f in feeds]
+
+
+def p22_fib_loop(a, b, n):
+    """Fibonacci by while_loop: the body hands ``a`` back in ``b``'s
+    position, so the captured iteration must read it before writing."""
+    from paddle_tpu_torch.nn import control_flow as nn_cf
+    i = torch.zeros((), dtype=torch.int64, device=a.device)
+    _, a, b = nn_cf.while_loop(lambda i, a, b: i < n,
+                               lambda i, a, b: [i + 1, a + b, a], [i, a, b])
+    return a, b
+
+
+def p22_fib_py(a, b, n):
+    """The same loop in Python, captured through dy2static."""
+    i = torch.zeros((), dtype=torch.int64, device=a.device)
+    while i < n:
+        a, b = a + b, a
+        i = i + 1
+    return a, b
+
+
+def p22_reserved():
+    """The allocator's reserved bytes once the dead are collected, cuBLAS's
+    per-stream workspaces cleared and the cache emptied (no live graph of
+    this phase replays after it)."""
+    free_cuda()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def p22_permuting_loops(jit, graph_while, failures):
+    """(c): loops whose body hands a variable back in another's position,
+    captured as WHILE nodes, against the host's Fibonacci, exactly."""
+    a0 = torch.arange(1, 5, dtype=torch.int64, device="cuda")
+    b0 = torch.zeros(4, dtype=torch.int64, device="cuda")
+    for fn in (p22_fib_loop, p22_fib_py):
+        program = jit.to_static(fn)
+        graph_while.reset_launch_counts()
+        bad = []
+        with torch.no_grad():
+            for trips in P22_FIB_TRIPS:
+                a, b = a0.cpu().numpy(), b0.cpu().numpy()
+                for _ in range(trips):
+                    a, b = a + b, a
+                n = torch.full((), trips, dtype=torch.int64, device="cuda")
+                for call in range(2):  # the first at the first trip count
+                    got = program(a0, b0, n)  # is the warm-up and capture
+                    if not (np.array_equal(got[0].cpu().numpy(), a) and
+                            np.array_equal(got[1].cpu().numpy(), b)):
+                        bad.append((trips, call))
+        whiles = graph_while.nodes["while"]
+        p22_check(f"(c) {fn.__name__}: a + b, a through the WHILE node vs "
+                  f"the host, at {P22_FIB_TRIPS} trips",
+                  not bad and whiles >= 1, failures,
+                  f"{whiles} WHILE nodes; differing (trips, call): {bad}")
+        del program
+
+
+def p22_control_flow(pt, seed, failures):
+    """(c): returns the WHILE node's entry of the kernels line."""
+    from paddle_tpu_torch import jit, static
+    from paddle_tpu_torch.kernels import graph_while
+    from paddle_tpu_torch.nn import control_flow as nn_cf
+    torch.manual_seed(seed)
+    lm = lm_model(pt, "cuda").eval()
+    P22_LM[:] = [lm]
+    b, steps = P22_DECODE_BATCH, P22_DECODE_STEPS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h0 = torch.randn(2, b, LM_HIDDEN, device="cuda", generator=g) * 0.5
+    c0 = torch.randn(2, b, LM_HIDDEN, device="cuda", generator=g) * 0.5
+    tok0 = torch.randint(0, LM_VOCAB, (b,), device="cuda", generator=g)
+    n = torch.full((), steps, dtype=torch.int64, device="cuda")
+
+    def timed(fn):
+        """ms of each of P22_DECODE_TIMED calls, after one untimed."""
+        out = fn()
+        ms = []
+        for _ in range(P22_DECODE_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    with torch.no_grad():
+        want, eager_ms = timed(lambda: p22_greedy(h0, c0, tok0, n))
+        reserved = [p22_reserved()]
+        program = jit.to_static(p22_greedy)
+        graph_while.reset_launch_counts()
+        first = program(h0, c0, tok0, n)   # eager warm-up, then the capture
+        whiles = graph_while.nodes["while"]
+        got, replay_ms = timed(lambda: program(h0, c0, tok0, n))
+        short = program(h0, c0, tok0, torch.full_like(n, steps // 2))
+        sets = graph_while.launch_counts()["while"]
+        first, got, short = first.clone(), got.clone(), short.clone()
+    transformed = getattr(program._fn, "_jst_transformed", False)
+    p22_check("(c) greedy decode through the WHILE node vs the card's "
+              "eager decode: ids equal", torch.equal(got, want) and
+              torch.equal(first, want) and whiles >= 1 and transformed,
+              failures, f"{int((got != want).sum())} ids differ, {whiles} "
+              f"WHILE nodes, AST fallback taken: {transformed}")
+    p22_check("(c) the replay's trip count follows the data (n = "
+              f"{steps // 2})", torch.equal(short[:, :steps // 2],
+                                           want[:, :steps // 2])
+              and not short[:, steps // 2:].any(), failures)
+    # the set-condition kernel runs once before each replay's loop and
+    # once after each trip: the untimed and timed replays at n = steps,
+    # then one at steps // 2 (the warm-up runs the loop on the host)
+    want_sets = (1 + P22_DECODE_TIMED) * (steps + 1) + steps // 2 + 1
+    p22_check("(c) the WHILE node's set-condition kernel runs, counted on "
+              "the card", sets == want_sets, failures,
+              f"{sets} (want {want_sets})")
+    reserved.append(torch.cuda.memory_reserved())
+    del program
+    reserved.append(p22_reserved())
+    p22_check("(c) dropping the decode's program returns the memory of its "
+              "graph and the WHILE body's pool", reserved[2] <= reserved[0],
+              failures, f"reserved bytes before it {reserved[0]}, with it "
+              f"{reserved[1]}, after dropping it {reserved[2]}")
+    rows = P22_DECODE_CPU_ROWS
+    lm_cpu = copy.deepcopy(lm).cpu()
+    P22_LM[:] = [lm_cpu]
+    with torch.no_grad():
+        cpu = p22_greedy(h0[:, :rows].cpu(), c0[:, :rows].cpu(),
+                         tok0[:rows].cpu(), n.cpu())
+    P22_LM[:] = []
+    p22_check(f"(c) the first {rows} rows' ids vs the CPU's decode",
+              torch.equal(cpu, got[:rows].cpu()), failures)
+    log(f"  (c) decode {b} x {steps} steps: eager "
+        f"{[round(v, 2) for v in eager_ms]} ms, captured replays "
+        f"{[round(v, 2) for v in replay_ms]} ms")
+    # the bound of the decode's work: every step reads the LSTM's and the
+    # head's weights and does their products for the batch
+    params = sum(p.numel() for name, p in lm.named_parameters()
+                 if not name.startswith("emb"))
+    bytes_ = steps * (params * 4 + b * LM_HIDDEN * 4) + want.numel() * 8
+    ops = steps * 2 * b * params
+    bound_ms = max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[
+        torch.float32]) * 1e3
+    bound_by = ("bytes" if bytes_ / PEAK_BYTES_PER_S >= ops / PEAK_FLOPS[
+        torch.float32] else "operations")
+    del lm, lm_cpu
+    free_cuda()
+    p22_permuting_loops(jit, graph_while, failures)
+
+    # a Program with cond, switch_case and a bounded while, card vs CPU;
+    # the cond flips and the switch moves between the replays
+    w0 = (np.random.RandomState(seed).randn(P22_CF_WIDTH, P22_CF_WIDTH)
+          * (0.5 / math.sqrt(P22_CF_WIDTH))).astype(np.float32)
+    rng = np.random.RandomState(seed + 1)
+    feeds = [{"x": rng.randn(P22_CF_BATCH, P22_CF_WIDTH).astype(np.float32),
+              "flag": np.float32(f), "k": np.int32(kk), "n": np.int32(nn)}
+             for f, kk, nn in ((1.0, 0, 2), (-1.0, 1, 3), (1.0, 2, 2))]
+    graph_while.reset_launch_counts()
+    prog, card = p22_cf_train(pt, "cuda", w0, feeds)
+    ifs = graph_while.nodes["if"]
+    _, cpu_losses = p22_cf_train(pt, "cpu", w0, feeds)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu_losses))
+    p22_check("(c) cond + switch_case + bounded while_loop program, 3 steps "
+              "card vs CPU", rel <= P22_CF_LOSS_REL and ifs >= 5, failures,
+              f"losses {card} vs {cpu_losses}, max rel {rel:.2e} (tol "
+              f"{P22_CF_LOSS_REL:g}); {ifs} IF nodes captured")
+    # the taken branch's gradient through the captured IF chain: the
+    # untaken one (sqrt at 0) has an infinite derivative
+    gp = static.Program()
+    with static.program_guard(gp):
+        x = static.data("x", [3], "float32")
+        f = static.data("f", [], "float32")
+        out = nn_cf.cond(f > 0, lambda: (x * 2.0).sum(),
+                         lambda: torch.sqrt(x).sum())
+    (grad,) = static.gradients(out, [x])
+    exe = static.Executor()
+    zero = np.zeros(3, np.float32)
+    runs = [exe.run(gp, feed={"x": zero, "f": np.float32(v)},
+                    fetch_list=[grad])[0] for v in (1.0, 1.0, -1.0, 1.0)]
+    p22_check("(c) d/dx of cond(f > 0, 2x, sqrt(x)) at x = 0, captured: the "
+              "taken branch's", all(np.array_equal(r, [2.0, 2.0, 2.0])
+                                    for r in (runs[0], runs[1], runs[3]))
+              and np.isinf(runs[2]).all(), failures,
+              f"{[r.tolist() for r in runs]}")
+    return {"name": "graph_while", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/graph_while.cu",
+            "replaces": "paddle_tpu/nn/control_flow.py:326",
+            "launches": sets, "max_abs_err": float(
+                (got - want).abs().max()), "ms": min(replay_ms),
+            "plain_ms": min(eager_ms), "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None}
+
+
+def p22_ps_model(pt, static, optimizer, device):
+    prog = static.Program()
+    with static.program_guard(prog):
+        x = static.data("x", [None, 4], "float32", device=device)
+        y = static.data("y", [None, 1], "float32", device=device)
+        w = static.create_parameter([4, 8], "float32", name="w",
+                                    device=device)
+        w2 = static.create_parameter([8, 1], "float32", name="w2",
+                                     device=device)
+        w.set_value(np.random.RandomState(3).randn(4, 8).astype(np.float32)
+                    * 0.5)
+        w2.set_value(np.random.RandomState(4).randn(8, 1).astype(np.float32)
+                     * 0.5)
+        out = pt.matmul(pt.nn.functional.relu(pt.matmul(x, w)), w2)
+        loss = ((out - y) ** 2).mean()
+        (pt.optimizer.SGD(learning_rate=0.1) if optimizer == "sgd"
+         else pt.optimizer.Adam(learning_rate=0.05)).minimize(loss)
+    return prog, loss
+
+
+def p22_transpiler(pt, failures):
+    """(d): the transpiled trainer against a PS server of this process."""
+    from paddle_tpu_torch import static
+    rng = np.random.RandomState(5)
+    w_true = np.random.RandomState(1).randn(4, 1).astype(np.float32)
+    xs = [rng.rand(8, 4).astype(np.float32) for _ in range(P22_PS_STEPS)]
+    batches = [{"x": x, "y": x @ w_true} for x in xs]
+    for optimizer in ("sgd", "adam"):
+        prog, loss = p22_ps_model(pt, static, optimizer, "cuda")
+        exe = static.Executor()
+        local = [float(exe.run(prog, feed=f, fetch_list=[loss])[0])
+                 for f in batches]
+        tables = static.DistributeTranspiler().transpile(
+            0, program=p22_ps_model(pt, static, optimizer, "cuda")[0],
+            pservers="127.0.0.1:1")._tables
+        srv = static.PsServerProgram("127.0.0.1:0", tables)
+        port = srv.start()
+        prog, loss = p22_ps_model(pt, static, optimizer, "cuda")
+        try:
+            t = static.DistributeTranspiler()
+            t.transpile(0, program=prog, pservers=f"127.0.0.1:{port}")
+            trainer = t.get_trainer_program()
+            got = [float(exe.run(trainer, feed=f, fetch_list=[loss])[0])
+                   for f in batches]
+        finally:
+            if prog._ps_ctx is not None:
+                prog._ps_ctx.stop()
+            srv.server.stop()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, local))
+        p22_check(f"(d) transpiled {optimizer} trainer, {P22_PS_STEPS} sync "
+                  f"steps vs the local program", rel <= P22_PS_REL, failures,
+                  f"max rel {rel:.2e} (tol {P22_PS_REL:g}); losses "
+                  f"{got[0]:.5f} -> {got[-1]:.5f}")
+
+
+def phase22(pt, fa, serving, seed, failures):
+    """Phase 22: the static graph on the card. Returns ({path: {kernel:
+    launches}}, the WHILE node's kernels-line entry, timings)."""
+    log("phase 22: the static graph: GPT-small trained and served from "
+        "Programs, control flow on conditional nodes, dy2static, the "
+        "transpiler")
+    seconds = {}
+    t0 = time.perf_counter()
+    a_launches, timings = p22_gpt_program(pt, fa, seed, failures)
+    seconds["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+    b_launches = p22_serving(pt, fa, serving, seed, failures)
+    seconds["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+    graph_while = p22_control_flow(pt, seed, failures)
+    seconds["c"], t0 = time.perf_counter() - t0, time.perf_counter()
+    p22_transpiler(pt, failures)
+    seconds["d"] = time.perf_counter() - t0
+    log(f"  phase 22 seconds by part: "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    return ({"static_program_train_replays": a_launches,
+             "static_program_served_request": b_launches}, graph_while,
+            dict(timings, seconds=seconds))
+
+
 def gpt_small_model(pt, seed, num_layers=12):
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_small
     pt.seed(seed)
@@ -10684,7 +11265,7 @@ def parse_phases(text):
     return phases | {1}
 
 
-LAST_PHASE = 21
+LAST_PHASE = 22
 TIMING_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "max_abs_err")
 
@@ -10874,6 +11455,11 @@ def main():
     if on(21, "the smaller modules"):
         small_launches = phase21(pt, fa, serving, args.seed, failures,
                                  eager_ms)
+    # ---- 22. the static graph
+    static_launches, while_entry, static_timings = {}, None, None
+    if on(22, "the static graph"):
+        static_launches, while_entry, static_timings = phase22(
+            pt, fa, serving, args.seed, failures)
     close_phase()
     log(json.dumps({"phase_seconds": seconds, "total_seconds":
                     time.perf_counter() - t_start, "card": card_line()}))
@@ -10920,7 +11506,9 @@ def main():
                 **{path: counts.get(name)
                    for path, counts in optimizer_launches.items()},
                 **{path: counts.get(name)
-                   for path, counts in small_launches.items()}),
+                   for path, counts in small_launches.items()},
+                **{path: counts.get(name)
+                   for path, counts in static_launches.items()}),
             gpt3_1p3b=gpt3_shape[name],
             variants={dt: dict(
                 source=src,
@@ -10943,6 +11531,12 @@ def main():
                     "artifacts": artifacts,
                     "checkpoints": None if ckpt is None else dict(
                         ckpt, gpt_small_in_place=ck_gpt)}))
+    kernels.append(while_entry or {
+        "name": "graph_while", "route": "cuda",
+        "source": SOURCES["graph_while"],
+        "replaces": "paddle_tpu/nn/control_flow.py:326", "launches": None,
+        **{k: None for k in TIMING_KEYS}})
+    log(json.dumps({"static_graph": static_timings}))
     log(json.dumps({"kernels": kernels}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

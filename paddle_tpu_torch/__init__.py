@@ -66,7 +66,7 @@ from . import (amp, autograd, checkpoint, distributed,  # noqa: F401
                distribution, hapi, incubate, inference, io, jit, linalg,
                metric, monitor, nn, observability, onnx, optimizer, parallel,
                profiler, quantization, recompute, regularizer, serving,
-               testing)
+               static, testing)
 from .core.dispatch import call_op, call_op_nograd, unwrap  # noqa: F401
 from .core.autograd import enable_grad, grad, no_grad  # noqa: F401
 from .core.device import (CPUPlace, Place, TPUPlace,  # noqa: F401
@@ -112,11 +112,19 @@ def set_grad_enabled(flag):
 
 
 def in_dynamic_mode():
-    return True  # the port has no static mode
+    """False after :func:`enable_static` (a flag the reference's static
+    scripts set; ops run eagerly all the same: Programs record under
+    ``static.program_guard``)."""
+    return not static._static_mode()
+
+
+def enable_static(flag=True):
+    static._enable_static(flag)
 
 
 def disable_static(*args, **kwargs):
-    """A no-op: dygraph is the only mode."""
+    """Back to dygraph mode (the reference's is a no-op)."""
+    static._enable_static(False)
 
 
 # The model zoos and the datasets load on first use
@@ -148,5 +156,5 @@ __all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
            "is_compiled_with_tpu", "bool_", "uint8", "int8", "int16",
            "int64", "float16", "float64", "complex64", "complex128",
            "get_default_dtype", "set_default_dtype", "is_grad_enabled",
-           "set_grad_enabled", "in_dynamic_mode",
-           "disable_static"] + ops.__all__
+           "set_grad_enabled", "in_dynamic_mode", "static",
+           "enable_static", "disable_static"] + ops.__all__

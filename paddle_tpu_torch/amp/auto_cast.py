@@ -104,3 +104,6 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
     finally:
         (_state.enabled, _state.dtype, _state.level, _state.custom_white,
          _state.custom_black) = prev
+
+
+amp_guard = auto_cast

@@ -249,3 +249,43 @@ def call_op_nograd(fn, *args, op_name=None, **kwargs):
     """:func:`call_op` without recording a gradient."""
     with torch.no_grad():
         return call_op(fn, *args, op_name=op_name, **kwargs)
+
+
+# -- static-program recording (``static.program_guard``) ---------------------
+
+class _RecordState(threading.local):
+    def __init__(self):
+        self.program = None  # the Program this thread records into
+        self.stack = []      # it and the Programs it is recorded within
+        self.busy = False    # inside an op being recorded, or a replay
+
+
+_rec = _RecordState()
+_RECORDING = [0]  # program guards open on any thread
+
+
+def recorder():
+    """The Program this thread records into, or None: no guard is open,
+    or the caller runs inside an op that is being recorded or replayed
+    (nothing inside a recorded op is recorded)."""
+    if not _RECORDING[0] or _rec.busy:
+        return None
+    return _rec.program
+
+
+class suspend_recording:
+    """Nothing inside is recorded into a Program (an op's own body, a
+    replay); ``suspend_recording(False)`` records again inside (a
+    control-flow block recorded within its construct's op)."""
+
+    def __init__(self, busy=True):
+        self._busy = busy
+
+    def __enter__(self):
+        self._saved = _rec.busy
+        _rec.busy = self._busy
+        return self
+
+    def __exit__(self, *exc):
+        _rec.busy = self._saved
+        return False

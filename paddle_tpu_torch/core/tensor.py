@@ -92,7 +92,10 @@ def unwrap(x):
     torch tensor: an alias that keeps autograd; anything else as given."""
     t = type(x)
     if t is Tensor:
-        return x.as_subclass(torch.Tensor)
+        out = x.as_subclass(torch.Tensor)
+        if dispatch._RECORDING[0]:
+            _alias(x, out)
+        return out
     if t is tuple or t is list:
         return t(unwrap(v) for v in x)
     if t is dict:
@@ -105,7 +108,10 @@ def wrap(x):
     ``Tensor``s; parameters and anything else as given."""
     t = type(x)
     if t is torch.Tensor:
-        return x.as_subclass(Tensor)
+        out = x.as_subclass(Tensor)
+        if dispatch._RECORDING[0]:
+            _alias(x, out)
+        return out
     if t is tuple or t is list:
         return t(wrap(v) for v in x)
     if isinstance(x, tuple) and t.__module__ == "torch.return_types":
@@ -113,6 +119,13 @@ def wrap(x):
     if t is dict:
         return {k: wrap(v) for k, v in x.items()}
     return x
+
+
+def _alias(x, out):
+    """A recorded Program reads ``out`` (a new Python object over the same
+    tensor) as the variable ``x`` is."""
+    for prog in dispatch._rec.stack:
+        prog._alias(x, out)
 
 
 def _has_tensor(args, kwargs):
@@ -135,9 +148,19 @@ def boundary(fn, always=False, op_name=None):
     unless ``always`` (the ``ops``) asks for ``Tensor`` results anyway.
     With ``op_name`` (the ops and the functionals), a call that crosses
     the boundary runs under the op observers as that one op
-    (``core.dispatch``). The body stays reachable as ``__wrapped__``."""
+    (``core.dispatch``), and under ``static.program_guard`` any call that
+    reads a program variable or a parameter is recorded as that one op.
+    The body stays reachable as ``__wrapped__``."""
+    name = op_name
+
     @functools.wraps(fn)
     def call(*args, **kwargs):
+        if name is not None and dispatch._RECORDING[0]:
+            prog = dispatch.recorder()
+            if prog is not None:  # one op of a static Program
+                out = prog._record(fn, args, kwargs, name, plain_body=True)
+                if out is not prog.NOT_RECORDED:
+                    return out
         if not always and not _has_tensor(args, kwargs):
             return fn(*args, **kwargs)
         if op_name is not None and dispatch._OBSERVER_LIST is not None:

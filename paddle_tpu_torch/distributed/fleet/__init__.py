@@ -9,6 +9,7 @@ makers, the datasets, the TDM tree index
 (``index_dataset``) and the parameter-server entry points
 (``distributed.ps``)."""
 from . import elastic, meta_parallel, utils  # noqa: F401
+from .utils import recompute  # noqa: F401
 from .base import fleet_base as _fb
 from .base.distributed_strategy import DistributedStrategy  # noqa: F401
 from .base.role_maker import (PaddleCloudRoleMaker,  # noqa: F401
@@ -42,7 +43,7 @@ __all__ = ["DistributedStrategy", "CommunicateTopology",
            "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "InMemoryDataset",
            "QueueDataset", "TreeIndex", "LayerWiseSampler",
            "HybridCommunicateGroup", "meta_optimizers", "meta_parallel",
-           "utils", "elastic",
+           "utils", "elastic", "recompute",
            "ElasticManager", "init",
            "distributed_model", "distributed_optimizer",
            "get_hybrid_communicate_group", "worker_index", "worker_num",

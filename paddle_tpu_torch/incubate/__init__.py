@@ -18,6 +18,7 @@ from ..core.tensor import unwrap
 from ..nn.functional import softmax  # noqa: F401
 from ..ops.math import op, tensor_like
 from . import auto_checkpoint, moe  # noqa: F401
+from . import fleet as fleet1x  # noqa: F401  (the fleet 1.x facade)
 from .custom_op import load_custom_op  # noqa: F401
 from .moe import MoELayer  # noqa: F401
 from ..optimizer.averaging import LookAhead, ModelAverage  # noqa: F401

@@ -74,20 +74,35 @@ span) and a program in ``memory_stats()``: the pool bytes of its capture.
 
 A capture or replay that fails raises; the program never runs eagerly in
 its place. ``xla_flags`` and ``donate_state`` are accepted for the
-reference's signature and have no effect on CUDA. Not ported: the AST
-fallback and ``input_spec``.
+reference's signature and have no effect on CUDA; ``input_spec`` is
+stored, as the reference stores it.
+
+Data-dependent Python control flow (``if tensor:``, ``while tensor:``)
+reads a device value on the host, which a capture refuses. The eager
+warm-up unit watches for such a read in the caller's own code (a
+``__bool__``, ``item``, ``int`` or ``float`` of a tensor on the card):
+where one happens, the program captures the AST-transformed function
+instead (``jit.dy2static``, the reference's fallback), whose control flow
+becomes CUDA-graph conditional nodes (``nn.control_flow``), and counts a
+``jit_ast_fallbacks``. A function that cannot be transformed (a lambda)
+raises, naming the fallback. Functions marked :func:`not_to_static` are
+called as they are.
 """
 import functools
 import gc
+import sys
+import types
 import warnings
 import weakref
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from ..core import dispatch as _dispatch
 from ..core import random as _random
 from ..distributed import collective as _collective
 from ..distributed import parallel_env
+from ..kernels.graph_while import bodies_of
 from ..observability import memory as _memory
 from ..observability import tracing as _tracing
 
@@ -207,12 +222,36 @@ def _stack(outputs):
                     for col in zip(*per_step)])
 
 
+_HOST_READS = frozenset({"__bool__", "item", "__int__", "__float__",
+                         "__index__", "tolist"})
+_FRAMEWORK = ("torch", "paddle_tpu_torch")
+
+
+class _HostReadWatch(TorchFunctionMode):
+    """Notes a host read of a device tensor made by the caller's own code
+    (not by torch's or this package's)."""
+
+    seen = False
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if (not self.seen and getattr(func, "__name__", "") in _HOST_READS
+                and args and isinstance(args[0], torch.Tensor)
+                and args[0].is_cuda):
+            module = sys._getframe(1).f_globals.get("__name__", "") or ""
+            if module.split(".")[0] not in _FRAMEWORK:
+                self.seen = True
+        return func(*args, **(kwargs or {}))
+
+
 class _GraphProgram:
     """One unit of the body (``n`` inner steps) captured into a CUDA graph,
     with the static input buffers it reads and the outputs it writes."""
 
-    def __init__(self, run_step, unit_leaves, n, stacked, device):
+    def __init__(self, run_step, unit_leaves, n, stacked, device,
+                 on_host_read=None):
         self.run_step = run_step  # (i, step leaves) -> the body's output
+        # called when the eager unit read a device value on the host
+        self.on_host_read = on_host_read
         self.n = n
         self.stacked = stacked  # tensor inputs carry a leading [n] dim
         self.device = device
@@ -240,7 +279,11 @@ class _GraphProgram:
         self.inputs = [torch.empty_like(x) if isinstance(x, torch.Tensor)
                        else None for x in unit_leaves]
         self._load(unit_leaves)
-        out = self._call()
+        watch = _HostReadWatch()
+        with watch:
+            out = self._call()
+        if watch.seen and self.on_host_read is not None:
+            self.on_host_read()
         _check_outputs(out)
         spec = _structure(out[0], _output_leaf)
         self.graph = torch.cuda.CUDAGraph()
@@ -255,7 +298,7 @@ class _GraphProgram:
         try:
             # no op observer runs under a capture (a host read breaks it)
             with _dispatch.static_scope(), torch.cuda.graph(
-                    self.graph, stream=self.stream):
+                    self.graph, stream=self.stream), bodies_of(self.graph):
                 captured = self._call()
         finally:
             if collecting:
@@ -335,8 +378,7 @@ class StaticFunction:
                     f"scan_steps={self._scan_steps} must be a multiple of "
                     f"accumulate_steps={a} (whole accumulation windows)")
             self._accumulate_steps = a if a > 1 else None
-        if input_spec is not None:
-            raise NotImplementedError("input_spec is not ported")
+        self._input_spec = input_spec
         self._fn = fn
         self._programs = {}
         functools.update_wrapper(self, fn)
@@ -422,6 +464,32 @@ class StaticFunction:
             out = self._mean_over_ranks(out, dp, group)
         return out
 
+    def _try_ast_fallback(self):
+        """Capture the dy2static-transformed function from now on (once;
+        the eager unit that found the host read ran the original, which
+        means the same)."""
+        if getattr(self._fn, "_jst_transformed", False) or getattr(
+                self._fn, "_not_to_static", False):
+            return
+        _tracing.count("jit_ast_fallbacks", cat="jit")
+        from .dy2static import convert_to_static
+        fn = self._fn
+        try:
+            if isinstance(fn, types.MethodType):
+                self._fn = types.MethodType(convert_to_static(fn.__func__),
+                                            fn.__self__)
+            else:
+                self._fn = convert_to_static(fn)
+        except (OSError, TypeError, SyntaxError) as e:
+            raise RuntimeError(
+                "the program's warm-up read a device value on the host "
+                "(data-dependent Python control flow), which a CUDA graph "
+                f"cannot capture, and the AST fallback could not transform "
+                f"{fn!r} ({e}). Rewrite the condition with "
+                "paddle_tpu_torch.nn.control_flow (cond/while_loop), or "
+                "decorate a plain `def` (lambdas cannot be AST-transformed)"
+            ) from None
+
     def _memory_entries(self):
         """``(label, program)`` per captured program, labelled
         ``<fn>#<i>:<kind>`` as the reference labels its entries."""
@@ -475,7 +543,8 @@ class StaticFunction:
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = _GraphProgram(
-                run_step, unit_of(0), a, k is not None, device)
+                run_step, unit_of(0), a, k is not None, device,
+                on_host_read=self._try_ast_fallback)
         current = torch.cuda.current_stream(device)
         prog.stream.wait_stream(current)
         stacked = None
@@ -538,6 +607,13 @@ def to_static(function=None, input_spec=None, build_strategy=None,
                           scan_steps=scan_steps, dp_axis=dp_axis,
                           accumulate_steps=accumulate_steps,
                           xla_flags=xla_flags, **kwargs)
+
+
+def not_to_static(fn):
+    """Mark ``fn`` to be called as it is: the AST fallback neither
+    transforms it nor recurses into it."""
+    fn._not_to_static = True
+    return fn
 
 
 class InputSpec:

@@ -285,11 +285,26 @@ def reset_launch_counts():
     flash_attention_fwd.realigned = 0
 
 
+def _recorded(name, body, args, kwargs):
+    """``body`` as one op of the static Program being recorded, or None
+    when none is (``static.program_guard``; nothing inside is recorded)."""
+    prog = _dispatch.recorder()
+    if prog is None:
+        return None
+    out = prog._record(body, args, kwargs, name, plain_body=True)
+    return None if out is prog.NOT_RECORDED else out
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """q/k/v ``[B, S, H, D]`` -> (O ``[B, S_q, H, D]`` in q's dtype,
     lse ``[B, H, S_q]`` float32). ``scale`` defaults to ``1/sqrt(D)``.
     No autograd: differentiable callers go through :class:`FlashAttention`
     (:func:`flash_attention_bshd`). Calls :data:`flash_attention_fwd_op`."""
+    if _dispatch._RECORDING[0]:
+        out = _recorded("flash_attention_fwd", flash_attention_fwd,
+                        (q, k, v), {"causal": causal, "scale": scale})
+        if out is not None:
+            return out
     _check(q, k, v, causal)
     _device_of(q)
     if (q.device.type == "cuda" and torch.is_grad_enabled()
@@ -362,6 +377,12 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None):
     float32 ``[B, H, S_q]``) from q/k/v/O/dO ``[B, S, H, D]`` and the
     forward's lse (float32 ``[B, H, S_q]``). The delta is what
     :func:`flash_attention_bwd_dkv` takes."""
+    if _dispatch._RECORDING[0]:
+        out = _recorded("flash_attention_bwd_dq", flash_attention_bwd_dq,
+                        (q, k, v, o, do, lse),
+                        {"causal": causal, "scale": scale})
+        if out is not None:
+            return out
     if _dispatch._OBSERVER_LIST is not None:
         return _dispatch.observe_call(
             "flash_attention_bwd_dq", _flash_attention_bwd_dq, q, k, v, o,
@@ -405,6 +426,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     """(dK, dV), each ``[B, S_k, H, D]`` in the input dtype, from q/k/v/dO,
     the forward's lse and the ``delta`` that :func:`flash_attention_bwd_dq`
     returned (both float32 ``[B, H, S_q]``)."""
+    if _dispatch._RECORDING[0]:
+        out = _recorded("flash_attention_bwd_dkv", flash_attention_bwd_dkv,
+                        (q, k, v, do, lse, delta),
+                        {"causal": causal, "scale": scale})
+        if out is not None:
+            return out
     if _dispatch._OBSERVER_LIST is not None:
         return _dispatch.observe_call(
             "flash_attention_bwd_dkv", _flash_attention_bwd_dkv, q, k, v, do,
@@ -477,7 +504,14 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention_bshd(q, k, v, causal=False, scale=None):
     """q/k/v: [B, S, H, D] -> [B, S, H, D] (the reference's contract),
-    differentiable through :class:`FlashAttention` on every device."""
+    differentiable through :class:`FlashAttention` on every device. Under
+    ``static.program_guard`` it is one recorded op, whose replay's backward
+    is the kernels'."""
+    if _dispatch._RECORDING[0]:
+        out = _recorded("flash_attention", flash_attention_bshd, (q, k, v),
+                        {"causal": causal, "scale": scale})
+        if out is not None:
+            return out
     _check(q, k, v, causal)
     return FlashAttention.apply(q, k, v, bool(causal),
                                 _scale(scale, q.shape[3]))

@@ -1,6 +1,9 @@
-"""Layers and functionals (counterpart: ``paddle_tpu/nn``). Not ported:
-``nn/control_flow.py`` (ROADMAP item 17)."""
+"""Layers, functionals and control flow (counterpart:
+``paddle_tpu/nn``)."""
 from . import functional, initializer  # noqa: F401
+from .control_flow import (array_length, array_read,  # noqa: F401
+                           array_write, case, cond, create_array,
+                           switch_case, while_loop)
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
 from .layer.activation import (ELU, GELU, SELU, Hardshrink,  # noqa: F401
@@ -61,4 +64,6 @@ __all__ = [
     "RNN", "BiRNN", "SpectralNorm", "Unfold", "AlphaDropout",
     "UpsamplingBilinear2D", "UpsamplingNearest2D", "CTCLoss",
     "CosineEmbeddingLoss", "TripletMarginLoss", "ClipGradByValue",
-    "ClipGradByNorm", "ClipGradByGlobalNorm", "functional", "initializer"]
+    "ClipGradByNorm", "ClipGradByGlobalNorm", "functional", "initializer",
+    "cond", "case", "switch_case", "while_loop", "create_array",
+    "array_write", "array_read", "array_length"]

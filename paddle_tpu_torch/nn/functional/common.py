@@ -52,7 +52,10 @@ def linear(x, weight, bias=None):
 def embedding(x, weight, padding_idx=None, sparse=False):
     """Row lookup; rows whose id is ``padding_idx`` come out as zeros.
     ``sparse=True`` gives ``weight`` (a leaf: a parameter) a row gradient
-    instead of a dense one (module docstring)."""
+    instead of a dense one (module docstring). The dense gradient is
+    torch's embedding backward, which on the card adds the partial sums of
+    an id repeated many times atomically: run-to-run bitwise only under
+    ``torch.use_deterministic_algorithms(True)``."""
     table = _leaf(weight)
     (weight,) = cast_inputs("embedding", weight)
     if sparse and torch.is_grad_enabled() and table.requires_grad:

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from ...core import dispatch as _dispatch
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
@@ -110,8 +111,11 @@ class SpectralNorm(Layer):
                 v = v / (torch.linalg.vector_norm(v) + self._eps)
                 u = md @ v
                 u = u / (torch.linalg.vector_norm(u) + self._eps)
-            self.weight_u.copy_(u)
-            self.weight_v.copy_(v)
+            if _dispatch.recorder() is None:
+                # a Program records the power step as ops of its own and,
+                # as the reference's recorder, writes no vector back
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
         sigma = u @ (m @ v)
         return weight / sigma
 

@@ -131,8 +131,12 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None, fuse_accumulators=False):
         if parameters is None:
-            raise ValueError("parameters are required (the static-graph "
-                             "minimize path is not ported)")
+            from ..static.program import recording
+            if not recording():
+                raise ValueError(
+                    "parameters are required outside a static program "
+                    "(under program_guard, minimize adopts the program's)")
+            parameters = []
         parameters = list(parameters)
         if parameters and isinstance(parameters[0], dict):
             self._param_groups = [dict(g, params=list(g["params"]))
@@ -444,10 +448,45 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """The dygraph ``minimize``: backward, step, clear the gradients."""
+        """The dygraph ``minimize``: backward, step, clear the gradients.
+        Under ``static.program_guard`` it makes this the program's
+        optimizer instead: the Executor's training step minimizes
+        ``loss``, and this optimizer adopts the program's trainable
+        parameters (its rate and step move to their device)."""
+        from ..static import program as _program
+        if _program.recording():
+            return self._minimize_program(_program.default_main_program(),
+                                          loss)
         loss.backward()
         self.step()
         self.clear_grad()
+        return None, None
+
+    def _minimize_program(self, prog, loss):
+        if self._fuse_acc or self._fused is not None:
+            raise NotImplementedError(
+                "fuse_accumulators=True is a dygraph/to_static feature; the "
+                "static Program executor keeps per-parameter accumulators")
+        train = [p for _s, p in sorted(prog.params.items())
+                 if isinstance(p, torch.nn.Parameter) and p.requires_grad]
+        known = {id(p) for p in self._parameters()}
+        fresh = [p for p in train if id(p) not in known]
+        if fresh:
+            if not known:  # built without parameters: take their device
+                dev = fresh[0].device
+                self._lr.tensor = self._lr.tensor.to(dev)
+                self._step_count = self._step_count.to(dev)
+            self._param_groups.append({"params": fresh})
+            used = set(self._names.values())
+            for i, p in enumerate(fresh, start=len(known)):
+                name = getattr(p, "param_name", None)
+                if not name or name in used:
+                    name = f"param_{i}"
+                used.add(name)
+                self._names[id(p)] = name
+                self._create_accumulators(p)
+        prog._optimizer = self
+        prog._loss_slot = prog._slot_of(loss, create=False)
         return None, None
 
     def _prepare_step(self, lr):

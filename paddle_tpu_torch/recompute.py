@@ -249,7 +249,35 @@ def _stack(*contexts):
 
 
 def _segment_call(fn, args, kwargs, policy):
-    """``fn(*args, **kwargs)`` as one recompute segment."""
+    """``fn(*args, **kwargs)`` as one recompute segment; under
+    ``static.program_guard``, one recorded op (``recompute``) whose replay
+    is the segment: nothing inside it is recorded."""
+    from .core import dispatch
+    prog = dispatch.recorder()
+    if prog is not None:
+        out = prog._record(_replayable(fn, policy, args, kwargs), args,
+                           kwargs, "recompute", plain_body=True)
+        if out is not prog.NOT_RECORDED:
+            return out
+    return _segment_now(fn, args, kwargs, policy)
+
+
+def _replayable(fn, policy, args, kwargs):
+    """The segment over plain tensors (a recorded op's form); a segment
+    written over the package's ``Tensor`` gets ``Tensor``s."""
+    from .core.tensor import Tensor, unwrap, wrap
+    wrapped = any(type(a) is Tensor for a in list(args) + list(
+        kwargs.values()))
+
+    def segment(*a, **k):
+        if wrapped:
+            return unwrap(_segment_now(fn, wrap(a), wrap(k), policy))
+        return _segment_now(fn, a, k, policy)
+    segment.__name__ = "recompute"
+    return segment
+
+
+def _segment_now(fn, args, kwargs, policy):
     device = _device_of(args, kwargs)
     saveable, name = resolve_policy(policy, device=device)
     if saveable is None:
@@ -267,6 +295,19 @@ def _segment_call(fn, args, kwargs, policy):
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False, preserve_rng_state=False,
         context_fn=contexts, **kwargs)
+
+
+def remat_replay(fn):
+    """Mark ``fn`` as a rematerialization's replay of a segment's forward
+    (the reference's static-graph marker, which its graph verifier reads;
+    the port's recompute segments replay through ``torch.utils.checkpoint``
+    and read no marker)."""
+    fn._remat_replay = True
+    return fn
+
+
+def is_remat_replay(fn):
+    return bool(getattr(fn, "_remat_replay", False))
 
 
 def recompute(function, *args, policy="full", **kwargs):

@@ -17,8 +17,10 @@ from .batching import (DeadlineExceeded, DynamicBatcher,  # noqa: F401
                        OverloadedError, Request)
 from .engine import (DEFAULT_BUCKET_LADDER, Engine,  # noqa: F401
                      create_engine)
-from .passes import SERVING_PASSES, validate_passes  # noqa: F401
+from .passes import (SERVING_PASSES, build_serving_program,  # noqa: F401
+                     serving_bf16_cast_pass, validate_passes)
 
 __all__ = ["Engine", "create_engine", "DEFAULT_BUCKET_LADDER",
            "DynamicBatcher", "Request", "OverloadedError", "DeadlineExceeded",
-           "SERVING_PASSES", "validate_passes"]
+           "SERVING_PASSES", "validate_passes", "build_serving_program",
+           "serving_bf16_cast_pass"]

@@ -56,6 +56,7 @@ from .. import monitor as _monitor
 from ..core import dispatch as _dispatch
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype, to_numpy_dtype
+from ..kernels.graph_while import bodies_of
 from ..observability import export as _export
 from ..observability import memory as _memory
 from ..observability import runlog as _runlog
@@ -180,6 +181,45 @@ class _LayerSource:
         return prepared
 
 
+class _ProgramSource:
+    """A recorded ``static.Program`` and the tensors it serves: the load
+    pipeline (``passes.build_serving_program``) rewrites it, and the
+    served forward replays the result with the fed batch. Floating
+    outputs come back in the fetches' own dtypes (bfloat16 widened to
+    float32)."""
+
+    def __init__(self, program, fetches, output_names=None):
+        self.program = program
+        self.fetches = (list(fetches) if isinstance(fetches, (list, tuple))
+                        else [fetches])
+        self.output_names = output_names or [
+            f"output_{i}" for i in range(len(self.fetches))]
+
+    def prepare(self, passes, outputs):
+        from .passes import build_serving_program
+        keep, out_names = _select_outputs(self.output_names, outputs)
+        fetches = [self.fetches[i] for i in keep]
+        prog = build_serving_program(self.program, fetches, passes)
+        dtypes = [_served_dtype(t.dtype) for t in fetches]
+        names = list(prog.feed_vars)
+        run = prog._pure([prog.feed_vars[n][0] for n in names],
+                         [prog._slot_of(t, create=False) for t in fetches])
+
+        def forward(feeds):
+            return tuple(o.to(dt) for o, dt in zip(run(feeds), dtypes))
+
+        specs = [(tuple(None if d in (None, -1) else int(d)
+                        for d in prog.feed_vars[n][1]),
+                  convert_dtype(prog.feed_vars[n][2])) for n in names]
+        params = list(prog.params.values())
+        devices = {t.device for t in params}
+        if len(devices) != 1:
+            raise ValueError(f"the program's tensors are on "
+                             f"{sorted(map(str, devices))}; serve from one")
+        return _Prepared(forward, devices.pop(), names, specs, out_names,
+                         sum(t.numel() * t.element_size() for t in params))
+
+
 def _parse_specs(input_specs):
     """[InputSpec | (shape, dtype[, name])] -> names, [(shape with None
     batch, torch dtype)]."""
@@ -222,8 +262,8 @@ class _BucketGraph:
         gc.disable()
         try:
             # no op observer runs under a capture (a host read breaks it)
-            with _dispatch.static_scope(), torch.cuda.graph(self.graph,
-                                                            pool=pool):
+            with _dispatch.static_scope(), torch.cuda.graph(
+                    self.graph, pool=pool), bodies_of(self.graph):
                 self.outputs = forward(self.feeds)
         finally:
             if collecting:
@@ -374,6 +414,19 @@ class Engine:
         device = kwargs.pop("device", None)
         return cls(None, _source=_LayerSource(layer, input_specs, device),
                    **kwargs)
+
+    @classmethod
+    def from_program(cls, program, fetches, output_names=None, **kwargs):
+        """Serve a recorded ``static.Program``: ``fetches`` (its tensors)
+        are the served outputs; the program runs on the device of its
+        parameters. A feed dimension read as a shape during the build is a
+        constant of the program (the reference's rule), so a program whose
+        batch axis was built at 1 serves at bucket 1 only."""
+        if "device" in kwargs:
+            raise TypeError("Engine.from_program serves on the device of the "
+                            "program's parameters; it takes no device=")
+        return cls(None, _source=_ProgramSource(program, fetches,
+                                                output_names), **kwargs)
 
     def _check_specs(self):
         names, specs = self._prep.input_names, self._prep.input_specs

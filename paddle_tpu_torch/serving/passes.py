@@ -18,12 +18,20 @@ engine's ``outputs=``) drops the unfetched outputs from the exported graph
 and eliminates the code that only they needed, as XLA's dead-code
 elimination does for the reference; ``"bf16"`` raises with the
 reference's guidance (:func:`check_artifact_passes`).
+
+On a recorded ``static.Program`` (``Engine.from_program``) the pipeline
+rewrites the program at load, as the reference's does
+(:func:`build_serving_program`): its evaluation clone, pruned to the
+served fetches, then :func:`serving_bf16_cast_pass` for ``"bf16"``.
+The reference's structural verification of each stage reads
+``analysis``, which is not ported (ROADMAP item 18).
 """
 import torch
 import torch.utils._pytree as pytree
 
 __all__ = ["SERVING_PASSES", "validate_passes", "apply_passes", "cast_feed",
-           "check_artifact_passes", "prune_outputs"]
+           "check_artifact_passes", "prune_outputs", "serving_bf16_cast_pass",
+           "build_serving_program"]
 
 SERVING_PASSES = ("bf16", "donate")
 
@@ -79,3 +87,67 @@ def prune_outputs(module, keep):
     graph.eliminate_dead_code()
     module.recompile()
     return before, len(graph.nodes)
+
+
+def _cast_bf16(v):
+    return v.to(torch.bfloat16)
+
+
+def serving_bf16_cast_pass(prog):
+    """A new Program with bfloat16 weights and compute: every float32
+    parameter, buffer or constant becomes a bfloat16 copy (the live
+    model's tensors stay as they are), and every float32 feed goes
+    through a ``cast`` op put first, whose output replaces the feed in
+    every op after it. Integer feeds pass through; outputs stay bfloat16
+    (the engine casts them back at its boundary)."""
+    from ..static.program import _OpRecord, _Slot
+    p = prog._shallow([])
+    p.params = {s: (t.detach().to(torch.bfloat16)
+                    if t.dtype == torch.float32 else t)
+                for s, t in prog.params.items()}
+    remap, casts, nslots = {}, [], prog._slot_count
+    for _name, (slot, _shape, dtype) in prog.feed_vars.items():
+        if str(dtype) not in ("float32", "torch.float32"):
+            continue
+        casts.append(_OpRecord(_cast_bf16, (_Slot(slot),), {}, [nslots],
+                               "cast"))
+        remap[slot] = nslots
+        nslots += 1
+
+    def rewrite(tree):
+        if isinstance(tree, _Slot):
+            return _Slot(remap.get(tree.idx, tree.idx))
+        if type(tree) in (tuple, list):
+            return type(tree)(rewrite(v) for v in tree)
+        if isinstance(tree, dict):
+            return {k: rewrite(v) for k, v in tree.items()}
+        return tree
+    p.ops = casts + [op.replace(args=rewrite(op.args),
+                                kwargs=rewrite(op.kwargs)) for op in prog.ops]
+    p._slot_count = nslots
+    p._produced = set(prog._produced) | set(remap.values())
+    p._optimizer = None
+    p._loss_slot = None
+    return p
+
+
+def build_serving_program(prog, fetches, passes=()):
+    """The load-time pipeline over a recorded Program: its evaluation
+    clone (dropout off, batch norm on its running statistics, no
+    statistics written), pruned to ``fetches``, then the program-rewrite
+    passes among ``passes`` (``"bf16"``). Returns the new Program; the
+    fetch tensors name its outputs still (slots are shared)."""
+    from ..static.passes import apply_pass, prune
+    validate_passes(passes)
+    p = prune(prog.clone(for_test=True), list(fetches))
+    if "bf16" in passes:
+        p = apply_pass(p, "serving_bf16_cast_pass")
+    return p
+
+
+def _register():
+    from ..static.passes import register_pass
+    register_pass("serving_bf16_cast_pass")(serving_bf16_cast_pass)
+
+
+_register()

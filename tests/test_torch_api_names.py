@@ -132,7 +132,15 @@ PORTED_MODULES = {
     "paddle_tpu.quantization", "paddle_tpu.ops.misc_tail",
     "paddle_tpu.linalg", "paddle_tpu.text", "paddle_tpu.incubate",
     "paddle_tpu.incubate.custom_op", "paddle_tpu.onnx",
-    "paddle_tpu.onnx._proto"}
+    "paddle_tpu.onnx._proto",
+    # the static graph: Program and Executor, the passes, the transpiler
+    # and the fleet 1.x facade, control flow, dy2static, TracedLayer and
+    # the fleet's recompute
+    "paddle_tpu.static", "paddle_tpu.static.program",
+    "paddle_tpu.static.passes", "paddle_tpu.static.transpiler",
+    "paddle_tpu.incubate.fleet", "paddle_tpu.nn.control_flow",
+    "paddle_tpu.jit.dy2static", "paddle_tpu.jit.traced_layer",
+    "paddle_tpu.distributed.fleet.utils.recompute"}
 PORTED_CLASSES = {
     "paddle_tpu.optimizer.optimizer": {
         "Optimizer", "Adam", "AdamW", "SGD", "Momentum", "Adagrad",
@@ -161,21 +169,15 @@ NOT_PORTED = {
     "paddle_tpu.observability.memory.top_buffers",
     "paddle_tpu.observability.memory.compile_program_twin",
     "paddle_tpu.observability.memory.attribute_program",
-    # the tracer and the static graph: ROADMAP item 17
-    "paddle_tpu.static.InputSpec",
-    "paddle_tpu.jit.not_to_static",
-    "paddle_tpu.recompute.remat_replay", "paddle_tpu.recompute.is_remat_replay",
-    "paddle_tpu.amp.amp_guard",
+    # the static analyzer's verification of a Program (the reference's
+    # analysis.verify, which reads its op records): ROADMAP item 18
+    "paddle_tpu.static.Program.verify",
     # the reference's device hop between pipeline stages (jax.device_put);
     # the port's stages exchange point to point
     "paddle_tpu.distributed.p2p_transfer",
     # the batch's GSPMD PartitionSpec; a port rank takes its slice instead
     "paddle_tpu.DataParallel.batch_pspec",
     "paddle_tpu.distributed.DataParallel.batch_pspec",
-    # serving a recorded static Program and its passes: ROADMAP item 17
-    "paddle_tpu.serving.Engine.from_program",
-    "paddle_tpu.serving.build_serving_program",
-    "paddle_tpu.serving.serving_bf16_cast_pass",
 }
 # Names under a module that re-export a ported one's, by prefix: held back
 # (absent under the port) until their module lands, then present as the

@@ -156,6 +156,18 @@ _SMALLER = ("paddle_tpu_torch.quantization", "paddle_tpu_torch.onnx",
             "paddle_tpu_torch.incubate", "paddle_tpu_torch.incubate.custom_op",
             "paddle_tpu_torch.distribution", "paddle_tpu_torch.text",
             "paddle_tpu_torch.dataset")
+# the static graph: Program and Executor, the passes, the transpiler and
+# the fleet 1.x facade, control flow over conditional nodes, dy2static,
+# TracedLayer and the fleet's recompute
+_STATIC = ("paddle_tpu_torch.static", "paddle_tpu_torch.static.program",
+           "paddle_tpu_torch.static.passes",
+           "paddle_tpu_torch.static.transpiler",
+           "paddle_tpu_torch.incubate.fleet",
+           "paddle_tpu_torch.nn.control_flow",
+           "paddle_tpu_torch.kernels.graph_while",
+           "paddle_tpu_torch.jit.dy2static",
+           "paddle_tpu_torch.jit.traced_layer",
+           "paddle_tpu_torch.distributed.fleet.utils.recompute")
 
 
 def _forbidden(name):
@@ -174,7 +186,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         assert f"'paddle_tpu_torch.{name}'" in top, (name, top)
     for name in _BERT_KSTEP + _DP_RECOMPUTE + _CHECKPOINT + _HYBRID \
             + _ARTIFACT + _RUNTIME + _PS + _NN + _HAPI + _OPTIMIZERS \
-            + _SMALLER:
+            + _SMALLER + _STATIC:
         assert f"'{name}'" in every, (name, every)
 
 
@@ -187,7 +199,8 @@ def test_package_import_brings_its_top_level_modules():
              "'save', 'load', 'incubate', 'parallel', 'inference', "
              "'profiler', 'observability', 'testing', 'call_op', 'io', "
              "'hapi', 'metric', 'Model', 'summary', 'flops', "
-             "'quantization', 'onnx', 'distribution', 'linalg')))\n"
+             "'quantization', 'onnx', 'distribution', 'linalg', "
+             "'static', 'enable_static')))\n"
              "print(sorted(n for n in sys.modules if n.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
